@@ -1,0 +1,130 @@
+"""Secret-key encryption for GLWE / GGSW and the secret key.
+
+Twin of `poulpy_tpu/core/encryption.py` (the slice's part).  Randomness is
+drawn on the host from the ChaCha8 `Source`, whole tensors at once and in
+the same order as the JAX package (mask from `source_xa`, then noise from
+`source_xe`, per encryption call), then moved to the module's device where
+the arithmetic runs.  Inputs are never modified in place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from poulpy_tpu_torch.core.layouts import (
+    GGSWCiphertext,
+    GLWECiphertext,
+    GLWEPlaintext,
+    GLWESecret,
+    glwe_size,
+)
+from poulpy_tpu_torch.core.prepared import GLWESecretPrepared
+from poulpy_tpu_torch.hal import dft
+from poulpy_tpu_torch.hal.module import Module
+from poulpy_tpu_torch.hal.normalization import vec_znx_normalize
+from poulpy_tpu_torch.hal.source import Source
+from poulpy_tpu_torch.hal.vec_znx import vec_znx_sub
+
+DEFAULT_SIGMA_XE = 3.2
+DEFAULT_BOUND_XE = 6.0 * DEFAULT_SIGMA_XE
+
+
+@dataclass(frozen=True)
+class NoiseInfos:
+    k: int
+    sigma: float = DEFAULT_SIGMA_XE
+    bound: float = DEFAULT_BOUND_XE
+
+    def target_limb_and_scale(self, base2k: int) -> tuple[int, float]:
+        limb = -(-self.k // base2k) - 1
+        scale = 2.0 ** ((limb + 1) * base2k - self.k)
+        return limb, scale
+
+
+def secret_new(module: Module, rank: int, source: Source, dist: str = "ternary_prob",
+               **kw) -> GLWESecret:
+    """Sample a GLWE secret.  Only the ternary_prob distribution is ported."""
+    if dist != "ternary_prob":
+        raise NotImplementedError(f"secret distribution {dist!r} is not ported")
+    data = source.ternary_prob((rank, module.n), kw.get("prob", 0.5))
+    return GLWESecret(data=torch.from_numpy(data).to(module.device), dist=dist)
+
+
+def _encrypt_core(module, base2k, size, pt_col, noise_limb, mask, e, pt, sk_data):
+    """Deterministic encryption arithmetic (randomness passed in)."""
+    rank = mask.shape[-3]
+    c0 = torch.zeros(mask.shape[:-3] + mask.shape[-2:], dtype=torch.int64, device=mask.device)
+    for i in range(1, rank + 1):
+        ci = mask[..., i - 1, :, :]
+        if pt is not None and pt_col == i:
+            ci = vec_znx_normalize(base2k, vec_znx_sub(ci, pt, res_size=size))
+        ci_dft = dft.dft_apply(module, ci)
+        ci_dft = dft.svp_apply(module, ci_dft, sk_data[i - 1])
+        ci_big = dft.idft_apply(module, ci_dft)
+        ci_n = dft.big_normalize(module, size, base2k, ci_big, base2k)
+        c0 = c0 - ci_n
+    c0[..., noise_limb, :] += e  # c0 is a fresh tensor: no input changes
+    if pt is not None and pt_col == 0:
+        c0 = vec_znx_sub(c0, -pt, res_size=size)
+    c0 = vec_znx_normalize(base2k, c0)
+    return torch.cat([c0[..., None, :, :], mask], dim=-3)
+
+
+def encrypt_sk_internal(module: Module, base2k: int, size: int, pt, pt_col: int,
+                        sk: GLWESecretPrepared, noise: NoiseInfos, source_xe: Source,
+                        source_xa: Source, batch_shape: tuple = ()):
+    """The shared encryption core: returns `[..., rank+1, size, N]` with
+    ct[i≥1] uniform and ct[0] = -Σ norm(ct[i]·s_i) + e (+ pt if pt_col = 0);
+    pt in column j > 0 is realised by treating ct[j] as (uniform − pt)."""
+    n = module.n
+    rank = sk.rank
+    if pt is not None:
+        batch_shape = tuple(torch.broadcast_shapes(tuple(batch_shape), tuple(pt.shape[:-2])))
+    mask = torch.from_numpy(
+        source_xa.uniform_digits(base2k, tuple(batch_shape) + (rank, size, n))
+    ).to(module.device)
+    limb, scale = noise.target_limb_and_scale(base2k)
+    e = torch.from_numpy(
+        source_xe.normal_f64(tuple(batch_shape) + (n,), noise.sigma * scale,
+                             noise.bound * scale).astype(np.int64)
+    ).to(module.device)
+    return _encrypt_core(module, base2k, size, pt_col, limb, mask, e, pt, sk.data)
+
+
+def glwe_encrypt_sk(module: Module, pt: GLWEPlaintext | None, sk: GLWESecretPrepared,
+                    base2k: int, k: int, source_xe: Source, source_xa: Source,
+                    sigma: float = DEFAULT_SIGMA_XE, bound: float = DEFAULT_BOUND_XE,
+                    batch_shape: tuple = ()) -> GLWECiphertext:
+    """GLWE secret-key encryption."""
+    size = glwe_size(base2k, k)
+    noise = NoiseInfos(k=k, sigma=sigma, bound=bound)
+    data = encrypt_sk_internal(module, base2k, size, None if pt is None else pt.data, 0, sk,
+                               noise, source_xe, source_xa, batch_shape)
+    return GLWECiphertext(data=data, base2k=base2k, k=k)
+
+
+def ggsw_encrypt_sk(module: Module, pt, sk: GLWESecretPrepared, base2k: int, k: int, dnum: int,
+                    source_xe: Source, source_xa: Source, dsize: int = 1,
+                    sigma: float = DEFAULT_SIGMA_XE,
+                    bound: float = DEFAULT_BOUND_XE) -> GGSWCiphertext:
+    """GGSW secret-key encryption: row r, column j encrypts m·s_j·gadget via
+    plaintext placement at limb (dsize−1) + r·dsize of ciphertext column j."""
+    size = glwe_size(base2k, k)
+    rank = sk.rank
+    noise = NoiseInfos(k=k, sigma=sigma, bound=bound)
+    n = module.n
+    pt = torch.as_tensor(pt, dtype=torch.int64).to(module.device)
+    batch = tuple(pt.shape[:-1])
+    pt_rows = torch.zeros(batch + (dnum, size, n), dtype=torch.int64, device=module.device)
+    for r in range(dnum):
+        pt_rows[..., r, (dsize - 1) + r * dsize, :] = pt
+    pt_rows = vec_znx_normalize(base2k, pt_rows)
+    cols = [
+        encrypt_sk_internal(module, base2k, size, pt_rows, j, sk, noise, source_xe, source_xa)
+        for j in range(rank + 1)
+    ]
+    data = torch.stack(cols, dim=-4)  # [..., dnum, rank+1, rank+1, size, N]
+    return GGSWCiphertext(data=data, base2k=base2k, k=k, dsize=dsize)

@@ -1,0 +1,46 @@
+"""GLWE × GGSW external product and CMux.
+
+Twin of `poulpy_tpu/core/external_product.py`.  Every product, any dsize,
+goes through `backends.fused.fused_glwe_product`: one CUDA launch for a CUDA
+batch, the plain stage chain (dft → vmp → idft → normalize) for a CPU one.
+The wide (i128-twin) path of the reference is not ported: a parameter set
+whose product bound exceeds 62 bits raises `NotImplementedError`.
+"""
+
+from __future__ import annotations
+
+from poulpy_tpu_torch.backends.fused import fused_glwe_product
+from poulpy_tpu_torch.core.layouts import GLWECiphertext, glwe_size
+from poulpy_tpu_torch.core.operations import glwe_add, glwe_sub
+from poulpy_tpu_torch.core.prepared import GGSWPrepared
+from poulpy_tpu_torch.hal import dft
+from poulpy_tpu_torch.hal.module import Module
+from poulpy_tpu_torch.hal.normalization import vec_znx_normalize_full
+
+
+def glwe_external_product(module: Module, a: GLWECiphertext, ggsw: GGSWPrepared,
+                          res_base2k: int | None = None,
+                          res_k: int | None = None) -> GLWECiphertext:
+    res_base2k = a.base2k if res_base2k is None else res_base2k
+    res_k = a.k if res_k is None else res_k
+    res_size = glwe_size(res_base2k, res_k)
+    if a.base2k != ggsw.base2k:
+        data = vec_znx_normalize_full(glwe_size(ggsw.base2k, a.k), ggsw.base2k, 0, a.data,
+                                      a.base2k)
+        a = GLWECiphertext(data=data, base2k=ggsw.base2k, k=a.k)
+    bits = dft.product_bits(ggsw.base2k, ggsw.base2k, module.log_n, ggsw.dnum * (ggsw.rank + 1))
+    if dft.needs_wide(bits):
+        raise NotImplementedError(
+            f"external product bound of {bits} bits needs the wide (i128) path, "
+            "which is not ported")
+    res = fused_glwe_product(module, a.data, ggsw.pmat, res_size, res_base2k, ggsw.base2k,
+                             dsize=ggsw.dsize)
+    return GLWECiphertext(data=res, base2k=res_base2k, k=res_k)
+
+
+def glwe_cmux(module: Module, sel: GGSWPrepared, ct1: GLWECiphertext,
+              ct0: GLWECiphertext) -> GLWECiphertext:
+    """CMux(sel, ct1, ct0) = ct0 + sel ⊡ (ct1 − ct0)."""
+    diff = glwe_sub(ct1, ct0)
+    prod = glwe_external_product(module, diff, sel, ct0.base2k, ct0.k)
+    return glwe_add(ct0, prod)

@@ -1,0 +1,55 @@
+"""Prepared (DFT-domain) layouts: twins of `poulpy_tpu/core/prepared.py`
+(the slice's part).
+
+  GLWESecretPrepared     data [rank, P, N]                      (Montgomery)
+  GGSWPrepared           pmat [dnum, rank+1, rank+1, size, P, N] (Montgomery)
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from poulpy_tpu_torch.core.layouts import GGSWCiphertext, GLWESecret, _Replace
+from poulpy_tpu_torch.hal import dft
+from poulpy_tpu_torch.hal.module import Module
+
+
+@dataclass(frozen=True)
+class GLWESecretPrepared(_Replace):
+    data: torch.Tensor  # [rank, P, N] Montgomery NTT
+    dist: str = "ternary_prob"
+
+    @property
+    def rank(self) -> int:
+        return self.data.shape[-3]
+
+
+@dataclass(frozen=True)
+class GGSWPrepared(_Replace):
+    pmat: torch.Tensor  # [dnum, rank+1, rank+1, size, P, N]
+    base2k: int
+    k: int
+    dsize: int = 1
+
+    @property
+    def dnum(self) -> int:
+        return self.pmat.shape[-6]
+
+    @property
+    def rank(self) -> int:
+        return self.pmat.shape[-4] - 1
+
+    @property
+    def size(self) -> int:
+        return self.pmat.shape[-3]
+
+
+def glwe_secret_prepare(module: Module, sk: GLWESecret) -> GLWESecretPrepared:
+    return GLWESecretPrepared(data=dft.svp_prepare(module, sk.data), dist=sk.dist)
+
+
+def ggsw_prepare(module: Module, ct: GGSWCiphertext) -> GGSWPrepared:
+    return GGSWPrepared(pmat=dft.vmp_prepare(module, ct.data), base2k=ct.base2k, k=ct.k,
+                        dsize=ct.dsize)

@@ -1,0 +1,201 @@
+// Modular and wrapping-int64 helpers shared by the poulpy_tpu_torch kernels.
+//
+// Every function here computes exactly what its twin in
+// poulpy_tpu_torch/hal/ntt.py or hal/normalization.py computes, so the kernels'
+// outputs equal the plain PyTorch versions' bit for bit: residues are canonical
+// in [0, p), Montgomery products use R = 2^30, limbs are wrapping int64.
+// Hopper has native 64-bit integer multiplies, so none of the TPU kernels'
+// 15-bit digit products or (hi, lo) i32 pairs are needed.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace poulpy {
+
+constexpr uint32_t MASK30 = (1u << 30) - 1;
+
+// Layout of the per-prime constants (backends/ntt.py: kernel_tables).
+constexpr int CONSTS_PER_PRIME = 8;
+enum { C_P = 0, C_QINV = 1, C_NINV = 2, C_GINV = 3, C_HALF = 4, C_WEIGHT = 5, C_MOD = 6 };
+
+constexpr int MAX_PRIMES = 8;
+constexpr int MAX_LIMBS = 16;
+
+// REDC_{2^30}(a·b) for a < 2^30, b < p < 2^30: canonical a·b·R^{-1} mod p.
+__device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b, uint32_t p, uint32_t qinv) {
+  const uint64_t t = (uint64_t)a * b;
+  const uint32_t m = ((uint32_t)t * qinv) & MASK30;
+  const uint64_t u = (t + (uint64_t)m * p) >> 30;
+  return (uint32_t)(u >= p ? u - p : u);
+}
+
+__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) {
+  const uint32_t s = a + b;
+  return s >= p ? s - p : s;
+}
+
+__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t p) {
+  return a >= b ? a - b : a + p - b;
+}
+
+// Σ_k x_k·y_k accumulated in u64 (each term < 2^60), reduced to canonical
+// Σ x_k·y_k·R^{-1} mod p.  The accumulator is folded mod p whenever it reaches
+// 2^63, so no sum can wrap whatever K and p < 2^30 are.
+__device__ __forceinline__ uint64_t mac_guard(uint64_t acc, uint32_t x, uint32_t y, uint32_t p) {
+  acc += (uint64_t)x * y;
+  return (acc >> 63) ? acc % p : acc;
+}
+
+__device__ __forceinline__ uint32_t fold_redc(uint64_t acc, uint32_t p, uint32_t qinv) {
+  return mont_mul((uint32_t)(acc % p), 1u, p, qinv);
+}
+
+// Forward negacyclic Cooley–Tukey NTT, in place, of `rows` rows of n = 2^logn
+// words in shared memory.  Stage s has 2^s blocks of half-length 2^(logn-1-s);
+// block i uses tw[2^s + i] (bit-reversed psi powers, Montgomery form).  The
+// caller synchronises before; every stage ends with a barrier.
+__device__ __forceinline__ void ntt_fwd_rows(uint32_t* buf, int rows, int logn,
+                                             const int32_t* __restrict__ tw,
+                                             uint32_t p, uint32_t qinv) {
+  const int halfn = 1 << (logn - 1);
+  const int total = rows << (logn - 1);
+  for (int s = 0; s < logn; ++s) {
+    const int hl = logn - 1 - s;
+    for (int bf = threadIdx.x; bf < total; bf += blockDim.x) {
+      const int row = bf >> (logn - 1);
+      const int j = bf & (halfn - 1);
+      const int i = j >> hl;
+      const int lo = (row << logn) + (i << (hl + 1)) + (j & ((1 << hl) - 1));
+      const int hi = lo + (1 << hl);
+      const uint32_t w = (uint32_t)__ldg(tw + (1 << s) + i);
+      const uint32_t a = buf[lo];
+      const uint32_t v = mont_mul(buf[hi], w, p, qinv);
+      buf[lo] = add_mod(a, v, p);
+      buf[hi] = sub_mod(a, v, p);
+    }
+    __syncthreads();
+  }
+}
+
+// Inverse (Gentleman–Sande) of ntt_fwd_rows, without the final N^{-1} scale:
+// the caller applies mont_mul(x, ninv) as it reads the result.
+__device__ __forceinline__ void ntt_inv_rows(uint32_t* buf, int rows, int logn,
+                                             const int32_t* __restrict__ tw_inv,
+                                             uint32_t p, uint32_t qinv) {
+  const int halfn = 1 << (logn - 1);
+  const int total = rows << (logn - 1);
+  for (int s = logn - 1; s >= 0; --s) {
+    const int hl = logn - 1 - s;
+    for (int bf = threadIdx.x; bf < total; bf += blockDim.x) {
+      const int row = bf >> (logn - 1);
+      const int j = bf & (halfn - 1);
+      const int i = j >> hl;
+      const int lo = (row << logn) + (i << (hl + 1)) + (j & ((1 << hl) - 1));
+      const int hi = lo + (1 << hl);
+      const uint32_t w = (uint32_t)__ldg(tw_inv + (1 << s) + i);
+      const uint32_t a = buf[lo];
+      const uint32_t b = buf[hi];
+      buf[lo] = add_mod(a, b, p);
+      buf[hi] = mont_mul(sub_mod(a, b, p), w, p, qinv);
+    }
+    __syncthreads();
+  }
+}
+
+// ---- wrapping int64 (signed overflow is undefined in C++: go through u64) ----
+
+__device__ __forceinline__ int64_t wadd(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a + (uint64_t)b);
+}
+
+__device__ __forceinline__ int64_t wsub(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a - (uint64_t)b);
+}
+
+// x << s for any s >= 0 (s >= 64 gives 0): hal/normalization.py _shl_wrap.
+__device__ __forceinline__ int64_t shl_wrap(int64_t x, int s) {
+  return s >= 64 ? 0 : (int64_t)((uint64_t)x << s);
+}
+
+// Arithmetic shift by a signed amount, right shifts clamped to 63.
+__device__ __forceinline__ int64_t ash(int64_t x, int s) {
+  return s >= 0 ? shl_wrap(x, s) : (x >> (-s < 63 ? -s : 63));
+}
+
+// Signed kr-bit window of d·2^t (hal/normalization.py _window).
+__device__ __forceinline__ int64_t window(int64_t d, int t, int kr) {
+  return wsub(ash(d, t), shl_wrap(ash(d, t - kr), kr));
+}
+
+__device__ __forceinline__ int64_t get_digit(int k, int64_t x) {
+  return ((int64_t)((uint64_t)x << (64 - k))) >> (64 - k);
+}
+
+__device__ __forceinline__ int64_t get_carry(int k, int64_t x, int64_t digit) {
+  return wsub(x, digit) >> k;
+}
+
+// vec_znx_normalize(kr, a) with lsh = 0, for one coefficient of `size` limbs.
+__device__ __forceinline__ void normalize_limbs(const int64_t* a, int size, int64_t* out, int kr) {
+  if (size == 1) {
+    out[0] = get_digit(kr, get_digit(kr, a[0]));
+    return;
+  }
+  int64_t d = get_digit(kr, a[size - 1]);
+  int64_t c = get_carry(kr, a[size - 1], d);
+  out[size - 1] = d;
+  for (int j = size - 2; j > 0; --j) {
+    d = get_digit(kr, a[j]);
+    const int64_t carry = get_carry(kr, a[j], d);
+    const int64_t dpc = wadd(d, c);
+    const int64_t x1 = get_digit(kr, dpc);
+    out[j] = x1;
+    c = wadd(carry, get_carry(kr, dpc, x1));
+  }
+  out[0] = get_digit(kr, wadd(get_digit(kr, a[0]), c));
+}
+
+// vec_znx_normalize_full(res_size, kr, 0, a, ka) for one coefficient.
+__device__ __forceinline__ void normalize_full(const int64_t* a, int a_size, int64_t* out,
+                                               int res_size, int kr, int ka) {
+  if (kr == ka && res_size == a_size) {
+    normalize_limbs(a, a_size, out, kr);
+    return;
+  }
+  int64_t acc[MAX_LIMBS];
+  for (int i = 0; i < res_size; ++i) {
+    int64_t s = 0;
+    for (int j = 0; j < a_size; ++j) s = wadd(s, window(a[j], (i + 1) * kr - (j + 1) * ka, kr));
+    acc[i] = s;
+  }
+  normalize_limbs(acc, res_size, out, kr);
+}
+
+// Centred Garner CRT lift of one coefficient (hal/ntt.py garner_lift): residues
+// r[0..P) → wrapping int64.
+__device__ __forceinline__ int64_t garner(const uint32_t* r, int P, const int64_t* __restrict__ consts) {
+  const int64_t* pprod = consts + P * CONSTS_PER_PRIME;
+  uint32_t d[MAX_PRIMES];
+  uint64_t v = 0;
+  for (int i = 0; i < P; ++i) {
+    const int64_t* c = consts + i * CONSTS_PER_PRIME;
+    const uint32_t p = (uint32_t)c[C_P];
+    const uint32_t qinv = (uint32_t)c[C_QINV];
+    uint32_t x = r[i];
+    for (int j = 0; j < i; ++j) x = sub_mod(x, mont_mul(d[j], (uint32_t)pprod[i * P + j], p, qinv), p);
+    if (i > 0) x = mont_mul(x, (uint32_t)c[C_GINV], p, qinv);
+    d[i] = x;
+    v += (uint64_t)x * (uint64_t)c[C_WEIGHT];
+  }
+  bool gt = false, eq = true;
+  for (int i = P - 1; i >= 0; --i) {
+    const uint32_t h = (uint32_t)consts[i * CONSTS_PER_PRIME + C_HALF];
+    gt = gt || (eq && d[i] > h);
+    eq = eq && d[i] == h;
+  }
+  if (gt) v -= (uint64_t)consts[C_MOD];
+  return (int64_t)v;
+}
+
+}  // namespace poulpy

@@ -1,0 +1,48 @@
+"""Module: the per-ring-degree backend handle.
+
+Twin of `poulpy_tpu/hal/module.py` without the mesh: ring degree N, the CRT
+prime basis and its NTT tables, resident on an explicit `device`.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from poulpy_tpu_torch.hal.ntt import NttTables, canonical_device
+from poulpy_tpu_torch.hal.primes import LOG_N_MAX, PrimeBasis, ntt_primes
+
+
+class Module:
+    """Backend handle: ring degree + CRT-NTT tables on `device`.
+
+    `prime_bits` bounds the basis primes below 2^prime_bits (30 maximises
+    bits per prime; 28 is the basis the headline configuration uses).
+    """
+
+    def __init__(self, n: int, nprimes: int = 4, prime_bits: int = 30, device="cpu"):
+        assert n & (n - 1) == 0 and 4 <= n <= (1 << LOG_N_MAX)
+        assert 18 <= prime_bits <= 30
+        self.n = n
+        self.log_n = n.bit_length() - 1
+        self.device = canonical_device(device)
+        self.basis = PrimeBasis(ntt_primes(nprimes, below=1 << prime_bits))
+        self.tables = NttTables(self.basis, n, self.device)
+
+    @property
+    def nprimes(self) -> int:
+        return self.basis.nprimes
+
+    def __repr__(self):
+        return f"Module(n={self.n}, primes={self.basis.primes}, device={self.device})"
+
+
+@functools.lru_cache(maxsize=None)
+def _get_module(n: int, nprimes: int, prime_bits: int, device: torch.device) -> Module:
+    return Module(n, nprimes, prime_bits, device)
+
+
+def get_module(n: int, nprimes: int = 4, prime_bits: int = 30, device="cpu") -> Module:
+    """Cached Module per (n, nprimes, prime_bits, device)."""
+    return _get_module(n, nprimes, prime_bits, canonical_device(device))

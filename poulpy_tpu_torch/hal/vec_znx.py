@@ -1,0 +1,77 @@
+"""Limb-vector ("vec_znx") operations and encode/decode.
+
+Twin of `poulpy_tpu/hal/vec_znx.py` (the part the slice needs).  A vec_znx
+is `[..., size, N]` int64 (limb 0 = most significant).  Differing-size
+operands: sum over the common limbs, copy the longer tail, zero beyond.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from poulpy_tpu_torch.hal.normalization import vec_znx_normalize
+
+
+def _pad_to(x, res_size: int):
+    size = x.shape[-2]
+    if size == res_size:
+        return x
+    if size > res_size:
+        return x[..., :res_size, :]
+    return F.pad(x, (0, 0, 0, res_size - size))
+
+
+def vec_znx_add(a, b, res_size: int | None = None):
+    if res_size is None:
+        res_size = max(a.shape[-2], b.shape[-2])
+    return _pad_to(a, res_size) + _pad_to(b, res_size)
+
+
+def vec_znx_sub(a, b, res_size: int | None = None):
+    if res_size is None:
+        res_size = max(a.shape[-2], b.shape[-2])
+    return _pad_to(a, res_size) - _pad_to(b, res_size)
+
+
+def encode_vec_i64(base2k: int, k: int, size: int, data):
+    """Encode integer coefficients at torus precision 2^-k into a normalized
+    `size`-limb vector: place data at limb ceil(k/base2k)-1 and normalize
+    with the fused shift (base2k - k % base2k) % base2k."""
+    data = torch.as_tensor(data, dtype=torch.int64)
+    enc_size = -(-k // base2k)
+    assert enc_size <= size, f"k={k} needs {enc_size} limbs > size={size}"
+    n = data.shape[-1]
+    a = torch.zeros(data.shape[:-1] + (size, n), dtype=torch.int64, device=data.device)
+    a[..., enc_size - 1, :] = data
+    k_rem = (base2k - (k % base2k)) % base2k
+    if enc_size == size:
+        return vec_znx_normalize(base2k, a, lsh=k_rem)
+    head = vec_znx_normalize(base2k, a[..., :enc_size, :], lsh=k_rem)
+    return torch.cat([head, a[..., enc_size:, :]], dim=-2)
+
+
+def _div_round(x, sh: int):
+    """x / 2^sh, truncating, then rounded half away from zero."""
+    if sh == 0:
+        return x
+    trunc = torch.where(x >= 0, x >> sh, -((-x) >> sh))
+    r = x - (trunc << sh)
+    bump = torch.where(2 * torch.abs(r) >= (1 << sh), torch.sign(x), torch.zeros_like(x))
+    return trunc + bump
+
+
+def decode_vec_i64(base2k: int, k: int, a):
+    """Decode limbs back to integers at precision k."""
+    size = -(-k // base2k)
+    rem = base2k - (k % base2k) if k % base2k != 0 else base2k
+    data = a[..., 0, :]
+    if k < base2k:
+        return _div_round(data, base2k - k)
+    for i in range(1, size):
+        if i == size - 1 and rem != base2k:
+            k_rem = base2k - rem
+            data = (data << k_rem) + _div_round(a[..., i, :], rem)
+        else:
+            data = (data << base2k) + a[..., i, :]
+    return data

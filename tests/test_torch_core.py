@@ -1,0 +1,198 @@
+"""poulpy_tpu_torch.core against poulpy_tpu.core, bit for bit, and the slice
+as a whole: the same seeds through keygen → encrypt → GGSW prepare → three
+chained external products → checksum → decrypt in both packages, every
+intermediate compared with `np.array_equal` (tolerance 0), on both prime
+bases of the slice.  Shapes follow bench.py cut to N = 128, batch 3:
+base2k 17, ciphertext k 51, GGSW k 68, dnum 3.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from poulpy_tpu.core import decryption as jdec
+from poulpy_tpu.core import encryption as jenc
+from poulpy_tpu.core import external_product as jext
+from poulpy_tpu.core import layouts as jlay
+from poulpy_tpu.core import prepared as jprep
+from poulpy_tpu.hal import vec_znx as jvz
+from poulpy_tpu.hal.module import get_module as j_get_module
+from poulpy_tpu.hal.source import Source as JSource
+from poulpy_tpu_torch.core import decryption as tdec
+from poulpy_tpu_torch.core import encryption as tenc
+from poulpy_tpu_torch.core import external_product as text
+from poulpy_tpu_torch.core import layouts as tlay
+from poulpy_tpu_torch.core import prepared as tprep
+from poulpy_tpu_torch.hal import vec_znx as tvz
+from poulpy_tpu_torch.hal.module import get_module as t_get_module
+from poulpy_tpu_torch.hal.source import Source as TSource
+from poulpy_tpu_torch.utils import interop
+
+N, B = 128, 3
+BASE2K, K_CT, K_PT, K_KEY, DNUM = 17, 51, 34, 68, 3
+BITS = [28, 30]
+
+# the JAX package's prepare steps run eagerly op by op; under jit they compile once
+j_secret_prepare = jax.jit(jprep.glwe_secret_prepare, static_argnums=0)
+j_ggsw_prepare = jax.jit(jprep.ggsw_prepare, static_argnums=0)
+
+
+def _eq(have, want):
+    have = have.cpu().numpy() if isinstance(have, torch.Tensor) else np.asarray(have)
+    want = np.asarray(want)
+    return have.shape == want.shape and np.array_equal(have, want)
+
+
+def _pipeline(pkg: str, bits: int) -> dict:
+    """bench.py's main path at test size, through one package."""
+    if pkg == "jax":
+        m, S, enc, ext, dec = j_get_module(N, 2, bits), JSource, jenc, jext, jdec
+        lay, vz, sprep, gprep, arr = jlay, jvz, j_secret_prepare, j_ggsw_prepare, jnp.asarray
+    else:
+        m, S, enc, ext, dec = t_get_module(N, 2, bits), TSource, tenc, text, tdec
+        lay, vz, arr = tlay, tvz, torch.as_tensor
+        sprep, gprep = tprep.glwe_secret_prepare, tprep.ggsw_prepare
+    src, xe, xa = S(bytes(32)), S(b"\x01" * 32), S(b"\x02" * 32)
+    out = {"sk": enc.secret_new(m, 1, src)}
+    out["skp"] = sprep(m, out["sk"])
+    data = np.random.default_rng(0).integers(-(2**15), 2**15, size=(B, N), dtype=np.int64)
+    pt = lay.GLWEPlaintext(data=vz.encode_vec_i64(BASE2K, K_PT, 3, arr(data)), base2k=BASE2K,
+                           k=K_PT)
+    out["pt"] = pt
+    out["ct"] = enc.glwe_encrypt_sk(m, pt, out["skp"], BASE2K, K_CT, xe, xa, batch_shape=(B,))
+    ptg = np.zeros(N, dtype=np.int64)
+    ptg[1] = 1
+    out["ggsw"] = enc.ggsw_encrypt_sk(m, arr(ptg), out["skp"], BASE2K, K_KEY, dnum=DNUM,
+                                      source_xe=xe, source_xa=xa)
+    out["ggswp"] = gprep(m, out["ggsw"])
+    prods = [out["ct"]]
+    for _ in range(3):
+        prods.append(ext.glwe_external_product(m, prods[-1], out["ggswp"]))
+    out["prods"] = prods[1:]
+    last = prods[-1].data
+    out["checksum"] = int((last.abs() % 65536).sum()) if pkg == "torch" else \
+        int(jnp.sum(jnp.abs(last) % 65536))
+    out["dec"] = dec.glwe_decrypt(m, prods[-1], out["skp"])
+    out["decoded"] = vz.decode_vec_i64(BASE2K, K_PT, out["dec"].data)
+    out["data"] = data
+    return out
+
+
+@pytest.fixture(scope="module", params=BITS)
+def slice_runs(request):
+    return _pipeline("jax", request.param), _pipeline("torch", request.param)
+
+
+def test_secret_new_and_prepare(slice_runs):
+    j, t = slice_runs
+    assert _eq(t["sk"].data, j["sk"].data) and t["sk"].dist == j["sk"].dist
+    assert _eq(t["skp"].data, j["skp"].data)
+
+
+def test_glwe_encrypt_sk(slice_runs):
+    j, t = slice_runs
+    assert _eq(t["pt"].data, j["pt"].data)
+    assert _eq(t["ct"].data, j["ct"].data)
+    assert (t["ct"].base2k, t["ct"].k) == (j["ct"].base2k, j["ct"].k)
+
+
+def test_ggsw_encrypt_sk_and_prepare(slice_runs):
+    j, t = slice_runs
+    assert _eq(t["ggsw"].data, j["ggsw"].data)
+    assert _eq(t["ggswp"].pmat, j["ggswp"].pmat)
+    assert t["ggswp"].pmat.dtype == torch.int32
+
+
+def test_glwe_external_product_chain(slice_runs):
+    j, t = slice_runs
+    for have, want in zip(t["prods"], j["prods"]):
+        assert _eq(have.data, want.data)
+
+
+def test_slice_checksum_and_decrypt(slice_runs):
+    """The whole slice: equal checksums and plaintexts, and the plaintext is
+    the data times X^3 (three products by the GGSW of X)."""
+    j, t = slice_runs
+    assert t["checksum"] == j["checksum"]
+    assert _eq(t["dec"].data, j["dec"].data)
+    assert _eq(t["decoded"], j["decoded"])
+    rot = np.roll(t["data"], 3, axis=-1)
+    rot[:, :3] *= -1
+    assert np.array_equal(t["decoded"].numpy(), rot)
+
+
+def _keys(pkg, bits, dsize, bit):
+    """A secret, a GGSW of `bit` with the given dsize, and two ciphertexts."""
+    if pkg == "jax":
+        m, S, enc, sprep, gprep, arr = (j_get_module(N, 2, bits), JSource, jenc,
+                                        j_secret_prepare, j_ggsw_prepare, jnp.asarray)
+    else:
+        m, S, enc, arr = t_get_module(N, 2, bits), TSource, tenc, torch.as_tensor
+        sprep, gprep = tprep.glwe_secret_prepare, tprep.ggsw_prepare
+    src, xe, xa = S(b"\x05" * 32), S(b"\x06" * 32), S(b"\x07" * 32)
+    skp = sprep(m, enc.secret_new(m, 1, src))
+    ptg = np.zeros(N, dtype=np.int64)
+    ptg[0] = bit
+    dnum = 2 if dsize == 2 else DNUM
+    g = gprep(m, enc.ggsw_encrypt_sk(m, arr(ptg), skp, BASE2K, K_KEY, dnum=dnum,
+                                     source_xe=xe, source_xa=xa, dsize=dsize))
+    cts = [enc.glwe_encrypt_sk(m, None, skp, BASE2K, K_CT, xe, xa, batch_shape=(2,))
+           for _ in range(2)]
+    return m, skp, g, cts
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_glwe_external_product_dsize2(bits):
+    jm, _, jg, jcts = _keys("jax", bits, 2, 1)
+    tm, _, tg, tcts = _keys("torch", bits, 2, 1)
+    assert _eq(tg.pmat, jg.pmat) and tg.dsize == jg.dsize == 2
+    want = jext.glwe_external_product(jm, jcts[0], jg)
+    have = text.glwe_external_product(tm, tcts[0], tg)
+    assert _eq(have.data, want.data)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("bit", [0, 1])
+def test_glwe_cmux(bits, bit):
+    jm, jskp, jg, jcts = _keys("jax", bits, 1, bit)
+    tm, tskp, tg, tcts = _keys("torch", bits, 1, bit)
+    want = jext.glwe_cmux(jm, jg, jcts[0], jcts[1])
+    have = text.glwe_cmux(tm, tg, tcts[0], tcts[1])
+    assert _eq(have.data, want.data)
+    assert _eq(tdec.glwe_decrypt(tm, have, tskp).data, jdec.glwe_decrypt(jm, want, jskp).data)
+
+
+def test_wide_parameters_raise():
+    tm = t_get_module(N, 2, 30)
+    ggsw = tprep.GGSWPrepared(pmat=torch.zeros(3, 2, 2, 2, 2, N, dtype=torch.int32), base2k=30,
+                              k=60)
+    ct = tlay.GLWECiphertext(data=torch.zeros(2, 2, N, dtype=torch.int64), base2k=30, k=60)
+    with pytest.raises(NotImplementedError, match="wide"):
+        text.glwe_external_product(tm, ct, ggsw)
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_interop_jax_keys_drive_the_port(bits):
+    """Keys and ciphertexts made by the JAX package, carried into the port by
+    `interop`, give the JAX package's product; the port's result carried
+    back decrypts under JAX to the same plaintext."""
+    jm, jskp, jg, jcts = _keys("jax", bits, 1, 1)
+    tm = t_get_module(N, 2, bits)
+    tg = interop.from_fields(*interop.to_fields(jg))
+    tct = interop.from_fields(*interop.to_fields(jcts[0]))
+    tskp = interop.from_fields(*interop.to_fields(jskp))
+    assert isinstance(tg, tprep.GGSWPrepared) and tg.dsize == jg.dsize
+    have = text.glwe_external_product(tm, tct, tg)
+    want = jext.glwe_external_product(jm, jcts[0], jg)
+    assert _eq(have.data, want.data)
+    assert _eq(tdec.glwe_decrypt(tm, have, tskp).data, jdec.glwe_decrypt(jm, want, jskp).data)
+    name, fields = interop.to_fields(have)
+    back = getattr(jlay, name)(**{k: jnp.asarray(v) if k == "data" else v
+                                  for k, v in fields.items()})
+    assert _eq(jdec.glwe_decrypt(jm, back, jskp).data, jdec.glwe_decrypt(jm, want, jskp).data)
+    for obj in (jskp, jg, jcts[0]):
+        name, fields = interop.to_fields(interop.from_fields(*interop.to_fields(obj)))
+        assert name == type(obj).__name__
