@@ -1,30 +1,56 @@
 #!/usr/bin/env python3
-"""Smoke run of poulpy_tpu_torch on one CUDA card: the main path, once.
+"""Smoke run of poulpy_tpu_torch on one CUDA card: each ported path, once.
 
     python3 chip_smoke.py
 
-The main path is the headline operation of bench.py: a batched GLWE × GGSW
-external product at N = 2048, base2k = 17, ciphertext k = 51 (3 limbs),
-GGSW k = 68 (dnum 3, rank 1, dsize 1), on get_module(2048, 2, 28).
-Phases, each printing one JSON line:
+Three paths of the port run, each with the launch counters set to 0 just
+before it and read just after:
 
-  1. device   card name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build    nvcc build of the three kernels from csrc/ (sm_90a);
-  3. kernels  each CUDA kernel against its plain PyTorch version on the same
-              CUDA inputs at the main path's shapes, tolerance 0, with times;
-  4. verify   with the launch counters reset: stage by stage (NTT → VMP →
-              inverse NTT kernels, plain Garner and normalize) equals the
-              fused kernel at batch 64, and the fused result decrypts to
-              X·m exactly (bench.py verify_on_device);
-  5. bench    bench.py's workload at B = 16384 from the same seeds: keygen,
-              encryption, key preparation, 1 + 30 chained products; the
-              checksum sum(|out| mod 65536) must equal 6596757198292, the
-              value the JAX package's runs record (BENCH_r04/r05.json).
+- the product path, the headline operation of bench.py: a batched GLWE ×
+  GGSW external product at N = 2048, base2k = 17, ciphertext k = 51 (3
+  limbs), GGSW k = 68 (dnum 3, rank 1, dsize 1), on get_module(2048, 2, 28);
+- the gate path, bench_full.py's gate bootstrap: GateParams(n_lwe=568,
+  block_size=8) (N 1024, base2k 17, k_ct 34, BRK k 68 dnum 4, KSK k 51
+  dnum 2, get_module(1024, 2, 28)) at batch 1024: block-binary blind
+  rotation, GLWE → LWE keyswitch, sample extraction;
+- the keyswitch path, bench_full.py's keyswitch: N = 2048,
+  get_module(2048, 2) (30-bit primes), ciphertext k 51, key k 68, dnum 3.
 
-Then one line {"kernels": [...]} (launches counted over phases 4–5) and, last,
-{"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
-Without a CUDA device, or without the poulpy_tpu_torch package beside this
-file, it exits non-zero and prints no result.
+Phases, each printing JSON lines:
+
+  1. device      card name and power limit (nvidia-smi), torch and CUDA versions;
+  2. build       nvcc build of the kernels of csrc/ (sm_90a);
+  3. kernels     each CUDA kernel against its plain PyTorch version on the same
+                 CUDA inputs at its path's shapes, tolerance 0, with its time,
+                 the plain version's time and the bound (the least time the
+                 card could take: bytes over 3.35 TB/s or modular products
+                 over the int32 rate, the larger);
+  4. verify      product path: stage by stage (NTT → VMP → inverse NTT
+                 kernels, plain Garner and normalize) equals the fused kernel
+                 at batch 64, and the fused result decrypts to X·m exactly;
+  5. bench       product path: bench.py's workload at B = 16384: keygen,
+                 encryption, key preparation, 1 + 30 chained products; the
+                 checksum sum(|out| mod 65536) must equal 6596757198292, the
+                 value the JAX package's runs record (BENCH_r04/r05.json);
+  6. gate_verify gate path at batch 64: the block-step kernel's blind
+                 rotation equals the plain block path, NAND decrypts to
+                 1 − (b1 & b2); the standard path (one fused product per
+                 coefficient) at n_lwe 64, batch 64, passes the same check;
+  7. gate_bench  gate path at batch 1024: keygen and encryption from
+                 bench_full.py's seeds, 1 warm-up NAND whose fingerprint
+                 sum(|data| mod 65536) must equal GATE_FINGERPRINT (the JAX
+                 package's value on the CPU) and whose bits must be right,
+                 then 5 timed chained NANDs out ← NAND(out, c2), ending in a
+                 host checksum, decrypted against host-tracked bits;
+  8. keyswitch   keyswitch path: the keyswitch kernel equals the plain
+                 keyswitch at batch 8 and decrypts exactly; 16 chained
+                 single-ciphertext keyswitches; 1 + 10 chained keyswitches at
+                 batch 256.
+
+Then one line {"kernels": [...]} (launches summed over the three paths'
+runs) and, last, {"ok": true, "device": {...}}.  Any failure exits non-zero
+before that line.  Without a CUDA device, or without the poulpy_tpu_torch
+package beside this file, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -43,12 +69,35 @@ BATCH, ITERS, VERIFY_BATCH = 16384, 30, 64
 CHECKSUM = 6596757198292
 PLAIN_CHUNK = 2048          # batch chunk of the plain versions of the VMP and the fused product
 
+# gate path: bench_full.py bench_gate_bootstrap
+GATE_N_LWE, GATE_BLOCK, GATE_BATCH, GATE_ITERS = 568, 8, 1024, 5
+GATE_VERIFY_BATCH, STD_N_LWE = 64, 64
+# sum(|data| mod 65536) of gate_nand(keys, c1, c2) at bench_full.py's gate
+# configuration and seeds, batch 1024, computed by the JAX package on the CPU
+# (tests/test_torch_binfhe.py::test_gate_fingerprint_full_config recomputes it)
+GATE_FINGERPRINT = 38199110968
+# keyswitch path: bench_full.py _keyswitch_setup / bench_keyswitch_*
+KS_N, KS_K_KEY, KS_DNUM = 2048, 68, 3
+KS_VERIFY_BATCH, KS_CHAIN, KS_REPS, KS_BATCH, KS_ITERS = 8, 16, 5, 256, 10
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+# int32 multiply rate of an H100 SXM: 132 SMs × 64 int32 lanes × 1.98 GHz
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+_FUSED = "poulpy_tpu/backends/pallas_fused.py:951"
 KERNELS = {
     "ntt_forward": ("poulpy_tpu_torch/csrc/ntt.cu", "poulpy_tpu/backends/pallas_ntt.py:407"),
     "ntt_inverse": ("poulpy_tpu_torch/csrc/ntt.cu", "poulpy_tpu/backends/pallas_ntt.py:407"),
     "vmp": ("poulpy_tpu_torch/csrc/vmp.cu", "poulpy_tpu/backends/pallas_vmp.py:67"),
-    "fused_product": ("poulpy_tpu_torch/csrc/fused_product.cu",
-                      "poulpy_tpu/backends/pallas_fused.py:951"),
+    "fused_product": ("poulpy_tpu_torch/csrc/fused_product.cu", _FUSED),
+    "fused_product_small": ("poulpy_tpu_torch/csrc/fused_product.cu", _FUSED),
+    "br_block_step": ("poulpy_tpu_torch/csrc/br_block_step.cu", _FUSED),
+}
+# the kernels each path must launch
+PATHS = {
+    "product": ("ntt_forward", "ntt_inverse", "vmp", "fused_product"),
+    "gate": ("ntt_forward", "fused_product", "fused_product_small", "br_block_step"),
+    "keyswitch": ("ntt_forward", "fused_product_small"),
 }
 
 
@@ -69,6 +118,35 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes read once and written once
+    over the memory rate, or modular products over the int32 multiply rate
+    (each needs at least one 32-bit multiply), whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops)
+
+
+def ntt_ops(rows: int, n: int, inverse: bool = False) -> int:
+    """Modular products of `rows` NTTs of n points (+ the N^{-1} scale)."""
+    return rows * ((n // 2) * (n.bit_length() - 1) + (n if inverse else 0))
+
+
+def fused_ops(B: int, kk: int, mdim: int, P: int, n: int, block: int = 1) -> int:
+    """Modular products of the fused kernels: forward NTT of kk rows, the
+    block·kk·mdim VMP, the x-power factor (block steps), inverse NTT of mdim
+    rows, per prime and ciphertext (Garner and the exit not counted)."""
+    rot = block * mdim * n if block > 1 else 0
+    return B * P * (ntt_ops(kk, n) + block * kk * mdim * n + rot + ntt_ops(mdim, n, True))
 
 
 def chunked(fn, a, *args):
@@ -105,47 +183,80 @@ def keys_and_ciphertexts(m, batch: int, seed: int):
     return skp, data, ct, ggswp
 
 
-def phase_kernels(m) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
+def phase_kernels(m, gm) -> dict:
+    """Each kernel against its plain version at its path's shapes: the
+    product path's on `m`, the gate path's on `gm` at batch GATE_BATCH."""
     import torch
 
     from poulpy_tpu_torch.backends import fused, ntt, vmp
 
     gen = torch.Generator(device=m.device).manual_seed(5)
-    t = m.tables
-    primes = torch.tensor(m.basis.primes, device=m.device)[:, None]
 
     def ints(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=gen, device=m.device, dtype=torch.int64)
 
-    def residues(shape):
+    def residues(mod, shape):
+        primes = torch.tensor(mod.basis.primes, device=mod.device)[:, None]
         return (ints(0, 1 << 62, shape) % primes).to(torch.int32)
 
+    t = m.tables
     # the encryption of the batch transforms [B, 3 limbs, P, N] residues; the
     # product's matrix is [rows 3, ci 2, co 2, psize 4, P, N]
-    x = residues((BATCH, 3, NPRIMES, N))
-    a_dft = residues((BATCH, 2, 3, NPRIMES, N))
-    pmat = residues((DNUM, 2, 2, 4, NPRIMES, N))
+    x = residues(m, (BATCH, 3, NPRIMES, N))
+    a_dft = residues(m, (BATCH, 2, 3, NPRIMES, N))
+    pmat = residues(m, (DNUM, 2, 2, 4, NPRIMES, N))
     a = ints(-(2**16), 2**16, (BATCH, 2, 3, N))
+    # the gate path: the keyswitch [ci 1, k_ct 34: 2 limbs] × KSK [dnum 2, 1,
+    # 2, psize 3] with the body added, and one block step of the BRK [block 8,
+    # dnum 4, 2, 2, psize 4] on acc [2, 2 limbs]
+    gn, gp = gm.n, gm.nprimes
+    ks_a = ints(-(2**16), 2**16, (GATE_BATCH, 1, 2, gn))
+    ks_body = ints(-(2**16), 2**16, (GATE_BATCH, 2, gn))
+    ks_pmat = residues(gm, (2, 1, 2, 3, gp, gn))
+    acc = ints(-(2**16), 2**16, (GATE_BATCH, 2, 2, gn))
+    brk = residues(gm, (GATE_BLOCK, 4, 2, 2, 4, gp, gn))
+    amounts = ints(-gn, gn + 1, (GATE_BATCH, GATE_BLOCK))
+    pm_k = fused.pm_kernel_layout(brk, 2)
+    rows_used = int(torch.unique(amounts & (2 * gn - 1)).numel())
+    i32, i64 = 4, 8
     cases = {
-        "ntt_forward": (lambda: ntt.ntt_forward(t, x), lambda: ntt.ntt_forward_ref(t, x)),
-        "ntt_inverse": (lambda: ntt.ntt_inverse(t, x), lambda: ntt.ntt_inverse_ref(t, x)),
+        "ntt_forward": (lambda: ntt.ntt_forward(t, x), lambda: ntt.ntt_forward_ref(t, x),
+                        bound(2 * x.numel() * i32, ntt_ops(x.numel() // N, N))),
+        "ntt_inverse": (lambda: ntt.ntt_inverse(t, x), lambda: ntt.ntt_inverse_ref(t, x),
+                        bound(2 * x.numel() * i32, ntt_ops(x.numel() // N, N, True))),
         "vmp": (lambda: vmp.vmp_apply(m, a_dft, pmat),
-                lambda: chunked(lambda c: vmp.vmp_apply_ref(m, c, pmat), a_dft)),
+                lambda: chunked(lambda c: vmp.vmp_apply_ref(m, c, pmat), a_dft),
+                bound((a_dft.numel() + pmat.numel() + BATCH * 2 * 4 * NPRIMES * N) * i32,
+                      BATCH * 6 * 8 * NPRIMES * N)),
         "fused_product": (
             lambda: fused.fused_glwe_product(m, a, pmat, 3, BASE2K, BASE2K),
-            lambda: chunked(lambda c: fused.fused_glwe_product_ref(m, c, pmat, 3, BASE2K, BASE2K), a)),
+            lambda: chunked(lambda c: fused.fused_glwe_product_ref(m, c, pmat, 3, BASE2K, BASE2K), a),
+            bound(2 * a.numel() * i64 + pmat[:3].numel() * i32, fused_ops(BATCH, 6, 8, NPRIMES, N))),
+        "fused_product_small": (
+            lambda: fused.fused_glwe_product(gm, ks_a, ks_pmat, 2, BASE2K, BASE2K, small=ks_body),
+            lambda: fused.fused_glwe_product_ref(gm, ks_a, ks_pmat, 2, BASE2K, BASE2K,
+                                                 small=ks_body),
+            bound((ks_a.numel() + ks_body.numel() + GATE_BATCH * 2 * 2 * gn) * i64
+                  + ks_pmat.numel() * i32, fused_ops(GATE_BATCH, 2, 6, gp, gn))),
+        "br_block_step": (
+            lambda: fused.fused_br_block_step(gm, acc, brk, amounts, 2, BASE2K, pm_k),
+            lambda: fused.fused_br_block_step_ref(gm, acc, brk, amounts, 2, BASE2K),
+            bound(2 * acc.numel() * i64 + amounts.numel() * i64 + pm_k.numel() * i32
+                  + rows_used * gp * gn * i32,
+                  fused_ops(GATE_BATCH, 4, 8, gp, gn, GATE_BLOCK))),
     }
     out = {}
-    for name, (kernel, plain) in cases.items():
+    for name, (kernel, plain, bnd) in cases.items():
         have, want = kernel(), plain()
         torch.cuda.synchronize()
         err = int((have.to(torch.int64) - want.to(torch.int64)).abs().max())
         equal = bool(torch.equal(have, want))
         ms, plain_ms = cuda_ms(kernel, 5), cuda_ms(plain, 1)
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
+                         bound_by=bnd["bound_by"], library_ms=None)
         emit(phase="kernels", kernel=name, shape=list(have.shape), equal=equal, tolerance=0,
-             max_abs_err=err, ms=ms, plain_ms=plain_ms)
+             max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd,
+             share_of_bound=bnd["bound_ms"] / ms)
         if not equal:
             raise SystemExit(f"kernel {name} disagrees with its plain version")
         del have, want
@@ -207,6 +318,222 @@ def phase_bench(m) -> None:
         raise SystemExit(f"checksum {value} != {CHECKSUM}")
 
 
+def gate_setup(params, batch: int, device):
+    """bench_full.py bench_gate_bootstrap's set-up: keygen from bytes(32), the
+    bits from default_rng(0) and (1), encrypted from Source 0x05 / 0x06."""
+    import numpy as np
+
+    from poulpy_tpu_torch.binfhe import gates
+    from poulpy_tpu_torch.hal.source import Source
+
+    keys, sk = gates.keygen(params, bytes(32), device=device)
+    xe, xa = Source(b"\x05" * 32), Source(b"\x06" * 32)
+    b1 = np.random.default_rng(0).integers(0, 2, batch)
+    b2 = np.random.default_rng(1).integers(0, 2, batch)
+    c1 = gates.encrypt_bit(params, b1, sk, xe, xa)
+    c2 = gates.encrypt_bit(params, b2, sk, xe, xa)
+    return keys, sk, b1, b2, c1, c2
+
+
+def plain_block_rotation(keys, lwe):
+    """The block path with the plain step in place of the kernel (the same
+    mod switch, accumulator and blocks as blind_rotation_execute_block)."""
+    from poulpy_tpu_torch.backends.fused import fused_br_block_step_ref
+    from poulpy_tpu_torch.binfhe.blind_rotation import _acc_init, mod_switch_2n
+
+    m, brk, lut, block = keys.module, keys.brk, keys.lut, keys.params.block_size
+    lwe_2n = mod_switch_2n(2 * m.n, lwe, lut.rot_dir)
+    acc = _acc_init(lwe_2n[..., 0], lut, brk.rank)
+    for j in range(brk.n_lwe // block):
+        blk = slice(j * block, (j + 1) * block)
+        acc = fused_br_block_step_ref(m, acc, brk.pmats[blk], lwe_2n[..., 1:][..., blk],
+                                      lut.size, brk.base2k)
+    return acc
+
+
+def phase_gate_verify(setup, std_params, batch: int) -> None:
+    """Block-step kernel == plain block path; NAND truth on both BR paths."""
+    import numpy as np
+    import torch
+
+    from poulpy_tpu_torch.binfhe import gates
+    from poulpy_tpu_torch.binfhe.blind_rotation import blind_rotation_execute_block
+    from poulpy_tpu_torch.core.layouts import LWECiphertext
+    from poulpy_tpu_torch.hal.normalization import vec_znx_normalize
+
+    keys, sk, b1, b2, c1, c2 = setup
+    p = keys.params
+    c1, c2, b1, b2 = (c1.replace(data=c1.data[:batch]), c2.replace(data=c2.data[:batch]),
+                      b1[:batch], b2[:batch])
+    lin = LWECiphertext(data=vec_znx_normalize(p.base2k, gates._const_lwe(p, 1, 3, c1)
+                                               - c1.data - c2.data), base2k=p.base2k, k=p.k_ct)
+    have = blind_rotation_execute_block(keys.module, lin, keys.lut, keys.brk, p.block_size)
+    want = plain_block_rotation(keys, lin)
+    exact = bool(torch.equal(have, want))
+    block_truth = bool(np.array_equal(gates.decrypt_bit(gates.gate_nand(keys, c1, c2), sk),
+                                      1 - (b1 & b2)))
+    skeys, ssk, sb1, sb2, sc1, sc2 = gate_setup(std_params, batch, keys.module.device)
+    std_truth = bool(np.array_equal(gates.decrypt_bit(gates.gate_nand(skeys, sc1, sc2), ssk),
+                                    1 - (sb1 & sb2)))
+    emit(phase="gate_verify", batch=batch, block_kernel_vs_plain_bit_exact=exact,
+         block_nand_truth=block_truth, standard_n_lwe=std_params.n_lwe,
+         standard_nand_truth=std_truth)
+    if not (exact and block_truth and std_truth):
+        raise SystemExit("gate verify failed")
+
+
+def phase_gate_bench(setup, iters: int, fingerprint: int | None) -> None:
+    """1 warm-up NAND (fingerprint, truth) + `iters` timed chained NANDs."""
+    import numpy as np
+    import torch
+
+    from poulpy_tpu_torch.backends import LAUNCHES
+    from poulpy_tpu_torch.binfhe import gates
+
+    keys, sk, b1, b2, c1, c2 = setup
+    device = keys.module.device
+    batch = len(b1)
+
+    def checksum(ct):
+        return int((ct.data.abs() % 65536).sum())
+
+    out = gates.gate_nand(keys, c1, c2)
+    value = checksum(out)
+    truth = bool(np.array_equal(gates.decrypt_bit(out, sk), 1 - (b1 & b2)))
+    emit(phase="gate_warmup", fingerprint=value, fingerprint_expected=fingerprint,
+         nand_truth=truth, shape=list(out.data.shape))
+    if not truth or (fingerprint is not None and value != fingerprint):
+        raise SystemExit(f"gate warm-up failed: fingerprint {value}, truth {truth}")
+    expect = 1 - (b1 & b2)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    before = dict(LAUNCHES)
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = gates.gate_nand(keys, out, c2)
+        expect = 1 - (expect & b2)
+    value = checksum(out)
+    dt = time.perf_counter() - t0
+    per_nand = {k: (LAUNCHES[k] - before[k]) / iters for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    truth = bool(np.array_equal(gates.decrypt_bit(out, sk), expect))
+    emit(phase="gate_bench", batch=batch, iters=iters, gates_per_s=batch * iters / dt,
+         ms_per_batch=dt / iters * 1e3, checksum=value, decrypt_matches_tracked_bits=truth,
+         launches_per_nand=per_nand,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else None)
+    if not truth:
+        raise SystemExit("chained NANDs decrypt to the wrong bits")
+    if device.type == "cuda":
+        profile_nand(keys, out, c2)
+
+
+def profile_nand(keys, c1, c2) -> None:
+    """One more NAND under torch.profiler: wall time, device busy time (the
+    sum of kernel times, CUDA activity) and the kernels that take it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from poulpy_tpu_torch.binfhe import gates
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gates.gate_nand(keys, c1, c2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = {}                                   # kernel or copy name → [ms, count]
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            entry = device.setdefault(e.name, [0.0, 0])
+            entry[0] += e.time_range.elapsed_us() / 1e3
+            entry[1] += 1
+    busy_ms = sum(ms for ms, _ in device.values())
+    top = sorted(device.items(), key=lambda kv: -kv[1][0])[:6]
+    emit(phase="gate_profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
+         busy_share=busy_ms / wall_ms, device_events=sum(c for _, c in device.values()),
+         top=[dict(name=k[:90], device_ms=ms, count=c) for k, (ms, c) in top])
+
+
+def phase_keyswitch(device, n: int) -> None:
+    """bench_full.py's keyswitch at its configuration: the kernel against the
+    plain keyswitch at batch 8 (and an exact decrypt), chained single
+    keyswitches, chained batched keyswitches."""
+    import numpy as np
+    import torch
+
+    from poulpy_tpu_torch.backends.fused import fused_glwe_product_ref
+    from poulpy_tpu_torch.core import encryption as enc
+    from poulpy_tpu_torch.core.decryption import glwe_decrypt
+    from poulpy_tpu_torch.core.keyswitching import glwe_keyswitch
+    from poulpy_tpu_torch.core.layouts import GLWEPlaintext
+    from poulpy_tpu_torch.core.prepared import gglwe_prepare, glwe_secret_prepare
+    from poulpy_tpu_torch.hal import vec_znx
+    from poulpy_tpu_torch.hal.module import get_module
+    from poulpy_tpu_torch.hal.source import Source
+
+    m = get_module(n, 2, device=device)
+    src = Source(bytes(32))
+    xe, xa = src.branch()[1], src.branch()[1]
+    sk1, sk2 = enc.secret_new(m, 1, src), enc.secret_new(m, 1, src)
+    sk1p, sk2p = glwe_secret_prepare(m, sk1), glwe_secret_prepare(m, sk2)
+    ksk = gglwe_prepare(m, enc.glwe_switching_key_encrypt_sk(
+        m, sk1, sk2p, BASE2K, KS_K_KEY, dnum=KS_DNUM, source_xe=xe, source_xa=xa))
+
+    def encrypt(data):
+        pt = GLWEPlaintext(data=vec_znx.encode_vec_i64(BASE2K, K_PT, 3, torch.from_numpy(data)
+                                                       .to(m.device)), base2k=BASE2K, k=K_PT)
+        return enc.glwe_encrypt_sk(m, pt, sk1p, BASE2K, K_CT, xe, xa,
+                                   batch_shape=data.shape[:-1])
+
+    data = np.random.default_rng(2).integers(-(2**15), 2**15, (KS_VERIFY_BATCH, n))
+    ct = encrypt(data)
+    have = glwe_keyswitch(m, ct, ksk)
+    want = fused_glwe_product_ref(m, ct.data[..., 1:, :, :], ksk.pmat, 3, BASE2K, BASE2K,
+                                  small=ct.data[..., 0, :, :])
+    exact = bool(torch.equal(have.data, want))
+    got = vec_znx.decode_vec_i64(BASE2K, K_PT, glwe_decrypt(m, have, sk2p).data)
+    dec_ok = bool(torch.equal(got.cpu(), torch.from_numpy(data)))
+
+    def chain(c, count):
+        for _ in range(count):
+            c = glwe_keyswitch(m, c, ksk)
+        return int((c.data.abs() % 65536).sum())   # host-materialized
+
+    single = encrypt(np.random.default_rng(0).integers(-(2**15), 2**15, n))
+    chain(single, 1)
+    lat = []
+    for _ in range(KS_REPS):
+        t0 = time.perf_counter()
+        chain(single, KS_CHAIN)
+        lat.append((time.perf_counter() - t0) / KS_CHAIN * 1e3)
+    batched = single.replace(data=single.data.expand((KS_BATCH,) + single.data.shape)
+                             .contiguous())
+    chain(batched, 1)
+    t0 = time.perf_counter()
+    chain(batched, KS_ITERS)
+    dt = time.perf_counter() - t0
+    emit(phase="keyswitch", n=n, kernel_vs_plain_bit_exact=exact, decrypt_exact=dec_ok,
+         verify_batch=KS_VERIFY_BATCH, chain=KS_CHAIN, single_ms_median=float(np.median(lat)),
+         single_ms=lat, batch=KS_BATCH, iters=KS_ITERS, cts_per_s=KS_BATCH * KS_ITERS / dt)
+    if not (exact and dec_ok):
+        raise SystemExit("keyswitch verify failed")
+
+
+def run_gate_path(device, n_lwe: int, batch: int, verify_batch: int, std_n_lwe: int,
+                  iters: int, fingerprint: int | None) -> None:
+    """The gate path: set-up, gate_verify, gate_bench."""
+    from poulpy_tpu_torch.binfhe.gates import GateParams
+
+    t0 = time.perf_counter()
+    setup = gate_setup(GateParams(n_lwe=n_lwe, block_size=GATE_BLOCK), batch, device)
+    sync(device)
+    brk = setup[0].brk
+    emit(phase="gate_setup", batch=batch, keygen_encrypt_s=time.perf_counter() - t0,
+         brk_pmats_mib=brk.pmats.numel() * brk.pmats.element_size() / 2**20)
+    phase_gate_verify(setup, GateParams(n_lwe=std_n_lwe, block_size=1), verify_batch)
+    phase_gate_bench(setup, iters, fingerprint)
+
+
 def main() -> int:
     import torch
 
@@ -234,17 +561,30 @@ def main() -> int:
          library=str(Path(_lib.build_info["path"]).relative_to(ROOT)))
 
     m = get_module(N, NPRIMES, PRIME_BITS, "cuda")
-    timings = phase_kernels(m)
+    gm = get_module(1024, 2, 28, "cuda")          # GateParams' n_glwe, nprimes, prime_bits
+    timings = phase_kernels(m, gm)
     torch.cuda.empty_cache()
 
-    reset_launches()
-    phase_verify(m)
-    phase_bench(m)
-    launches = dict(LAUNCHES)
-    emit(phase="launches", **launches)
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise SystemExit(f"main path never launched: {missing}")
+    runs = {
+        "product": lambda: (phase_verify(m), phase_bench(m)),
+        "gate": lambda: run_gate_path(m.device, GATE_N_LWE, GATE_BATCH, GATE_VERIFY_BATCH,
+                                      STD_N_LWE, GATE_ITERS, GATE_FINGERPRINT),
+        "keyswitch": lambda: phase_keyswitch(m.device, KS_N),
+    }
+    launches = dict.fromkeys(LAUNCHES, 0)
+    for path, run in runs.items():
+        reset_launches()
+        run()
+        counts = dict(LAUNCHES)
+        emit(phase="launches", path=path, **counts)
+        missing = [k for k in PATHS[path] if counts[k] == 0]
+        if missing:
+            raise SystemExit(f"the {path} path never launched: {missing}")
+        for k, v in counts.items():
+            launches[k] += v
+        torch.cuda.empty_cache()
+    if not all(launches.values()):
+        raise SystemExit(f"kernels never launched: {[k for k, v in launches.items() if not v]}")
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],

@@ -1,9 +1,11 @@
 """poulpy_tpu_torch: the PyTorch / CUDA port of poulpy_tpu for one NVIDIA H100.
 
-Mirrors the JAX package's tree (`hal/`, `backends/`, `core/`) and function
-names.  Plain PyTorch int64 code runs on any device; the hand-written CUDA
-kernels of `csrc/` (built for sm_90a at first use) carry the NTT, the VMP and
-the fused external product on CUDA tensors.
+Mirrors the JAX package's tree (`hal/`, `backends/`, `core/`, `binfhe/`) and
+function names.  Plain PyTorch int64 code runs on any device; the
+hand-written CUDA kernels of `csrc/` (built for sm_90a at first use) carry
+the NTT, the VMP, the fused external product and keyswitch, and the
+block-binary blind-rotation step on CUDA tensors.  Entry points work on the
+card unless the caller passes `device="cpu"`.
 """
 
 from poulpy_tpu_torch.hal.module import Module, get_module

@@ -6,7 +6,8 @@ no fallback and no switch.  `LAUNCHES` counts kernel launches per wrapper,
 so that a run can show which kernels its path went through.
 """
 
-LAUNCHES = {"ntt_forward": 0, "ntt_inverse": 0, "vmp": 0, "fused_product": 0}
+LAUNCHES = {"ntt_forward": 0, "ntt_inverse": 0, "vmp": 0, "fused_product": 0,
+            "fused_product_small": 0, "br_block_step": 0}
 
 
 def reset_launches() -> None:

@@ -29,7 +29,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "poulpy_ntt": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "poulpy_vmp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "poulpy_fused_product": [_P, _P, _P, _P, _P] + [_I] * 12 + [_P],
+    "poulpy_fused_product": [_P] * 6 + [_I] * 13 + [_P],
+    "poulpy_br_block_step": [_P] * 7 + [_I] * 11 + [_P],
 }
 
 build_info: dict = {}

@@ -1,30 +1,48 @@
-"""Fused GLWE × GGSW product: CUDA kernel (`csrc/fused_product.cu`) and its
-plain PyTorch twin.
+"""Fused product kernels (`csrc/fused_product.cu`, `csrc/br_block_step.cu`)
+and their plain PyTorch twins.
 
-Replaces the product call pattern of `poulpy_tpu/backends/pallas_fused.py`
-(`_pipe_fn` → `_kernel_pipe` via `fused_glwe_product`: block 1, no rotate,
-no `small`, no `small64`).  One launch computes, per ciphertext,
+Replace three call patterns of `poulpy_tpu/backends/pallas_fused.py`
+(`_pipe_fn` → `_kernel_pipe`):
 
-    big_normalize(idft(vmp(dft(a), pmat)))
+- the product (block 1, no rotate): `fused_glwe_product`,
+      big_normalize(idft(vmp(dft(a), pmat)))
+  for any dsize (the dsize > 1 digit grouping is folded into the matrix by
+  `pm_kernel_layout_dsize`);
+- the same with `small`, the keyswitch body added to column 0 of the big
+  accumulator before the normalization (`fused_glwe_product(small=…)`);
+- the block-binary CGGI step (block > 1, rotate, add_acc):
+  `fused_br_block_step`,
+      acc ← normalize(acc + idft(Σ_i NTT(X^{a_i} − 1) · (dft(acc) ⊡ BRK_i))).
 
-from int64 limbs to normalized int64 limbs, for any dsize (the dsize > 1
-digit grouping is folded into the matrix by `pm_kernel_layout_dsize`).  The
-plain version, `fused_glwe_product_ref`, is the stage chain of
-`poulpy_tpu/core/external_product.py` built from plain parts only.
+Each wrapper takes its plain version for a CPU tensor and launches its
+kernel for a CUDA one.  The plain versions (`*_ref`) are built from plain
+parts only, so on a CUDA tensor they launch no kernel of `csrc/`.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from poulpy_tpu_torch.backends import LAUNCHES, _lib
 from poulpy_tpu_torch.backends.ntt import kernel_tables
 from poulpy_tpu_torch.backends.vmp import vmp_apply_ref
-from poulpy_tpu_torch.hal.dft import dft_limbs
+from poulpy_tpu_torch.hal.dft import _align_limbs, dft_add, dft_limbs, dft_sub
 from poulpy_tpu_torch.hal.module import Module
 from poulpy_tpu_torch.hal.normalization import vec_znx_normalize_full
-from poulpy_tpu_torch.hal.ntt import add_mod, garner_lift, ntt_forward, ntt_inverse, to_residues
+from poulpy_tpu_torch.hal.ntt import (
+    _host_tables,
+    add_mod,
+    garner_lift,
+    mont_mul,
+    ntt_forward,
+    ntt_inverse,
+    to_residues,
+)
+from poulpy_tpu_torch.hal.primes import R
 
 SMEM_LIMIT = 232448     # bytes of shared memory one block may use on sm_90
 MAX_PRIMES = 8          # compile-time bounds of the kernel's per-thread arrays
@@ -32,11 +50,13 @@ MAX_LIMBS = 16
 
 
 def pm_kernel_layout(pmat, rmax: int):
-    """[rows, ci, co, psize, P, N] Montgomery pmat → [P, KK=ci·rmax,
+    """[..., rows, ci, co, psize, P, N] Montgomery pmat → [..., P, KK=ci·rmax,
     M=co·psize, N] int32 (ci-major, row-minor)."""
-    pm = pmat[:rmax].permute(4, 1, 0, 2, 3, 5)           # [P, ci, rmax, co, psize, N]
-    P, ci, r, co, psize, n = pm.shape
-    return pm.reshape(P, ci * r, co * psize, n).to(torch.int32).contiguous()
+    lead = pmat.dim() - 6
+    pm = pmat[..., :rmax, :, :, :, :, :]
+    pm = pm.permute(*range(lead), *(lead + d for d in (4, 1, 0, 2, 3, 5)))
+    P, ci, r, co, psize, n = pm.shape[lead:]                # [..., P, ci, rmax, co, psize, N]
+    return pm.reshape(pm.shape[:lead] + (P, ci * r, co * psize, n)).to(torch.int32).contiguous()
 
 
 def pm_kernel_layout_dsize(pmat, rmax: int, dsize: int):
@@ -70,9 +90,9 @@ def _dft_plain(module, a, step=1, offset=0, res_size=None):
 
 
 def fused_glwe_product_ref(module: Module, a_data, pmat, res_size: int, res_base2k: int,
-                           pm_base2k: int, dsize: int = 1):
-    """Plain version: dft → vmp (per digit for dsize > 1) → idft → normalize,
-    every stage in plain PyTorch."""
+                           pm_base2k: int, dsize: int = 1, small=None):
+    """Plain version: dft → vmp (per digit for dsize > 1) → idft → (+ small
+    at column 0) → normalize, every stage in plain PyTorch."""
     if dsize == 1:
         res_dft = vmp_apply_ref(module, _dft_plain(module, a_data), pmat)
     else:
@@ -86,23 +106,36 @@ def fused_glwe_product_ref(module: Module, a_data, pmat, res_size: int, res_base
             part = vmp_apply_ref(module, ai, pmat, limb_offset=di)
             res_dft = part if res_dft is None else add_mod(res_dft, part, module.tables.p[:, None])
     big = garner_lift(module.tables, ntt_inverse(module.tables, res_dft))
+    if small is not None:   # garner_lift's output is fresh: add the body in place
+        big[..., 0, :, :] += _align_limbs(small, big, big.shape[-2], limb_axis=-2)[0]
     return vec_znx_normalize_full(res_size, res_base2k, 0, big, pm_base2k)
 
 
 def fused_smem_bytes(kk: int, mdim: int, nprimes: int, n: int) -> int:
-    """Shared memory of one block: the KK input rows of one prime, then the
-    M output rows of every prime (all live for the Garner lift)."""
+    """Shared memory of one block of either kernel: the KK input rows of one
+    prime, then the M output rows of every prime (all live for the Garner
+    lift)."""
     return 4 * n * (kk + nprimes * mdim)
 
 
+def _check_bounds(P: int, psize: int, res_size: int, smem: int) -> None:
+    """Raise on shapes past the kernels' compile-time bounds or shared memory."""
+    if P > MAX_PRIMES or psize > MAX_LIMBS or res_size > MAX_LIMBS:
+        raise ValueError(f"kernel bounds: P ≤ {MAX_PRIMES}, psize and res_size ≤ {MAX_LIMBS}")
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"kernel needs {smem} B of shared memory > {SMEM_LIMIT}")
+
+
 def fused_glwe_product(module: Module, a_data, pmat, res_size: int, res_base2k: int,
-                       pm_base2k: int, dsize: int = 1):
+                       pm_base2k: int, dsize: int = 1, small=None):
     """`a_data` [..., ci, size_a, N] int64 limbs × `pmat` [rows, ci, co, psize,
     P, N] → [..., co, res_size, N] normalized int64 limbs in base
-    2^res_base2k.  Plain version on CPU tensors, one CUDA launch on CUDA."""
+    2^res_base2k.  `small` [..., s_size, N] int64, if given, is added to
+    column 0 of the big accumulator (the keyswitch body).  Plain version on
+    CPU tensors, one CUDA launch on CUDA."""
     if a_data.device.type == "cpu":
         return fused_glwe_product_ref(module, a_data, pmat, res_size, res_base2k,
-                                      pm_base2k, dsize)
+                                      pm_base2k, dsize, small)
     P, n = module.nprimes, module.n
     rows, ci, co, psize = pmat.shape[:4]
     lead = a_data.shape[:-3]
@@ -111,27 +144,164 @@ def fused_glwe_product(module: Module, a_data, pmat, res_size: int, res_base2k: 
     kk, mdim = ci * rmax, co * psize
     if a_data.shape[-3] != ci or a_data.shape[-1] != n:
         raise ValueError(f"a_data: expected [..., {ci}, size, {n}], got {tuple(a_data.shape)}")
-    if P > MAX_PRIMES or psize > MAX_LIMBS or res_size > MAX_LIMBS:
-        raise ValueError(f"fused kernel bounds: P ≤ {MAX_PRIMES}, psize and res_size ≤ {MAX_LIMBS}")
     smem = fused_smem_bytes(kk, mdim, P, n)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fused kernel needs {smem} B of shared memory > {SMEM_LIMIT}")
+    _check_bounds(P, psize, res_size, smem)
     if pmat.device != a_data.device or module.device != a_data.device:
         raise ValueError("a_data, pmat and module must be on one device")
     pm = pm_kernel_layout(pmat, rmax) if dsize == 1 else pm_kernel_layout_dsize(pmat, rmax, dsize)
     B = a_data.numel() // (ci * a_size * n) if a_data.numel() else 0
-    a = a_data.reshape(B, ci, a_size, n)
+    a = a_data.reshape(B, ci, a_size, n).contiguous()    # the keyswitch passes a column view
     _lib.require(a, "a_data", torch.int64)
+    s_size, sm_ptr = 0, None
+    if small is not None:
+        s_size = small.shape[-2]
+        if tuple(small.shape) != tuple(lead) + (s_size, n):
+            raise ValueError(f"small: expected {tuple(lead) + (s_size, n)}, got {tuple(small.shape)}")
+        small = small.reshape(B, s_size, n).contiguous()
+        _lib.require(small, "small", torch.int64)
+        sm_ptr = small.data_ptr()
     out = torch.empty(lead + (co, res_size, n), dtype=torch.int64, device=a_data.device)
     if B == 0:
         return out
-    if rmax == 0:
+    if rmax == 0 and small is None:
         return out.zero_()
     tw, consts = kernel_tables(module.tables)
     err = _lib.library().poulpy_fused_product(
-        a.data_ptr(), pm.data_ptr(), out.data_ptr(), tw.data_ptr(), consts.data_ptr(),
-        B, ci, a_size, rmax, co, psize, res_size, res_base2k, pm_base2k, P,
+        a.data_ptr(), pm.data_ptr(), sm_ptr, out.data_ptr(), tw.data_ptr(), consts.data_ptr(),
+        B, ci, a_size, rmax, co, psize, s_size, res_size, res_base2k, pm_base2k, P,
         module.log_n, smem, _lib.stream())
     _lib.check(err, "poulpy_fused_product")
-    LAUNCHES["fused_product"] += 1
+    LAUNCHES["fused_product" if small is None else "fused_product_small"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# Block-binary CGGI step
+# --------------------------------------------------------------------------
+
+def _ntt_of_x(p: int, n: int) -> np.ndarray:
+    """`hal.ntt.ntt_forward` of the monomial X for one prime, in numpy
+    (the same psi tables and stage schedule), canonical [0, p)."""
+    psi_t, _, _ = _host_tables((p,), n)
+    src = psi_t[0] * pow(R, -1, p) % p                   # tables are Montgomery-form
+    x = np.zeros(n, dtype=np.int64)
+    x[1] = 1
+    for s in range(n.bit_length() - 1):
+        m, half = 1 << s, n >> (s + 1)
+        w = src[m : 2 * m]
+        xr = x.reshape(m, 2, half)
+        lo, hi = xr[:, 0, :], xr[:, 1, :]
+        v = hi * w[:, None] % p
+        x = np.stack([(lo + v) % p, (lo - v) % p], axis=1).reshape(n)
+    return x
+
+
+@functools.lru_cache(maxsize=None)
+def _xpow_table(n: int, primes: tuple) -> np.ndarray:
+    """Montgomery NTT(X^j) for every j in [0, 2N): `[2N, P, N]` int64 numpy.
+    NTT(X^j) = NTT(X)^{⊙j} pointwise, and X^{N+j} = −X^j."""
+    out = np.zeros((2 * n, len(primes), n), dtype=np.int64)
+    for pi, p in enumerate(primes):
+        base = _ntt_of_x(p, n)
+        row = np.full(n, R % p, dtype=np.int64)          # Montgomery(X^0)
+        for j in range(n):
+            out[j, pi] = row
+            row = row * base % p                         # < 2^60: exact in int64
+        out[n:, pi] = (p - out[:n, pi]) % p
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _xpow_minus1_table(n: int, primes: tuple) -> np.ndarray:
+    """Montgomery NTT(X^j − 1) for every j in [0, 2N): `[2N, P, N]` int64
+    numpy.  The block-step kernel folds CGGI's rotate-and-subtract into one
+    multiply by a row of this table."""
+    p_arr = np.array(primes, dtype=np.int64)[None, :, None]
+    one_m = np.array([R % p for p in primes], dtype=np.int64)[None, :, None]
+    return (_xpow_table(n, primes) - one_m) % p_arr
+
+
+def xpow_tables(module: Module):
+    """(`_xpow_table`, `_xpow_minus1_table`) as int32 tensors on the
+    module's device, uploaded once per table set (16 MB each at N = 1024,
+    P = 2)."""
+    t = module.tables
+    cached = getattr(t, "_xpow", None)
+    if cached is None:
+        primes = module.basis.primes
+        cached = tuple(torch.from_numpy(f(module.n, primes).astype(np.int32)).to(module.device)
+                       for f in (_xpow_table, _xpow_minus1_table))
+        t._xpow = cached
+    return cached
+
+
+def fused_br_block_step_ref(module: Module, acc, pmats, a_blk, res_size: int, base2k: int):
+    """Plain version of one block-binary CGGI step (the jnp `block_step` of
+    `poulpy_tpu/binfhe/blind_rotation.py`): per key element i, the VMP of
+    dft(acc) with BRK_i, times NTT(X^{a_i}), minus itself; the sum over i,
+    idft, plus acc at the aligned limbs, normalized to `res_size` limbs."""
+    t = module.tables
+    xpow, _ = xpow_tables(module)
+    acc_dft = _dft_plain(module, acc)
+    add_dft = None
+    for i in range(pmats.shape[0]):
+        vmp_res = vmp_apply_ref(module, acc_dft, pmats[i])
+        xp = xpow[a_blk[..., i] & (2 * module.n - 1)]       # [..., P, N]
+        rot = mont_mul(vmp_res, xp[..., None, None, :, :], t.p[:, None], t.qinv[:, None])
+        term = dft_sub(module, rot, vmp_res)
+        add_dft = term if add_dft is None else dft_add(module, add_dft, term)
+    big = garner_lift(t, ntt_inverse(t, add_dft))
+    big = big + _align_limbs(acc, big, big.shape[-2], limb_axis=-2)[0]
+    return vec_znx_normalize_full(res_size, base2k, 0, big, base2k)
+
+
+def fused_br_block_step(module: Module, acc, pmats, a_blk, res_size: int, base2k: int,
+                        pm_k=None):
+    """One block-binary CGGI step for a batch.
+
+    acc    [..., cols, size, N] int64 limbs;
+    pmats  [block, rows, cols, cols, psize, P, N] the block's prepared BRK
+           elements (Montgomery);
+    a_blk  [..., block] int64 mod-switched rotation amounts, any sign;
+    pm_k   [block, P, cols·rmax, cols·psize, N] int32: `pmats` in kernel
+           layout (`pm_kernel_layout`), made from `pmats` when not given.
+    → [..., cols, res_size, N] normalized limbs.  Plain version on CPU
+    tensors, one CUDA launch on CUDA (the x-power factor gathered in the
+    kernel from the device `_xpow_minus1_table` by `a & (2N − 1)`)."""
+    if acc.device.type == "cpu":
+        return fused_br_block_step_ref(module, acc, pmats, a_blk, res_size, base2k)
+    P, n = module.nprimes, module.n
+    block, rows, cols, co, psize = pmats.shape[:5]
+    lead, size = acc.shape[:-3], acc.shape[-2]
+    rmax = min(rows, size)
+    kk, mdim = cols * rmax, cols * psize
+    if co != cols or acc.shape[-3] != cols or acc.shape[-1] != n:
+        raise ValueError(f"acc {tuple(acc.shape)} does not match the key's {cols} columns")
+    if tuple(a_blk.shape) != tuple(lead) + (block,):
+        raise ValueError(f"a_blk: expected {tuple(lead) + (block,)}, got {tuple(a_blk.shape)}")
+    smem = fused_smem_bytes(kk, mdim, P, n)
+    _check_bounds(P, psize, res_size, smem)
+    if pm_k is None:
+        pm_k = pm_kernel_layout(pmats, rmax)
+    if tuple(pm_k.shape) != (block, P, kk, mdim, n):
+        raise ValueError(f"pm_k: expected {(block, P, kk, mdim, n)}, got {tuple(pm_k.shape)}")
+    B = acc.numel() // (cols * size * n) if acc.numel() else 0
+    a = acc.reshape(B, cols, size, n).contiguous()
+    amounts = a_blk.reshape(B, block).contiguous()
+    _lib.require(a, "acc", torch.int64)
+    _lib.require(amounts, "a_blk", torch.int64)
+    _lib.require(pm_k, "pm_k", torch.int32)
+    if module.device != acc.device or pm_k.device != acc.device:
+        raise ValueError("acc, pm_k and module must be on one device")
+    out = torch.empty(lead + (cols, res_size, n), dtype=torch.int64, device=acc.device)
+    if B == 0:
+        return out
+    _, xpm1 = xpow_tables(module)
+    tw, consts = kernel_tables(module.tables)
+    err = _lib.library().poulpy_br_block_step(
+        a.data_ptr(), pm_k.data_ptr(), xpm1.data_ptr(), amounts.data_ptr(), out.data_ptr(),
+        tw.data_ptr(), consts.data_ptr(), B, cols, size, rmax, psize, res_size, base2k, block,
+        P, module.log_n, smem, _lib.stream())
+    _lib.check(err, "poulpy_br_block_step")
+    LAUNCHES["br_block_step"] += 1
     return out

@@ -1,1 +1,2 @@
-"""Ciphertext layouts, encryption, external product and decryption."""
+"""Ciphertext layouts, encryption, external product, key switching, GLWE → LWE
+conversion and decryption."""

@@ -1,6 +1,6 @@
-"""Secret-key encryption for GLWE / GGSW and the secret key.
+"""Secret-key encryption for GLWE / GGLWE / GGSW / LWE and the secret key.
 
-Twin of `poulpy_tpu/core/encryption.py` (the slice's part).  Randomness is
+Twin of `poulpy_tpu/core/encryption.py` (the port's part).  Randomness is
 drawn on the host from the ChaCha8 `Source`, whole tensors at once and in
 the same order as the JAX package (mask from `source_xa`, then noise from
 `source_xe`, per encryption call), then moved to the module's device where
@@ -15,10 +15,12 @@ import numpy as np
 import torch
 
 from poulpy_tpu_torch.core.layouts import (
+    GGLWECiphertext,
     GGSWCiphertext,
     GLWECiphertext,
     GLWEPlaintext,
     GLWESecret,
+    LWECiphertext,
     glwe_size,
 )
 from poulpy_tpu_torch.core.prepared import GLWESecretPrepared
@@ -104,6 +106,62 @@ def glwe_encrypt_sk(module: Module, pt: GLWEPlaintext | None, sk: GLWESecretPrep
     data = encrypt_sk_internal(module, base2k, size, None if pt is None else pt.data, 0, sk,
                                noise, source_xe, source_xa, batch_shape)
     return GLWECiphertext(data=data, base2k=base2k, k=k)
+
+
+def gglwe_encrypt_sk(module: Module, pt, sk: GLWESecretPrepared, base2k: int, k: int,
+                     dnum: int, source_xe: Source, source_xa: Source, dsize: int = 1,
+                     sigma: float = DEFAULT_SIGMA_XE,
+                     bound: float = DEFAULT_BOUND_XE) -> GGLWECiphertext:
+    """GGLWE secret-key encryption: row r, input column i encrypts pt_i
+    (`pt` [rank_in, N]) at limb (dsize−1) + r·dsize, all rows of a column
+    in one encryption call."""
+    size = glwe_size(base2k, k)
+    if dnum * dsize > size:
+        raise ValueError(f"dnum·dsize = {dnum * dsize} exceeds the {size} limbs of k={k}")
+    noise = NoiseInfos(k=k, sigma=sigma, bound=bound)
+    pt = torch.as_tensor(pt, dtype=torch.int64).to(module.device)
+    cols = []
+    for i in range(pt.shape[0]):
+        pt_rows = torch.zeros((dnum, size, module.n), dtype=torch.int64, device=module.device)
+        for r in range(dnum):
+            pt_rows[r, (dsize - 1) + r * dsize, :] = pt[i]
+        pt_rows = vec_znx_normalize(base2k, pt_rows)
+        cols.append(encrypt_sk_internal(module, base2k, size, pt_rows, 0, sk, noise,
+                                        source_xe, source_xa))
+    data = torch.stack(cols, dim=1)  # [dnum, rank_in, rank_out+1, size, N]
+    return GGLWECiphertext(data=data, base2k=base2k, k=k, dsize=dsize)
+
+
+def glwe_switching_key_encrypt_sk(module: Module, sk_in: GLWESecret, sk_out: GLWESecretPrepared,
+                                  base2k: int, k: int, dnum: int, source_xe: Source,
+                                  source_xa: Source, dsize: int = 1, **kw) -> GGLWECiphertext:
+    """Key-switching key sk_in → sk_out."""
+    return gglwe_encrypt_sk(module, sk_in.data, sk_out, base2k, k, dnum, source_xe, source_xa,
+                            dsize=dsize, **kw)
+
+
+def lwe_encrypt_sk(module_unused, pt, sk_lwe, base2k: int, k: int, source_xe: Source,
+                   source_xa: Source, sigma: float = DEFAULT_SIGMA_XE,
+                   bound: float = DEFAULT_BOUND_XE) -> LWECiphertext:
+    """Scalar LWE encryption, b = −<a, s> + m + e, body and mask packed in
+    one row per limb.  `pt` is `[..., size, 1]` or `[..., size]` limb
+    scalars; the ciphertext lies on `sk_lwe`'s device."""
+    sk_lwe = torch.as_tensor(sk_lwe, dtype=torch.int64)
+    device = sk_lwe.device
+    n_lwe = sk_lwe.shape[-1]
+    size = glwe_size(base2k, k)
+    pt = torch.as_tensor(pt, dtype=torch.int64).to(device)
+    if pt.shape[-1] != 1:
+        pt = pt[..., None]
+    batch = tuple(pt.shape[:-2])
+    a = torch.from_numpy(source_xa.uniform_digits(base2k, batch + (size, n_lwe))).to(device)
+    body = -(a * sk_lwe).sum(dim=-1)[..., None]
+    body = vec_znx_sub(body, -pt, res_size=size)
+    limb, scale = NoiseInfos(k=k, sigma=sigma, bound=bound).target_limb_and_scale(base2k)
+    e = source_xe.normal_f64(batch + (1,), sigma * scale, bound * scale).astype(np.int64)
+    body[..., limb, :] += torch.from_numpy(e).to(device)  # body is a fresh tensor
+    data = vec_znx_normalize(base2k, torch.cat([body, a], dim=-1))
+    return LWECiphertext(data=data, base2k=base2k, k=k)
 
 
 def ggsw_encrypt_sk(module: Module, pt, sk: GLWESecretPrepared, base2k: int, k: int, dnum: int,

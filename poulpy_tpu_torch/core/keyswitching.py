@@ -1,0 +1,63 @@
+"""GLWE key switching: twin of `poulpy_tpu/core/keyswitching.py` (the
+port's part).
+
+The mask limbs go through one fused product with the prepared key and the
+body is added to column 0 of the big accumulator before the normalization:
+one CUDA launch for a CUDA batch (`fused_glwe_product(small=…)`), the plain
+stage chain for a CPU one.  The wide (i128-twin) path of the reference is not
+ported: a key whose product bound exceeds 62 bits raises
+`NotImplementedError`.
+"""
+
+from __future__ import annotations
+
+from poulpy_tpu_torch.backends.fused import fused_glwe_product
+from poulpy_tpu_torch.core.layouts import GLWECiphertext, glwe_size
+from poulpy_tpu_torch.core.prepared import GGLWEPrepared
+from poulpy_tpu_torch.hal import dft
+from poulpy_tpu_torch.hal.module import Module
+from poulpy_tpu_torch.hal.normalization import vec_znx_normalize_full
+
+
+def gglwe_product_dft(module: Module, a_dft, key: GGLWEPrepared):
+    """`a_dft` [..., cols_in, size_a, P, N] × the key matrix in the DFT
+    domain.  dsize > 1 groups the limbs of `a` by digit residue:
+    Σ_di vmp(a[dsize−1−di :: dsize], pmat, limb_offset=di)."""
+    dsize = key.dsize
+    if dsize == 1:
+        return dft.vmp_apply(module, a_dft, key.pmat)
+    a_size = a_dft.shape[-3]
+    res = None
+    for di in range(dsize):
+        ai_size = min((a_size + di) // dsize, key.dnum)
+        if ai_size == 0:
+            continue
+        ai = dft.dft_copy(a_dft, step=dsize, offset=dsize - di - 1, res_size=ai_size)
+        part = dft.vmp_apply(module, ai, key.pmat, limb_offset=di)
+        res = part if res is None else dft.dft_add(module, res, part)
+    return res
+
+
+def glwe_keyswitch(module: Module, a: GLWECiphertext, key: GGLWEPrepared,
+                   res_base2k: int | None = None, res_k: int | None = None) -> GLWECiphertext:
+    """res = normalize(idft(gglwe_product(dft(a[1:]), key)) + a[0] at column 0)."""
+    res_base2k = a.base2k if res_base2k is None else res_base2k
+    res_k = a.k if res_k is None else res_k
+    res_size = glwe_size(res_base2k, res_k)
+    if a.base2k != key.base2k:
+        a = glwe_normalize(module, a, key.base2k, a.k)
+    bits = dft.product_bits(key.base2k, key.base2k, module.log_n, key.dnum * max(1, a.rank))
+    if dft.needs_wide(bits):
+        raise NotImplementedError(
+            f"keyswitch product bound of {bits} bits needs the wide (i128) path, "
+            "which is not ported")
+    res = fused_glwe_product(module, a.data[..., 1:, :, :], key.pmat, res_size, res_base2k,
+                             key.base2k, dsize=key.dsize, small=a.data[..., 0, :, :])
+    return GLWECiphertext(data=res, base2k=res_base2k, k=res_k)
+
+
+def glwe_normalize(module: Module, a: GLWECiphertext, base2k: int, k: int) -> GLWECiphertext:
+    """Base-2^k conversion of a whole ciphertext."""
+    del module
+    data = vec_znx_normalize_full(glwe_size(base2k, k), base2k, 0, a.data, a.base2k)
+    return GLWECiphertext(data=data, base2k=base2k, k=k)

@@ -1,12 +1,14 @@
 """Ciphertext / key layouts.
 
-Twins of `poulpy_tpu/core/layouts.py` (the slice's part) as frozen
+Twins of `poulpy_tpu/core/layouts.py` (the port's part) as frozen
 dataclasses: tensor fields carry the limb data (batch over leading axes),
 the other fields the parameters.  Same field names and shapes:
 
   GLWE           data [..., rank+1, size, N]      (col 0 = body)
   GLWEPlaintext  data [..., size, N]
+  GGLWE          data [..., dnum, rank_in, rank_out+1, size, N]
   GGSW           data [..., dnum, rank+1, rank+1, size, N]
+  LWE            data [..., size, n_lwe+1]        (coefficient 0 = body)
   GLWESecret     data [rank, N]
 """
 
@@ -63,6 +65,36 @@ class GLWEPlaintext(_Replace):
 
 
 @dataclass(frozen=True)
+class GGLWECiphertext(_Replace):
+    """Gadget GLWE: row r, input col i encrypts pt_i·2^{-(r·dsize+dsize)·base2k}."""
+
+    data: torch.Tensor
+    base2k: int
+    k: int
+    dsize: int = 1
+
+    @property
+    def dnum(self) -> int:
+        return self.data.shape[-5]
+
+    @property
+    def rank_in(self) -> int:
+        return self.data.shape[-4]
+
+    @property
+    def rank_out(self) -> int:
+        return self.data.shape[-3] - 1
+
+    @property
+    def size(self) -> int:
+        return self.data.shape[-2]
+
+    @property
+    def n(self) -> int:
+        return self.data.shape[-1]
+
+
+@dataclass(frozen=True)
 class GGSWCiphertext(_Replace):
     """Gadget GSW: row r, col j encrypts m·s_j·2^{-(r·dsize+dsize)·base2k}."""
 
@@ -86,6 +118,23 @@ class GGSWCiphertext(_Replace):
     @property
     def n(self) -> int:
         return self.data.shape[-1]
+
+
+@dataclass(frozen=True)
+class LWECiphertext(_Replace):
+    """Scalar LWE, body and mask packed in one row per limb."""
+
+    data: torch.Tensor  # [..., size, n_lwe+1]
+    base2k: int
+    k: int
+
+    @property
+    def n_lwe(self) -> int:
+        return self.data.shape[-1] - 1
+
+    @property
+    def size(self) -> int:
+        return self.data.shape[-2]
 
 
 @dataclass(frozen=True)

@@ -1,8 +1,9 @@
 """Prepared (DFT-domain) layouts: twins of `poulpy_tpu/core/prepared.py`
-(the slice's part).
+(the port's part).
 
-  GLWESecretPrepared     data [rank, P, N]                      (Montgomery)
-  GGSWPrepared           pmat [dnum, rank+1, rank+1, size, P, N] (Montgomery)
+  GLWESecretPrepared     data [rank, P, N]                          (Montgomery)
+  GGLWEPrepared          pmat [dnum, rank_in, rank_out+1, size, P, N] (Montgomery)
+  GGSWPrepared           pmat [dnum, rank+1, rank+1, size, P, N]     (Montgomery)
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from dataclasses import dataclass
 
 import torch
 
-from poulpy_tpu_torch.core.layouts import GGSWCiphertext, GLWESecret, _Replace
+from poulpy_tpu_torch.core.layouts import GGLWECiphertext, GGSWCiphertext, GLWESecret, _Replace
 from poulpy_tpu_torch.hal import dft
 from poulpy_tpu_torch.hal.module import Module
 
@@ -24,6 +25,30 @@ class GLWESecretPrepared(_Replace):
     @property
     def rank(self) -> int:
         return self.data.shape[-3]
+
+
+@dataclass(frozen=True)
+class GGLWEPrepared(_Replace):
+    pmat: torch.Tensor  # [dnum, rank_in, rank_out+1, size, P, N]
+    base2k: int
+    k: int
+    dsize: int = 1
+
+    @property
+    def dnum(self) -> int:
+        return self.pmat.shape[-6]
+
+    @property
+    def rank_in(self) -> int:
+        return self.pmat.shape[-5]
+
+    @property
+    def rank_out(self) -> int:
+        return self.pmat.shape[-4] - 1
+
+    @property
+    def size(self) -> int:
+        return self.pmat.shape[-3]
 
 
 @dataclass(frozen=True)
@@ -53,3 +78,8 @@ def glwe_secret_prepare(module: Module, sk: GLWESecret) -> GLWESecretPrepared:
 def ggsw_prepare(module: Module, ct: GGSWCiphertext) -> GGSWPrepared:
     return GGSWPrepared(pmat=dft.vmp_prepare(module, ct.data), base2k=ct.base2k, k=ct.k,
                         dsize=ct.dsize)
+
+
+def gglwe_prepare(module: Module, ct: GGLWECiphertext) -> GGLWEPrepared:
+    return GGLWEPrepared(pmat=dft.vmp_prepare(module, ct.data), base2k=ct.base2k, k=ct.k,
+                         dsize=ct.dsize)

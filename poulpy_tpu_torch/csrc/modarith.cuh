@@ -198,4 +198,50 @@ __device__ __forceinline__ int64_t garner(const uint32_t* r, int P, const int64_
   return (int64_t)v;
 }
 
+// ---- shared stages of the fused kernels (fused_product.cu, br_block_step.cu) ----
+
+// Entry: the first rmax limbs of each of the ci columns of one ciphertext
+// (a: [ci][size_a][n] int64, any value) reduced to [0, p) into the kk = ci·rmax
+// rows of xin (row k = column·rmax + limb).  Ends with a barrier.
+__device__ __forceinline__ void load_rows_mod_p(uint32_t* xin, const int64_t* __restrict__ a,
+                                                int ci, int size_a, int rmax, int logn, uint32_t p) {
+  const int n = 1 << logn;
+  for (int idx = threadIdx.x; idx < ((ci * rmax) << logn); idx += blockDim.x) {
+    const int k = idx >> logn;
+    const int col = k / rmax;
+    const int l = k - col * rmax;
+    const int64_t v = a[((int64_t)col * size_a + l) * n + (idx & (n - 1))] % (int64_t)p;
+    xin[idx] = (uint32_t)(v < 0 ? v + p : v);
+  }
+  __syncthreads();
+}
+
+// Exit for one output column `col` and coefficient `coef`: the N^{-1} scale of
+// the inverse NTT, the Garner lift of each of the psize limbs (ys: [P][mdim][n]
+// residues, rows col·psize + j), + add[j·n] for j < min(add_size, psize)
+// (wrapping int64), then normalize_full to res_size limbs of base 2^kr written
+// to out[i·n], i < res_size.
+__device__ __forceinline__ void lift_add_normalize(const uint32_t* ys, int P, int mdim, int logn,
+                                                   int col, int psize, int coef,
+                                                   const int64_t* __restrict__ add, int add_size,
+                                                   int64_t* __restrict__ out, int res_size,
+                                                   int kr, int ka,
+                                                   const int64_t* __restrict__ consts) {
+  const int n = 1 << logn;
+  int64_t big[MAX_LIMBS];
+  for (int j = 0; j < psize; ++j) {
+    uint32_t r[MAX_PRIMES];
+    for (int pi = 0; pi < P; ++pi) {
+      const int64_t* c = consts + pi * CONSTS_PER_PRIME;
+      const uint32_t yv = ys[((size_t)pi * mdim + col * psize + j) * n + coef];
+      r[pi] = mont_mul(yv, (uint32_t)c[C_NINV], (uint32_t)c[C_P], (uint32_t)c[C_QINV]);
+    }
+    big[j] = garner(r, P, consts);
+    if (j < add_size) big[j] = wadd(big[j], add[(int64_t)j * n]);
+  }
+  int64_t res[MAX_LIMBS];
+  normalize_full(big, psize, res, res_size, kr, ka);
+  for (int i = 0; i < res_size; ++i) out[(int64_t)i * n] = res[i];
+}
+
 }  // namespace poulpy

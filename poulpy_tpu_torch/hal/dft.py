@@ -1,6 +1,6 @@
 """DFT-domain operations: dft/idft, SVP, VMP and big-accumulator normalize.
 
-Twin of `poulpy_tpu/hal/dft.py` (the part the slice needs), on the CRT-NTT
+Twin of `poulpy_tpu/hal/dft.py` (the part the port needs), on the CRT-NTT
 domain of `hal.ntt`.  Shapes (leading axes broadcast for batching):
 
   vec_znx       [..., size, N]            int64 limbs
@@ -15,13 +15,14 @@ the CUDA kernels for CUDA tensors.
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 from poulpy_tpu_torch.backends import ntt as _ntt
 from poulpy_tpu_torch.backends import vmp as _vmp
 from poulpy_tpu_torch.hal.module import Module
 from poulpy_tpu_torch.hal.normalization import vec_znx_normalize_full
-from poulpy_tpu_torch.hal.ntt import add_mod, garner_lift, mont_mul, to_mont, to_residues
+from poulpy_tpu_torch.hal.ntt import add_mod, garner_lift, mont_mul, sub_mod, to_mont, to_residues
 
 
 def dft_limbs(a_size: int, step: int, offset: int, res_size: int | None):
@@ -51,14 +52,30 @@ def idft_apply(module: Module, a_dft):
     return garner_lift(t, _ntt.ntt_inverse(t, a_dft.contiguous()))
 
 
-def _align_limbs(a, b, res_size):
+def dft_copy(a_dft, step: int = 1, offset: int = 0, res_size: int | None = None):
+    """Limb subsampling in the DFT domain: res[j] = a[offset + j·step] where
+    that limb exists, else 0."""
+    a_size = a_dft.shape[-3]
+    steps = -(-a_size // step)
+    if res_size is None:
+        res_size = steps
+    zero = torch.zeros_like(a_dft[..., 0, :, :])
+    limbs = []
+    for j in range(res_size):
+        limb = offset + j * step
+        limbs.append(a_dft[..., limb, :, :] if j < steps and limb < a_size else zero)
+    return torch.stack(limbs, dim=-3)
+
+
+def _align_limbs(a, b, res_size, limb_axis=-3):
+    """Cut or zero-pad both inputs to `res_size` limbs along `limb_axis`."""
     def pad(x):
-        size = x.shape[-3]
-        if size == res_size:
-            return x
-        if size > res_size:
-            return x[..., :res_size, :, :]
-        return F.pad(x, (0, 0, 0, 0, 0, res_size - size))
+        axis = limb_axis % x.dim()
+        size = x.shape[axis]
+        if size >= res_size:
+            return x.narrow(axis, 0, res_size)
+        pads = [0, 0] * (x.dim() - 1 - axis) + [0, res_size - size]
+        return F.pad(x, pads)
 
     return pad(a), pad(b)
 
@@ -69,6 +86,15 @@ def dft_add(module: Module, a_dft, b_dft, res_size: int | None = None):
         res_size = max(a_dft.shape[-3], b_dft.shape[-3])
     a, b = _align_limbs(a_dft, b_dft, res_size)
     return add_mod(a, b, module.tables.p[:, None])
+
+
+def dft_sub(module: Module, a_dft, b_dft, res_size: int | None = None):
+    """Difference over the common limbs, the longer operand's tail copied
+    (negated from `b`)."""
+    if res_size is None:
+        res_size = max(a_dft.shape[-3], b_dft.shape[-3])
+    a, b = _align_limbs(a_dft, b_dft, res_size)
+    return sub_mod(a, b, module.tables.p[:, None])
 
 
 def svp_prepare(module: Module, s):

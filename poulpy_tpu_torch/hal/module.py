@@ -15,13 +15,14 @@ from poulpy_tpu_torch.hal.primes import LOG_N_MAX, PrimeBasis, ntt_primes
 
 
 class Module:
-    """Backend handle: ring degree + CRT-NTT tables on `device`.
+    """Backend handle: ring degree + CRT-NTT tables on `device` (the card
+    unless the caller asks for the CPU).
 
     `prime_bits` bounds the basis primes below 2^prime_bits (30 maximises
     bits per prime; 28 is the basis the headline configuration uses).
     """
 
-    def __init__(self, n: int, nprimes: int = 4, prime_bits: int = 30, device="cpu"):
+    def __init__(self, n: int, nprimes: int = 4, prime_bits: int = 30, device="cuda"):
         assert n & (n - 1) == 0 and 4 <= n <= (1 << LOG_N_MAX)
         assert 18 <= prime_bits <= 30
         self.n = n
@@ -43,6 +44,7 @@ def _get_module(n: int, nprimes: int, prime_bits: int, device: torch.device) -> 
     return Module(n, nprimes, prime_bits, device)
 
 
-def get_module(n: int, nprimes: int = 4, prime_bits: int = 30, device="cpu") -> Module:
-    """Cached Module per (n, nprimes, prime_bits, device)."""
+def get_module(n: int, nprimes: int = 4, prime_bits: int = 30, device="cuda") -> Module:
+    """Cached Module per (n, nprimes, prime_bits, device).  The card by
+    default; without one this raises unless `device="cpu"` is passed."""
     return _get_module(n, nprimes, prime_bits, canonical_device(device))

@@ -108,17 +108,22 @@ def _host_tables(primes: tuple[int, ...], n: int):
 
 def canonical_device(device) -> torch.device:
     """`device` with its index filled in ("cuda" → "cuda:<current>"), so that
-    it compares equal to the device of the tensors made on it."""
+    it compares equal to the device of the tensors made on it.  A CUDA device
+    on a machine without one raises: nothing falls back to the CPU."""
     device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} requested but no CUDA device is available; "
+                               "pass device='cpu' to run on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
 class NttTables:
     """Twiddle and CRT tables for one (prime basis, N), resident on `device`."""
 
-    def __init__(self, basis: PrimeBasis, n: int, device="cpu"):
+    def __init__(self, basis: PrimeBasis, n: int, device="cuda"):
         assert n & (n - 1) == 0 and n >= 4, "N must be a power of two >= 4"
         self.basis = basis
         self.n = n

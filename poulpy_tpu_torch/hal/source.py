@@ -117,6 +117,18 @@ class Source:
     def new_seed(self) -> bytes:
         return self.fill_bytes(32)
 
+    def branch(self) -> tuple[bytes, "Source"]:
+        """An independent child source seeded from this stream."""
+        seed = self.new_seed()
+        return seed, Source(seed)
+
+    def next_u64n(self, max_: int, mask: int) -> int:
+        """Uniform u64 in [0, max_) by masked rejection."""
+        x = self.next_u64() & mask
+        while x >= max_:
+            x = self.next_u64() & mask
+        return x
+
     # -- vectorized samplers ----------------------------------------------
 
     def uniform_digits(self, base2k: int, shape) -> np.ndarray:
@@ -152,3 +164,23 @@ class Source:
         sign = np.where((u >> np.uint64(63)).astype(np.int64) == 0, 1, -1)
         x = np.where(f < prob, sign, 0).astype(np.int64)
         return x.reshape(shape)
+
+    def binary_prob(self, shape, prob: float = 0.5) -> np.ndarray:
+        """Binary coefficients: 1 w.p. prob, else 0."""
+        count = int(np.prod(shape))
+        u = self.u64_array(count)
+        f = (u & np.uint64((1 << 53) - 1)).astype(np.float64) / MAXF64
+        return (f < prob).astype(np.int64).reshape(shape)
+
+    def binary_block(self, n: int, block_size: int) -> np.ndarray:
+        """Block-binary secret: in each block of `block_size`, one uniformly
+        placed 1 or none (drawn from block_size + 1 outcomes)."""
+        if n % block_size:
+            raise ValueError(f"n={n} is not a multiple of block_size={block_size}")
+        x = np.zeros(n, dtype=np.int64)
+        mask = (1 << (block_size + 1).bit_length()) - 1
+        for b in range(n // block_size):
+            j = self.next_u64n(block_size + 1, mask)
+            if j < block_size:
+                x[b * block_size + j] = 1
+        return x

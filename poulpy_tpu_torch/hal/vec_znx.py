@@ -1,6 +1,6 @@
 """Limb-vector ("vec_znx") operations and encode/decode.
 
-Twin of `poulpy_tpu/hal/vec_znx.py` (the part the slice needs).  A vec_znx
+Twin of `poulpy_tpu/hal/vec_znx.py` (the part the port needs).  A vec_znx
 is `[..., size, N]` int64 (limb 0 = most significant).  Differing-size
 operands: sum over the common limbs, copy the longer tail, zero beyond.
 """
@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from poulpy_tpu_torch.hal import znx
 from poulpy_tpu_torch.hal.normalization import vec_znx_normalize
 
 
@@ -32,6 +33,20 @@ def vec_znx_sub(a, b, res_size: int | None = None):
     if res_size is None:
         res_size = max(a.shape[-2], b.shape[-2])
     return _pad_to(a, res_size) - _pad_to(b, res_size)
+
+
+def vec_znx_negate(a):
+    return -a
+
+
+def vec_znx_rotate(p, a):
+    """Multiply every limb by X^p; `p` may be batched (see znx.znx_rotate)."""
+    return znx.znx_rotate(p, a)
+
+
+def vec_znx_automorphism(p: int, a):
+    """X → X^p on every limb."""
+    return znx.znx_automorphism(p, a)
 
 
 def encode_vec_i64(base2k: int, k: int, size: int, data):

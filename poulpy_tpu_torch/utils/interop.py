@@ -1,12 +1,15 @@
 """Carry keys and ciphertexts between the JAX package and this one.
 
 An object crosses as its class name plus a dict of fields: arrays as numpy,
-parameters (`base2k`, `k`, `dsize`, `dist`) as Python values.  The field
+parameters (`base2k`, `k`, `dsize`, `dist`, …) as Python values.  The field
 names are the JAX package's, so any object with one of the class names below
 and those dataclass fields converts, without this module importing JAX:
 
     port_obj = from_fields(*to_fields(jax_obj), device="cuda")
     name, fields = to_fields(port_obj)      # numpy arrays, ready for jnp.asarray
+
+`BootstrapKeys` crosses as its parameters and its three keys, each as
+(name, fields); the module is rebuilt from the parameters on arrival.
 """
 
 from __future__ import annotations
@@ -16,26 +19,37 @@ import dataclasses
 import numpy as np
 import torch
 
+from poulpy_tpu_torch.binfhe.blind_rotation import BlindRotationKeyPrepared
+from poulpy_tpu_torch.binfhe.gates import BootstrapKeys, GateParams
+from poulpy_tpu_torch.binfhe.lut import LookupTable
 from poulpy_tpu_torch.core.layouts import (
     GGSWCiphertext,
     GLWECiphertext,
     GLWEPlaintext,
     GLWESecret,
+    LWECiphertext,
 )
-from poulpy_tpu_torch.core.prepared import GGSWPrepared, GLWESecretPrepared
+from poulpy_tpu_torch.core.prepared import GGLWEPrepared, GGSWPrepared, GLWESecretPrepared
+from poulpy_tpu_torch.hal.module import get_module
 
 CLASSES = {
     cls.__name__: cls
     for cls in (GLWESecret, GLWESecretPrepared, GLWECiphertext, GLWEPlaintext,
-                GGSWCiphertext, GGSWPrepared)
+                GGSWCiphertext, GGSWPrepared, GGLWEPrepared, LWECiphertext, LookupTable,
+                BlindRotationKeyPrepared)
 }
 
-_ARRAY_FIELDS = ("data", "pmat")
+_ARRAY_FIELDS = ("data", "pmat", "pmats")
+_KEYS = ("brk", "to_lwe", "lut")          # the keys of a BootstrapKeys
 
 
 def to_fields(obj) -> tuple[str, dict]:
     """(class name, fields) of a layout of either package, arrays as numpy."""
     name = type(obj).__name__
+    if name == "BootstrapKeys":
+        fields = {key: to_fields(getattr(obj, key)) for key in _KEYS}
+        fields["params"] = dataclasses.asdict(obj.params)
+        return name, fields
     if name not in CLASSES:
         raise TypeError(f"no port of {name}")
     fields = {}
@@ -47,8 +61,13 @@ def to_fields(obj) -> tuple[str, dict]:
     return name, fields
 
 
-def from_fields(name: str, fields: dict, device="cpu"):
+def from_fields(name: str, fields: dict, device="cuda"):
     """The port's object of class `name`, its arrays on `device`."""
+    if name == "BootstrapKeys":
+        params = GateParams(**fields["params"])
+        module = get_module(params.n_glwe, params.nprimes, params.prime_bits, device)
+        keys = {key: from_fields(*fields[key], device=module.device) for key in _KEYS}
+        return BootstrapKeys(module=module, params=params, **keys)
     cls = CLASSES[name]
     kw = {}
     for f in dataclasses.fields(cls):

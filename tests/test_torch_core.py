@@ -13,19 +13,25 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from poulpy_tpu.core import conversion as jconv
 from poulpy_tpu.core import decryption as jdec
 from poulpy_tpu.core import encryption as jenc
 from poulpy_tpu.core import external_product as jext
+from poulpy_tpu.core import keyswitching as jks
 from poulpy_tpu.core import layouts as jlay
 from poulpy_tpu.core import prepared as jprep
+from poulpy_tpu.hal import dft as jdft
 from poulpy_tpu.hal import vec_znx as jvz
 from poulpy_tpu.hal.module import get_module as j_get_module
 from poulpy_tpu.hal.source import Source as JSource
+from poulpy_tpu_torch.core import conversion as tconv
 from poulpy_tpu_torch.core import decryption as tdec
 from poulpy_tpu_torch.core import encryption as tenc
 from poulpy_tpu_torch.core import external_product as text
+from poulpy_tpu_torch.core import keyswitching as tks
 from poulpy_tpu_torch.core import layouts as tlay
 from poulpy_tpu_torch.core import prepared as tprep
+from poulpy_tpu_torch.hal import dft as tdft
 from poulpy_tpu_torch.hal import vec_znx as tvz
 from poulpy_tpu_torch.hal.module import get_module as t_get_module
 from poulpy_tpu_torch.hal.source import Source as TSource
@@ -38,6 +44,7 @@ BITS = [28, 30]
 # the JAX package's prepare steps run eagerly op by op; under jit they compile once
 j_secret_prepare = jax.jit(jprep.glwe_secret_prepare, static_argnums=0)
 j_ggsw_prepare = jax.jit(jprep.ggsw_prepare, static_argnums=0)
+j_gglwe_prepare = jax.jit(jprep.gglwe_prepare, static_argnums=0)
 
 
 def _eq(have, want):
@@ -52,7 +59,7 @@ def _pipeline(pkg: str, bits: int) -> dict:
         m, S, enc, ext, dec = j_get_module(N, 2, bits), JSource, jenc, jext, jdec
         lay, vz, sprep, gprep, arr = jlay, jvz, j_secret_prepare, j_ggsw_prepare, jnp.asarray
     else:
-        m, S, enc, ext, dec = t_get_module(N, 2, bits), TSource, tenc, text, tdec
+        m, S, enc, ext, dec = t_get_module(N, 2, bits, "cpu"), TSource, tenc, text, tdec
         lay, vz, arr = tlay, tvz, torch.as_tensor
         sprep, gprep = tprep.glwe_secret_prepare, tprep.ggsw_prepare
     src, xe, xa = S(bytes(32)), S(b"\x01" * 32), S(b"\x02" * 32)
@@ -130,7 +137,7 @@ def _keys(pkg, bits, dsize, bit):
         m, S, enc, sprep, gprep, arr = (j_get_module(N, 2, bits), JSource, jenc,
                                         j_secret_prepare, j_ggsw_prepare, jnp.asarray)
     else:
-        m, S, enc, arr = t_get_module(N, 2, bits), TSource, tenc, torch.as_tensor
+        m, S, enc, arr = t_get_module(N, 2, bits, "cpu"), TSource, tenc, torch.as_tensor
         sprep, gprep = tprep.glwe_secret_prepare, tprep.ggsw_prepare
     src, xe, xa = S(b"\x05" * 32), S(b"\x06" * 32), S(b"\x07" * 32)
     skp = sprep(m, enc.secret_new(m, 1, src))
@@ -166,7 +173,7 @@ def test_glwe_cmux(bits, bit):
 
 
 def test_wide_parameters_raise():
-    tm = t_get_module(N, 2, 30)
+    tm = t_get_module(N, 2, 30, "cpu")
     ggsw = tprep.GGSWPrepared(pmat=torch.zeros(3, 2, 2, 2, 2, N, dtype=torch.int32), base2k=30,
                               k=60)
     ct = tlay.GLWECiphertext(data=torch.zeros(2, 2, N, dtype=torch.int64), base2k=30, k=60)
@@ -180,10 +187,10 @@ def test_interop_jax_keys_drive_the_port(bits):
     `interop`, give the JAX package's product; the port's result carried
     back decrypts under JAX to the same plaintext."""
     jm, jskp, jg, jcts = _keys("jax", bits, 1, 1)
-    tm = t_get_module(N, 2, bits)
-    tg = interop.from_fields(*interop.to_fields(jg))
-    tct = interop.from_fields(*interop.to_fields(jcts[0]))
-    tskp = interop.from_fields(*interop.to_fields(jskp))
+    tm = t_get_module(N, 2, bits, "cpu")
+    tg = interop.from_fields(*interop.to_fields(jg), device="cpu")
+    tct = interop.from_fields(*interop.to_fields(jcts[0]), device="cpu")
+    tskp = interop.from_fields(*interop.to_fields(jskp), device="cpu")
     assert isinstance(tg, tprep.GGSWPrepared) and tg.dsize == jg.dsize
     have = text.glwe_external_product(tm, tct, tg)
     want = jext.glwe_external_product(jm, jcts[0], jg)
@@ -194,5 +201,110 @@ def test_interop_jax_keys_drive_the_port(bits):
                                   for k, v in fields.items()})
     assert _eq(jdec.glwe_decrypt(jm, back, jskp).data, jdec.glwe_decrypt(jm, want, jskp).data)
     for obj in (jskp, jg, jcts[0]):
-        name, fields = interop.to_fields(interop.from_fields(*interop.to_fields(obj)))
+        name, fields = interop.to_fields(interop.from_fields(*interop.to_fields(obj), device="cpu"))
         assert name == type(obj).__name__
+
+
+# ---- key switching, LWE and the GLWE → LWE bridge (the gate path's core) -----------
+
+N_LWE = 40
+
+
+def _ks_run(pkg: str, bits: int, dsize: int) -> dict:
+    """Two secrets, a switching key sk1 → sk2, a batch of GLWEs under sk1 and
+    their keyswitch; an LWE secret, its GLWE → LWE key, LWE encryptions."""
+    if pkg == "jax":
+        m, S, enc, ks, conv, dec = j_get_module(N, 2, bits), JSource, jenc, jks, jconv, jdec
+        lay, vz, hdft = jlay, jvz, jdft
+        sprep, gprep, arr = j_secret_prepare, j_gglwe_prepare, jnp.asarray
+    else:
+        m, S, enc, ks, conv, dec = t_get_module(N, 2, bits, "cpu"), TSource, tenc, tks, tconv, tdec
+        lay, vz, hdft = tlay, tvz, tdft
+        sprep, gprep, arr = tprep.glwe_secret_prepare, tprep.gglwe_prepare, torch.as_tensor
+    src = S(b"\x09" * 32)
+    xe, xa = src.branch()[1], src.branch()[1]
+    out = {"sk1": enc.secret_new(m, 1, src), "sk2": enc.secret_new(m, 1, src)}
+    sk2p = sprep(m, out["sk2"])
+    dnum = 3 if dsize == 1 else 2
+    out["ksk"] = enc.glwe_switching_key_encrypt_sk(m, out["sk1"], sk2p, BASE2K, K_KEY, dnum,
+                                                   xe, xa, dsize=dsize)
+    out["kskp"] = gprep(m, out["ksk"])
+    pt2 = np.random.default_rng(3).integers(-1, 2, (2, N))
+    out["gglwe"] = enc.gglwe_encrypt_sk(m, arr(pt2), sk2p, BASE2K, K_CT, 2, xe, xa)
+    data = np.random.default_rng(4).integers(-(2**15), 2**15, size=(2, N), dtype=np.int64)
+    pt = lay.GLWEPlaintext(data=vz.encode_vec_i64(BASE2K, K_PT, 3, arr(data)), base2k=BASE2K,
+                           k=K_PT)
+    out["ct"] = enc.glwe_encrypt_sk(m, pt, sprep(m, out["sk1"]), BASE2K, K_CT, xe, xa,
+                                    batch_shape=(2,))
+    a_dft = hdft.dft_apply(m, out["ct"].data[..., 1:, :, :])
+    out["prod_dft"] = ks.gglwe_product_dft(m, a_dft, out["kskp"])
+    out["ks"] = ks.glwe_keyswitch(m, out["ct"], out["kskp"])
+    out["ks_13"] = ks.glwe_keyswitch(m, ks.glwe_normalize(m, out["ct"], 13, K_CT),
+                                     out["kskp"], 13, 39)
+    out["dec"] = vz.decode_vec_i64(BASE2K, K_PT, dec.glwe_decrypt(m, out["ks"], sk2p).data)
+    out["data"] = data
+    # LWE: encryption, decryption, the GLWE → LWE key and sample extraction
+    sk_lwe = src.binary_prob((N_LWE,))
+    out["sk_lwe"] = sk_lwe
+    out["sk_emb"] = conv.lwe_secret_as_glwe(m, arr(sk_lwe))
+    out["to_lwe"] = conv.glwe_to_lwe_key_encrypt_sk(m, arr(sk_lwe), out["sk2"], BASE2K, K_KEY,
+                                                    dnum, xe, xa)
+    lwe_pt = np.zeros((3, 2, 1), dtype=np.int64)
+    lwe_pt[:, 0, 0] = [-3 << 12, 5 << 12, 0]
+    out["lwe"] = enc.lwe_encrypt_sk(None, arr(lwe_pt), arr(sk_lwe), BASE2K, 34, xe, xa)
+    out["lwe_dec"] = dec.lwe_decrypt(out["lwe"], arr(sk_lwe))
+    to_emb = ks.glwe_keyswitch(m, out["ks"], out["to_lwe"], BASE2K, 34)
+    out["extract"] = conv.lwe_sample_extract(to_emb, N_LWE, 34)
+    out["extract_dec"] = dec.lwe_decrypt(out["extract"], arr(sk_lwe))
+    return out
+
+
+@pytest.fixture(scope="module", params=[(b, d) for b in BITS for d in (1, 2)],
+                ids=lambda p: f"{p[0]}bit-dsize{p[1]}")
+def ks_runs(request):
+    bits, dsize = request.param
+    return _ks_run("jax", bits, dsize), _ks_run("torch", bits, dsize)
+
+
+def test_gglwe_and_switching_key_encrypt_sk(ks_runs):
+    j, t = ks_runs
+    for name in ("sk1", "sk2", "ksk", "gglwe"):
+        assert _eq(t[name].data, j[name].data), name
+    assert (t["ksk"].dnum, t["ksk"].dsize, t["ksk"].rank_in, t["ksk"].rank_out) == \
+        (j["ksk"].dnum, j["ksk"].dsize, j["ksk"].rank_in, j["ksk"].rank_out)
+    assert _eq(t["kskp"].pmat, j["kskp"].pmat) and t["kskp"].dsize == j["kskp"].dsize
+
+
+def test_glwe_keyswitch(ks_runs):
+    """gglwe_product_dft, the keyswitch (with a base change too) and its
+    decryption under the new secret."""
+    j, t = ks_runs
+    assert _eq(t["ct"].data, j["ct"].data)
+    assert _eq(t["prod_dft"], j["prod_dft"])
+    assert _eq(t["ks"].data, j["ks"].data) and (t["ks"].base2k, t["ks"].k) == (17, K_CT)
+    assert _eq(t["ks_13"].data, j["ks_13"].data)
+    assert _eq(t["dec"], j["dec"])
+    assert np.abs(t["dec"].numpy() - t["data"]).max() <= 2 ** 7   # dsize 2 noise: tens
+
+
+def test_lwe_encrypt_and_decrypt(ks_runs):
+    j, t = ks_runs
+    assert _eq(t["lwe"].data, j["lwe"].data)
+    assert _eq(t["lwe_dec"], j["lwe_dec"])
+
+
+def test_glwe_to_lwe_key_and_sample_extract(ks_runs):
+    j, t = ks_runs
+    assert _eq(t["sk_emb"].data, j["sk_emb"].data)
+    assert _eq(t["to_lwe"].pmat, j["to_lwe"].pmat)
+    assert _eq(t["extract"].data, j["extract"].data) and t["extract"].n_lwe == N_LWE
+    assert _eq(t["extract_dec"], j["extract_dec"])
+
+
+def test_wide_keyswitch_raises():
+    tm = t_get_module(N, 2, 30, "cpu")
+    key = tprep.GGLWEPrepared(pmat=torch.zeros(3, 1, 2, 2, 2, N, dtype=torch.int32), base2k=30,
+                              k=60)
+    ct = tlay.GLWECiphertext(data=torch.zeros(2, 2, N, dtype=torch.int64), base2k=30, k=60)
+    with pytest.raises(NotImplementedError, match="wide"):
+        tks.glwe_keyswitch(tm, ct, key)

@@ -53,7 +53,7 @@ def _eq(have, want):
 
 
 def _mods(bits):
-    return j_get_module(N, 2, bits), t_get_module(N, 2, bits)
+    return j_get_module(N, 2, bits), t_get_module(N, 2, bits, "cpu")
 
 
 def _residues(rng, primes, shape):
@@ -80,7 +80,7 @@ def test_prime_basis_constants(nprimes, bits):
 
 @pytest.mark.parametrize("nprimes,bits", BASES)
 def test_twiddle_tables(nprimes, bits):
-    jm, tm = j_get_module(256, nprimes, bits), t_get_module(256, nprimes, bits)
+    jm, tm = j_get_module(256, nprimes, bits), t_get_module(256, nprimes, bits, "cpu")
     for name in ("psi_brv", "psi_inv_brv", "n_inv", "p", "qinv", "r2", "two40_mod_p",
                  "garner_inv_mont", "garner_pprod_mont", "garner_weight", "modulus_u64",
                  "half_digits"):
@@ -250,3 +250,88 @@ def test_dft_functions(bits):
     for args in [(17, 17, 11, 6), (26, 26, 11, 6), (30, 30, 12, 8), (17, 17, 16, 1)]:
         assert tdft.product_bits(*args) == jdft.product_bits(*args)
         assert tdft.needs_wide(tdft.product_bits(*args)) == jdft.needs_wide(jdft.product_bits(*args))
+
+
+# ---- the gate path's additions: Source draws, rotations, automorphisms, dft ------
+
+def _gate_draws(src):
+    _, child = src.branch()
+    out = [child.u64_array(9), src.next_u64n(7, 7), src.next_u64n(1000, 1023),
+           src.binary_prob((3, 40)), src.binary_prob((50,), 0.2)]
+    for n, block in ((64, 8), (568, 8), (30, 5)):
+        out.append(src.binary_block(n, block))
+    _, child2 = src.branch()
+    return out + [child2.next_u64(), src.u64_array(3)]
+
+
+@pytest.mark.parametrize("seed", [bytes(32), bytes(range(32))])
+def test_source_branch_and_binary_streams(seed):
+    for have, want in zip(_gate_draws(TSource(seed)), _gate_draws(JSource(seed))):
+        if isinstance(want, np.ndarray):
+            assert have.dtype == want.dtype and np.array_equal(have, want)
+        else:
+            assert have == want
+
+
+def test_znx_rotate_batched():
+    """Per-batch-element amounts, negative and ≥ N, broadcast over limbs."""
+    rng = np.random.default_rng(8)
+    a = rng.integers(-(2**20), 2**20, (4, 2, 3, N))
+    p = np.array([0, -5, N + 3, 3 * N - 1], dtype=np.int64)
+    lut = rng.integers(-(2**20), 2**20, (3, N))
+    pairs = [(p[:, None, None], a), (p[:, None], lut), (p[:, None, None], a[:, :1]),
+             (np.int64(-7), a)]
+    for pp, x in pairs:
+        want = jvz.vec_znx_rotate(jnp.asarray(pp), jnp.asarray(x))
+        assert _eq(tvz.vec_znx_rotate(torch.from_numpy(np.asarray(pp)), torch.from_numpy(x)), want)
+        assert _eq(tznx.znx_rotate(torch.from_numpy(np.asarray(pp)), torch.from_numpy(x)), want)
+
+
+@pytest.mark.parametrize("p", [-1, 3, 5, 2 * N - 1, 2 * N + 3])
+def test_znx_automorphism(p):
+    a = np.random.default_rng(9).integers(-(2**20), 2**20, (2, 3, N))
+    assert _eq(tvz.vec_znx_automorphism(p, torch.from_numpy(a)),
+               jvz.vec_znx_automorphism(p, jnp.asarray(a)))
+    idx_t, sign_t = tznx._automorphism_tables(N, p & (2 * N - 1))
+    idx_j, sign_j = jznx._automorphism_tables(N, p & (2 * N - 1))
+    assert np.array_equal(idx_t, idx_j) and np.array_equal(sign_t, sign_j)
+    assert _eq(tvz.vec_znx_negate(torch.from_numpy(a)), jvz.vec_znx_negate(jnp.asarray(a)))
+
+
+@pytest.mark.parametrize("bits", [28, 30])
+def test_dft_sub_copy_and_align(bits):
+    jm, tm = _mods(bits)
+    rng = np.random.default_rng(10)
+    a = _residues(rng, jm.basis.primes, (2, 5, 2, N))
+    b = _residues(rng, jm.basis.primes, (2, 3, 2, N))
+    for res_size in (None, 2, 4, 7):
+        assert _eq(tdft.dft_sub(tm, torch.from_numpy(a), torch.from_numpy(b), res_size),
+                   jdft.dft_sub(jm, jnp.asarray(a), jnp.asarray(b), res_size))
+        assert _eq(tdft.dft_sub(tm, torch.from_numpy(b), torch.from_numpy(a), res_size),
+                   jdft.dft_sub(jm, jnp.asarray(b), jnp.asarray(a), res_size))
+    for step, offset, res_size in [(1, 0, None), (2, 1, None), (2, 0, 4), (3, 2, 2), (2, 5, 3)]:
+        assert _eq(tdft.dft_copy(torch.from_numpy(a), step, offset, res_size),
+                   jdft.dft_copy(jnp.asarray(a), step, offset, res_size))
+    limbs = rng.integers(-(2**40), 2**40, (2, 3, N))
+    big = rng.integers(-(2**40), 2**40, (2, 4, N))
+    for res_size in (2, 4, 6):
+        have = tdft._align_limbs(torch.from_numpy(limbs), torch.from_numpy(big), res_size, -2)
+        want = jdft._align_limbs(jnp.asarray(limbs), jnp.asarray(big), res_size, limb_axis=-2)
+        assert all(_eq(h, w) for h, w in zip(have, want))
+
+
+def test_module_defaults_to_the_card():
+    """Without a device argument the port asks for the card, and raises on a
+    machine without one instead of handing back a CPU module."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from poulpy_tpu_torch.hal.module import Module
+    from poulpy_tpu_torch.hal.ntt import NttTables
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        t_get_module(64, 2, 28)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Module(64, 2, 28)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NttTables(TBasis(t_ntt_primes(2, 1 << 28)), 64)
+    assert t_get_module(64, 2, 28, "cpu").device == torch.device("cpu")

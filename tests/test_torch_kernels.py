@@ -60,7 +60,7 @@ def test_plain_ntt_matches_pallas(nprimes, prime_bits):
     with pltpu.force_tpu_interpret_mode():
         want_f = np.asarray(pallas_ntt.pallas_ntt_forward(t, jnp.asarray(r)))
         want_i = np.asarray(pallas_ntt.pallas_ntt_inverse(t, jnp.asarray(r)))
-    tt = t_get_module(n, nprimes, prime_bits).tables
+    tt = t_get_module(n, nprimes, prime_bits, "cpu").tables
     assert np.array_equal(tntt.ntt_forward(tt, torch.from_numpy(r)).numpy(), want_f)
     assert np.array_equal(tntt.ntt_inverse(tt, torch.from_numpy(r)).numpy(), want_i)
 
@@ -81,7 +81,7 @@ def test_plain_vmp_matches_pallas(nprimes, prime_bits):
     pmat = _residues(rng, m.basis.primes, (3, 2, 2, 4, nprimes, n))  # [rows, ci, co, psize]
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(pallas_vmp_apply(m, jnp.asarray(a), jnp.asarray(pmat), 1, 4))
-    tm = t_get_module(n, nprimes, prime_bits)
+    tm = t_get_module(n, nprimes, prime_bits, "cpu")
     have = tvmp.vmp_apply(tm, torch.from_numpy(a), torch.from_numpy(pmat), 1, 4)
     assert np.array_equal(have.numpy(), want)
 
@@ -104,7 +104,7 @@ def test_plain_fused_matches_pallas(nprimes, prime_bits, dsize, rows, size_a):
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(fused_glwe_product(m, jnp.asarray(a), jnp.asarray(pmat), 3, 17, 17,
                                              t_tile=2, dsize=dsize))
-    tm = t_get_module(n, nprimes, prime_bits)
+    tm = t_get_module(n, nprimes, prime_bits, "cpu")
     have = tfused.fused_glwe_product_ref(tm, torch.from_numpy(a), torch.from_numpy(pmat), 3,
                                          17, 17, dsize=dsize)
     assert np.array_equal(have.numpy(), want)
@@ -126,7 +126,7 @@ def test_pm_kernel_layouts_match_jax():
 
 
 def test_cpu_wrappers_take_the_plain_version():
-    m = t_get_module(64, 2, 28)
+    m = t_get_module(64, 2, 28, "cpu")
     rng = np.random.default_rng(15)
     a = torch.from_numpy(rng.integers(-(2**20), 2**20, size=(2, 2, 3, 64)))
     pmat = torch.from_numpy(_residues(rng, m.basis.primes, (3, 2, 2, 4, 2, 64)))
@@ -138,6 +138,77 @@ def test_cpu_wrappers_take_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         tvmp.vmp_kernel(m, torch.zeros(1, 1, 2, 64, dtype=torch.int32),
                         torch.zeros(1, 1, 2, 64, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("nprimes,prime_bits", BASES)
+def test_plain_fused_small_matches_pallas(nprimes, prime_bits):
+    """The keyswitch pattern: the body added at column 0 before the
+    normalization (as tests/test_fused.py runs it)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from poulpy_tpu.backends.pallas_fused import fused_glwe_product
+    from poulpy_tpu.hal.module import get_module
+
+    n = 128
+    m = get_module(n, nprimes, prime_bits)
+    rng = np.random.default_rng(16)
+    a = rng.integers(-(2**16), 2**16, size=(3, 1, 3, n), dtype=np.int64)
+    body = rng.integers(-(2**16), 2**16, size=(3, 3, n), dtype=np.int64)
+    pmat = _residues(rng, m.basis.primes, (3, 1, 2, 4, nprimes, n))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(fused_glwe_product(m, jnp.asarray(a), jnp.asarray(pmat), 3, 17, 17,
+                                             small=jnp.asarray(body), t_tile=2))
+    tm = t_get_module(n, nprimes, prime_bits, "cpu")
+    have = tfused.fused_glwe_product_ref(tm, torch.from_numpy(a), torch.from_numpy(pmat), 3, 17,
+                                         17, small=torch.from_numpy(body))
+    assert np.array_equal(have.numpy(), want)
+
+
+def test_plain_br_block_step_matches_pallas():
+    """The block-binary step (rot_mode 2, the reference's default) at one
+    small shape, as tests/test_fused.py runs it."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from poulpy_tpu.backends.pallas_fused import fused_br_block_step, pm_kernel_layout
+    from poulpy_tpu.binfhe.blind_rotation import _xpow_minus1_table
+    from poulpy_tpu.hal.module import get_module
+
+    n, nprimes, base2k, cols, size, rows, psize, block = 128, 2, 17, 2, 3, 3, 4, 4
+    m = get_module(n, nprimes, 28)
+    rng = np.random.default_rng(17)
+    acc = rng.integers(-(2**16), 2**16, size=(3, cols, size, n), dtype=np.int64)
+    pmats = _residues(rng, m.basis.primes, (block, rows, cols, cols, psize, nprimes, n))
+    a_vals = rng.integers(-n, n + 1, size=(3, block), dtype=np.int64)
+    with pltpu.force_tpu_interpret_mode():
+        pm_k = jnp.swapaxes(pm_kernel_layout(jnp.asarray(pmats), min(rows, size)), 0, 1)
+        xp = jnp.take(_xpow_minus1_table(n, m.basis.primes), a_vals & (2 * n - 1), axis=0)
+        want = np.asarray(fused_br_block_step(m, jnp.asarray(acc), pm_k, xp.astype(jnp.int32),
+                                              size, base2k, t_tile=2, rot_mode=2))
+    tm = t_get_module(n, nprimes, 28, "cpu")
+    have = tfused.fused_br_block_step_ref(tm, torch.from_numpy(acc), torch.from_numpy(pmats),
+                                          torch.from_numpy(a_vals), size, base2k)
+    assert np.array_equal(have.numpy(), want)
+
+
+def test_cpu_gate_wrappers_take_the_plain_version():
+    m = t_get_module(64, 2, 28, "cpu")
+    rng = np.random.default_rng(18)
+    a = torch.from_numpy(rng.integers(-(2**20), 2**20, size=(2, 1, 2, 64)))
+    body = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(2, 2, 64)))
+    pmat = torch.from_numpy(_residues(rng, m.basis.primes, (2, 1, 2, 3, 2, 64)))
+    acc = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(2, 2, 2, 64)))
+    pmats = torch.from_numpy(_residues(rng, m.basis.primes, (4, 4, 2, 2, 4, 2, 64)))
+    amounts = torch.from_numpy(rng.integers(-64, 65, size=(2, 4)))
+    before = dict(LAUNCHES)
+    assert torch.equal(tfused.fused_glwe_product(m, a, pmat, 2, 17, 17, small=body),
+                       tfused.fused_glwe_product_ref(m, a, pmat, 2, 17, 17, small=body))
+    assert torch.equal(tfused.fused_br_block_step(m, acc, pmats, amounts, 2, 17),
+                       tfused.fused_br_block_step_ref(m, acc, pmats, amounts, 2, 17))
+    assert LAUNCHES == before
 
 
 # --------------------------------------------------------------------------
@@ -197,3 +268,71 @@ def test_cuda_fused_matches_plain(cuda, nprimes, prime_bits, n, rows, size_a, ps
     assert LAUNCHES["fused_product"] == before + 1
     want = tfused.fused_glwe_product_ref(m, a, pmat, res_size, kr, ka, dsize)
     assert torch.equal(have, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nprimes,prime_bits", BASES)
+@pytest.mark.parametrize("n,rows,size_a,psize,s_size,res_size,dsize", [
+    (1024, 2, 2, 3, 2, 2, 1),     # the gate keyswitch (k_ksk 51, dnum 2, k_ct 34)
+    (2048, 3, 3, 4, 3, 3, 1),     # bench_full.py's keyswitch (k 68, dnum 3, k_ct 51)
+    (256, 2, 6, 4, 6, 3, 2),      # dsize 2, body longer than the product
+    (256, 3, 3, 4, 1, 4, 1),      # one body limb
+])
+def test_cuda_fused_small_matches_plain(cuda, nprimes, prime_bits, n, rows, size_a, psize,
+                                        s_size, res_size, dsize):
+    m = t_get_module(n, nprimes, prime_bits, cuda)
+    rng = np.random.default_rng(24)
+    a = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(7, 1, size_a, n))).to(cuda)
+    body = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(7, s_size, n))).to(cuda)
+    pmat = torch.from_numpy(_residues(rng, m.basis.primes,
+                                      (rows, 1, 2, psize, nprimes, n))).to(cuda)
+    before = LAUNCHES["fused_product_small"]
+    have = tfused.fused_glwe_product(m, a, pmat, res_size, 17, 17, dsize, small=body)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_product_small"] == before + 1
+    want = tfused.fused_glwe_product_ref(m, a, pmat, res_size, 17, 17, dsize, small=body)
+    assert torch.equal(have, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nprimes,prime_bits,size,rows,psize,res_size,block", [
+    (1024, 2, 28, 2, 4, 4, 2, 8),   # the gate shape (k_ct 34, k_brk 68, dnum 4, block 8)
+    (256, 2, 30, 3, 3, 4, 3, 4),
+    (256, 4, 30, 2, 4, 4, 2, 7),
+    (128, 2, 28, 3, 2, 2, 3, 1),    # acc longer than the product: its tail is dropped
+])
+def test_cuda_br_block_step_matches_plain(cuda, n, nprimes, prime_bits, size, rows, psize,
+                                          res_size, block):
+    m = t_get_module(n, nprimes, prime_bits, cuda)
+    rng = np.random.default_rng(25)
+    acc = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(5, 2, size, n))).to(cuda)
+    pmats = torch.from_numpy(_residues(rng, m.basis.primes,
+                                       (block, rows, 2, 2, psize, nprimes, n))).to(cuda)
+    amounts = rng.integers(-n, n + 1, size=(5, block))
+    amounts[:3, 0] = [-n, n, 2 * n + 3]     # both ends, and past 2N
+    amounts = torch.from_numpy(amounts).to(cuda)
+    before = LAUNCHES["br_block_step"]
+    have = tfused.fused_br_block_step(m, acc, pmats, amounts, res_size, 17)
+    torch.cuda.synchronize()
+    assert LAUNCHES["br_block_step"] == before + 1
+    want = tfused.fused_br_block_step_ref(m, acc, pmats, amounts, res_size, 17)
+    assert torch.equal(have, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [4, 1])
+def test_cuda_gate_nand_matches_cpu(cuda, block):
+    """The port's whole gate on the card equals the port's on the CPU."""
+    from poulpy_tpu_torch.binfhe import gates
+    from poulpy_tpu_torch.hal.source import Source
+
+    params = gates.GateParams(n_glwe=256, n_lwe=16, nprimes=2, prime_bits=28, block_size=block)
+    outs = []
+    for device in ("cpu", cuda):
+        keys, sk = gates.keygen(params, device=device)
+        c1 = gates.encrypt_bit(params, [0, 0, 1, 1], sk, Source(b"\x05" * 32), Source(b"\x06" * 32))
+        c2 = gates.encrypt_bit(params, [0, 1, 0, 1], sk, Source(b"\x07" * 32), Source(b"\x08" * 32))
+        out = gates.gate_nand(keys, c1, c2)
+        assert np.array_equal(gates.decrypt_bit(out, sk), [1, 1, 1, 0])
+        outs.append(out.data.cpu())
+    assert torch.equal(outs[0], outs[1])
