@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Three paths of the port run, each with the launch counters set to 0 just
+Five paths of the port run, each with the launch counters set to 0 just
 before it and read just after:
 
 - the product path, the headline operation of bench.py: a batched GLWE ×
@@ -14,7 +14,14 @@ before it and read just after:
   dnum 2, get_module(1024, 2, 28)) at batch 1024: block-binary blind
   rotation, GLWE → LWE keyswitch, sample extraction;
 - the keyswitch path, bench_full.py's keyswitch: N = 2048,
-  get_module(2048, 2) (30-bit primes), ciphertext k 51, key k 68, dnum 3.
+  get_module(2048, 2) (30-bit primes), ciphertext k 51, key k 68, dnum 3;
+- the ckks_wide path, bench_full.py's bench_ckks_mul_wide (the reference's
+  CKKS demo parameters): N 2048, base2k 52, ct k 95, tensor key k 156 dnum 2,
+  ternary secret of Hamming weight 192, get_module(2048, 5, 28), batch 256:
+  ct × ct multiply through the fused wide pair (tensor, relinearize);
+- the ckks path, bench_full.py's bench_ckks_mul: base2k 17, ct k 95, key k 95
+  dnum 6, get_module(2048, 2, 28), batch 256: multiply (NTT and VMP kernels)
+  then rescale(5).
 
 Phases, each printing JSON lines:
 
@@ -24,7 +31,8 @@ Phases, each printing JSON lines:
                  CUDA inputs at its path's shapes, tolerance 0, with its time,
                  the plain version's time and the bound (the least time the
                  card could take: bytes over 3.35 TB/s or modular products
-                 over the int32 rate, the larger);
+                 over the int32 rate, the larger; the wide kernels at the
+                 wide CKKS mul's shapes, batch 256);
   4. verify      product path: stage by stage (NTT → VMP → inverse NTT
                  kernels, plain Garner and normalize) equals the fused kernel
                  at batch 64, and the fused result decrypts to X·m exactly;
@@ -45,10 +53,19 @@ Phases, each printing JSON lines:
   8. keyswitch   keyswitch path: the keyswitch kernel equals the plain
                  keyswitch at batch 8 and decrypts exactly; 16 chained
                  single-ciphertext keyswitches; 1 + 10 chained keyswitches at
-                 batch 256.
+                 batch 256;
+  9. ckks_wide   set-up from bench_full.py's seeds; 1 warm-up mul of its pair
+                 (c1, c2) broadcast to batch 256, whose row-0 fingerprint
+                 sum(|data| mod 65536) must equal CKKS_WIDE_FINGERPRINT (the
+                 JAX package's value on the CPU), every row equal, its decode
+                 error against z·z printed; then 5 timed muls, each on a
+                 distinct batch of 256 encrypted in set-up, ending in a host
+                 checksum; then a profiled mul (torch.profiler, after a
+                 warm-up step);
+ 10. ckks        the same for the non-wide mul + rescale(5) (CKKS_FINGERPRINT).
 
-Then one line {"kernels": [...]} (launches summed over the three paths'
-runs) and, last, {"ok": true, "device": {...}}.  Any failure exits non-zero
+Then one line {"kernels": [...]} (launches summed over the paths' runs)
+and, last, {"ok": true, "device": {...}}.  Any failure exits non-zero
 before that line.  Without a CUDA device, or without the poulpy_tpu_torch
 package beside this file, it exits non-zero and prints no result.
 """
@@ -59,6 +76,7 @@ import json
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -80,11 +98,42 @@ GATE_FINGERPRINT = 38199110968
 KS_N, KS_K_KEY, KS_DNUM = 2048, 68, 3
 KS_VERIFY_BATCH, KS_CHAIN, KS_REPS, KS_BATCH, KS_ITERS = 8, 16, 5, 256, 10
 
+
+@dataclass(frozen=True)
+class CkksConfig:
+    """A CKKS multiply benchmark of bench_full.py: its parameters and seeds."""
+
+    n: int
+    nprimes: int
+    base2k: int
+    k_ct: int
+    k_key: int
+    log_delta: int
+    log_budget: int
+    dnum: int
+    hw: int | None          # Hamming weight of a ternary_hw secret; None: ternary_prob
+    seed: int               # np.random.default_rng seed of the slots
+    rescale: int | None     # rescale(k) after the multiply
+
+
+# bench_full.py bench_ckks_mul_wide and bench_ckks_mul (prime_bits 28 for both)
+CKKS_WIDE = CkksConfig(2048, 5, 52, 95, 156, 30, 35, 2, 192, 5, None)
+CKKS = CkksConfig(2048, 2, 17, 95, 95, 22, 30, 6, None, 3, 5)
+CKKS_BATCH, CKKS_ITERS = 256, 5
+# sum(|data| mod 65536) of one multiply (+ rescale) of bench_full.py's pair at
+# each configuration, computed by the JAX package on the CPU
+# (tests/test_torch_ckks.py::test_ckks_fingerprint_full_config recomputes them)
+CKKS_WIDE_FINGERPRINT = 270715177
+CKKS_FINGERPRINT = 808555351
+# the wide mul's landing offset off_bits − base2k = (65 + 65) − 30 − 35 − 52
+WIDE_OFFSET = 13
+
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 # int32 multiply rate of an H100 SXM: 132 SMs × 64 int32 lanes × 1.98 GHz
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 _FUSED = "poulpy_tpu/backends/pallas_fused.py:951"
+_WIDE = "poulpy_tpu/backends/pallas_wide.py"
 KERNELS = {
     "ntt_forward": ("poulpy_tpu_torch/csrc/ntt.cu", "poulpy_tpu/backends/pallas_ntt.py:407"),
     "ntt_inverse": ("poulpy_tpu_torch/csrc/ntt.cu", "poulpy_tpu/backends/pallas_ntt.py:407"),
@@ -92,12 +141,16 @@ KERNELS = {
     "fused_product": ("poulpy_tpu_torch/csrc/fused_product.cu", _FUSED),
     "fused_product_small": ("poulpy_tpu_torch/csrc/fused_product.cu", _FUSED),
     "br_block_step": ("poulpy_tpu_torch/csrc/br_block_step.cu", _FUSED),
+    "wide_product": ("poulpy_tpu_torch/csrc/wide_product.cu", f"{_WIDE}:496"),
+    "wide_tensor": ("poulpy_tpu_torch/csrc/wide_tensor.cu", f"{_WIDE}:718"),
 }
 # the kernels each path must launch
 PATHS = {
     "product": ("ntt_forward", "ntt_inverse", "vmp", "fused_product"),
     "gate": ("ntt_forward", "fused_product", "fused_product_small", "br_block_step"),
     "keyswitch": ("ntt_forward", "fused_product_small"),
+    "ckks_wide": ("wide_tensor", "wide_product"),
+    "ckks": ("ntt_forward", "ntt_inverse", "vmp"),
 }
 
 
@@ -183,12 +236,24 @@ def keys_and_ciphertexts(m, batch: int, seed: int):
     return skp, data, ct, ggswp
 
 
-def phase_kernels(m, gm) -> dict:
+def tensor_ops(B: int, P: int, n: int, size_a: int, size_b: int) -> int:
+    """Modular products of the rank-1 tensor product: forward NTT of the
+    2·(size_a + size_b) operand rows, the 4·size_a·size_b products of the
+    three column-pair convolutions, inverse NTT of their 3·conv_size rows,
+    per prime and ciphertext pair (the 128-bit Garner lift and the exit not
+    counted)."""
+    conv = size_a + size_b - 1
+    return B * P * (ntt_ops(2 * (size_a + size_b), n) + 4 * size_a * size_b * n
+                    + ntt_ops(3 * conv, n, True))
+
+
+def phase_kernels(m, gm, wm) -> dict:
     """Each kernel against its plain version at its path's shapes: the
-    product path's on `m`, the gate path's on `gm` at batch GATE_BATCH."""
+    product path's on `m`, the gate path's on `gm` at batch GATE_BATCH, the
+    wide CKKS mul's on `wm` at batch CKKS_BATCH."""
     import torch
 
-    from poulpy_tpu_torch.backends import fused, ntt, vmp
+    from poulpy_tpu_torch.backends import fused, ntt, vmp, wide
 
     gen = torch.Generator(device=m.device).manual_seed(5)
 
@@ -218,6 +283,17 @@ def phase_kernels(m, gm) -> dict:
     amounts = ints(-gn, gn + 1, (GATE_BATCH, GATE_BLOCK))
     pm_k = fused.pm_kernel_layout(brk, 2)
     rows_used = int(torch.unique(amounts & (2 * gn - 1)).numel())
+    # the wide CKKS mul (2 limbs of 52 bits, tensor key dnum 2, psize 3, P 5):
+    # the tensor step on both ciphertexts, then the relinearization of its
+    # 2 digits [ci 1, 2 rows] × [rows 2, ci 1, co 2, psize 3] with the 3 lin
+    # limbs of each column added, to res_size 2
+    c = CKKS_WIDE
+    wn, wp, wb = c.n, c.nprimes, CKKS_BATCH
+    ca = ints(-(2**51), 2**51, (wb, 2, 2, wn))
+    cb = ints(-(2**51), 2**51, (wb, 2, 2, wn))
+    digits = ints(-(2**51), 2**51, (wb, 1, c.dnum, wn))
+    lin = ints(-(2**51), 2**51, (wb, 2, 3, wn))
+    tkey = residues(wm, (c.dnum, 1, 2, 3, wp, wn))
     i32, i64 = 4, 8
     cases = {
         "ntt_forward": (lambda: ntt.ntt_forward(t, x), lambda: ntt.ntt_forward_ref(t, x),
@@ -244,11 +320,27 @@ def phase_kernels(m, gm) -> dict:
             bound(2 * acc.numel() * i64 + amounts.numel() * i64 + pm_k.numel() * i32
                   + rows_used * gp * gn * i32,
                   fused_ops(GATE_BATCH, 4, 8, gp, gn, GATE_BLOCK))),
+        "wide_tensor": (
+            lambda: wide.fused_tensor_product_wide(wm, ca, cb, 3, c.dnum, 3, c.base2k, c.base2k,
+                                                   WIDE_OFFSET),
+            lambda: wide.fused_tensor_product_wide_ref(wm, ca, cb, 3, c.dnum, 3, c.base2k,
+                                                       c.base2k, WIDE_OFFSET),
+            bound((ca.numel() + cb.numel() + wb * (c.dnum + 2 * 3) * wn) * i64,
+                  tensor_ops(wb, wp, wn, 2, 2))),
+        "wide_product": (
+            lambda: wide.fused_glwe_product_wide(wm, digits, tkey, 2, c.base2k, c.base2k,
+                                                 small=lin),
+            lambda: wide.fused_glwe_product_wide_ref(wm, digits, tkey, 2, c.base2k, c.base2k,
+                                                     small=lin),
+            bound((digits.numel() + lin.numel() + wb * 2 * 2 * wn) * i64 + tkey.numel() * i32,
+                  fused_ops(wb, c.dnum, 6, wp, wn))),
     }
     out = {}
     for name, (kernel, plain, bnd) in cases.items():
         have, want = kernel(), plain()
         torch.cuda.synchronize()
+        if isinstance(have, tuple):                 # the tensor step's (d, lin)
+            have, want = (torch.cat([x.flatten() for x in t]) for t in (have, want))
         err = int((have.to(torch.int64) - want.to(torch.int64)).abs().max())
         equal = bool(torch.equal(have, want))
         ms, plain_ms = cuda_ms(kernel, 5), cuda_ms(plain, 1)
@@ -424,33 +516,44 @@ def phase_gate_bench(setup, iters: int, fingerprint: int | None) -> None:
     if not truth:
         raise SystemExit("chained NANDs decrypt to the wrong bits")
     if device.type == "cuda":
-        profile_nand(keys, out, c2)
+        profile_once("gate_profile", lambda: gates.gate_nand(keys, out, c2), dt / iters * 1e3)
 
 
-def profile_nand(keys, c1, c2) -> None:
-    """One more NAND under torch.profiler: wall time, device busy time (the
-    sum of kernel times, CUDA activity) and the kernels that take it."""
+def profile_once(phase: str, fn, timed_ms: float) -> None:
+    """Two more calls of `fn` under torch.profiler, the first a warm-up step
+    that takes the profiler's own start-up: the second's wall time, device
+    busy time (the sum of kernel and copy times, CUDA activity) and the
+    kernels that take it.  The profiler's host-side tracing lengthens the
+    wall time of a call made of many small launches, so the busy time is
+    also given as a share of `timed_ms`, the same call's time in the
+    unprofiled timed loop."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from poulpy_tpu_torch.binfhe import gates
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        gates.gate_nand(keys, c1, c2)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
     device = {}                                   # kernel or copy name → [ms, count]
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # the schedule's ProfilerStep range spans the step: not device work
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith("ProfilerStep")):
             entry = device.setdefault(e.name, [0.0, 0])
             entry[0] += e.time_range.elapsed_us() / 1e3
             entry[1] += 1
     busy_ms = sum(ms for ms, _ in device.values())
+    # the kernels of csrc/ (each in an anonymous namespace) against torch's own
+    csrc_ms = sum(ms for k, (ms, _) in device.items() if k.startswith("(anonymous namespace)::"))
     top = sorted(device.items(), key=lambda kv: -kv[1][0])[:6]
-    emit(phase="gate_profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
-         busy_share=busy_ms / wall_ms, device_events=sum(c for _, c in device.values()),
+    emit(phase=phase, wall_ms=wall_ms, device_busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
+         timed_ms=timed_ms, busy_share_of_timed=busy_ms / timed_ms, csrc_kernels_ms=csrc_ms,
+         device_events=sum(c for _, c in device.values()),
          top=[dict(name=k[:90], device_ms=ms, count=c) for k, (ms, c) in top])
 
 
@@ -519,6 +622,109 @@ def phase_keyswitch(device, n: int) -> None:
         raise SystemExit("keyswitch verify failed")
 
 
+def ckks_setup(cfg: CkksConfig, batch: int, iters: int, device):
+    """bench_full.py's CKKS set-up: the secret from bytes(32), the tensor key
+    from Source 0x01 / 0x02, the slots z from default_rng(seed), its pair
+    (c1, c2) of encryptions of z; then `iters` distinct pairs of batches of
+    `batch` encryptions of z, drawn on from the same sources."""
+    import numpy as np
+
+    from poulpy_tpu_torch.ckks import ops as ck
+    from poulpy_tpu_torch.ckks.encoder import Encoder
+    from poulpy_tpu_torch.core import encryption as enc
+    from poulpy_tpu_torch.core.prepared import glwe_secret_prepare, glwe_tensor_key_prepare
+    from poulpy_tpu_torch.hal.module import get_module
+    from poulpy_tpu_torch.hal.source import Source
+
+    m = get_module(cfg.n, cfg.nprimes, 28, device)
+    dist = {"dist": "ternary_hw", "hw": cfg.hw} if cfg.hw else {}
+    sk = enc.secret_new(m, 1, Source(bytes(32)), **dist)
+    skp = glwe_secret_prepare(m, sk)
+    xe, xa = Source(b"\x01" * 32), Source(b"\x02" * 32)
+    tsk = glwe_tensor_key_prepare(m, enc.glwe_tensor_key_encrypt_sk(
+        m, sk, skp, cfg.base2k, cfg.k_key, dnum=cfg.dnum, source_xe=xe, source_xa=xa))
+    encoder = Encoder(cfg.n)
+    rng = np.random.default_rng(cfg.seed)
+    z = rng.normal(size=cfg.n // 2) + 1j * rng.normal(size=cfg.n // 2)
+    pt = ck.encode(encoder, z, cfg.base2k, cfg.k_ct, cfg.log_delta, cfg.log_budget,
+                   device=m.device)
+    pair = [ck.encrypt_sk(m, pt, skp, cfg.k_ct, xe, xa) for _ in range(2)]
+    timed = [ck.encrypt_sk(m, pt, skp, cfg.k_ct, xe, xa, batch_shape=(iters, batch))
+             for _ in range(2)]
+    return m, skp, tsk, encoder, z, pair, timed
+
+
+def ckks_mul(m, a, b, tsk, cfg: CkksConfig):
+    """bench_full.py's timed step: mul, then rescale(cfg.rescale) if set."""
+    from poulpy_tpu_torch.ckks import ops as ck
+
+    out = ck.mul(m, a, b, tsk)
+    return ck.rescale(out, cfg.rescale) if cfg.rescale else out
+
+
+def run_ckks_path(name: str, cfg: CkksConfig, device, batch: int, iters: int,
+                  fingerprint: int | None) -> None:
+    """Set-up, 1 warm-up mul of bench_full.py's pair broadcast to `batch`
+    rows (fingerprint of row 0, every row equal, decode error), `iters`
+    timed muls on distinct batches ending in a host checksum, and one
+    profiled mul."""
+    import numpy as np
+    import torch
+
+    from poulpy_tpu_torch.backends import LAUNCHES
+    from poulpy_tpu_torch.ckks import ops as ck
+
+    t0 = time.perf_counter()
+    m, skp, tsk, encoder, z, (c1, c2), (t1, t2) = ckks_setup(cfg, batch, iters, device)
+    sync(device)
+    setup_s = time.perf_counter() - t0
+    key = tsk.keys[(0, 0)]
+    emit(phase=f"{name}_setup", batch=batch, iters=iters, setup_s=setup_s,
+         tensor_key_mib=key.pmat.numel() * key.pmat.element_size() / 2**20)
+
+    def rows(c, data):
+        return c.replace(glwe=c.glwe.replace(data=data))
+
+    def err(ct):
+        got = ck.decode(encoder, ck.decrypt(m, rows(ct, ct.glwe.data[0]), skp))
+        return float(np.abs(got - z * z).max())
+
+    shape = (batch,) + tuple(c1.glwe.data.shape)
+    out = ckks_mul(m, rows(c1, c1.glwe.data.expand(shape).contiguous()),
+                   rows(c2, c2.glwe.data.expand(shape).contiguous()), tsk, cfg)
+    data = out.glwe.data
+    value = int((data[0].abs() % 65536).sum())
+    rows_equal = bool((data == data[:1]).all())
+    warm_err = err(out)
+    emit(phase=f"{name}_warmup", fingerprint=value, fingerprint_expected=fingerprint,
+         rows_equal=rows_equal, decode_err_vs_z2=warm_err, shape=list(data.shape),
+         log_delta=out.meta.log_delta, log_budget=out.meta.log_budget)
+    if not rows_equal or (fingerprint is not None and value != fingerprint):
+        raise SystemExit(f"{name} warm-up failed: fingerprint {value}, rows equal {rows_equal}")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    before = dict(LAUNCHES)
+    sync(device)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        out = ckks_mul(m, rows(t1, t1.glwe.data[i]), rows(t2, t2.glwe.data[i]), tsk, cfg)
+    value = int((out.glwe.data.abs() % 65536).sum())
+    dt = time.perf_counter() - t0
+    per_mul = {k: (LAUNCHES[k] - before[k]) / iters for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    timed_err = err(out)
+    emit(phase=name, batch=batch, iters=iters, muls_per_s=batch * iters / dt,
+         ms_per_batch=dt / iters * 1e3, checksum=value, decode_err_vs_z2=timed_err,
+         launches_per_mul=per_mul,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else None)
+    if not timed_err <= 4 * warm_err:    # fresh noise, the same parameters: the same scale
+        raise SystemExit(f"{name}: the timed product decodes {timed_err} away from z·z, "
+                         f"the warm-up {warm_err}")
+    if device.type == "cuda":
+        profile_once(f"{name}_profile",
+                     lambda: ckks_mul(m, rows(t1, t1.glwe.data[0]), rows(t2, t2.glwe.data[0]),
+                                      tsk, cfg), dt / iters * 1e3)
+
+
 def run_gate_path(device, n_lwe: int, batch: int, verify_batch: int, std_n_lwe: int,
                   iters: int, fingerprint: int | None) -> None:
     """The gate path: set-up, gate_verify, gate_bench."""
@@ -562,7 +768,8 @@ def main() -> int:
 
     m = get_module(N, NPRIMES, PRIME_BITS, "cuda")
     gm = get_module(1024, 2, 28, "cuda")          # GateParams' n_glwe, nprimes, prime_bits
-    timings = phase_kernels(m, gm)
+    wm = get_module(CKKS_WIDE.n, CKKS_WIDE.nprimes, 28, "cuda")
+    timings = phase_kernels(m, gm, wm)
     torch.cuda.empty_cache()
 
     runs = {
@@ -570,6 +777,10 @@ def main() -> int:
         "gate": lambda: run_gate_path(m.device, GATE_N_LWE, GATE_BATCH, GATE_VERIFY_BATCH,
                                       STD_N_LWE, GATE_ITERS, GATE_FINGERPRINT),
         "keyswitch": lambda: phase_keyswitch(m.device, KS_N),
+        "ckks_wide": lambda: run_ckks_path("ckks_wide", CKKS_WIDE, m.device, CKKS_BATCH,
+                                           CKKS_ITERS, CKKS_WIDE_FINGERPRINT),
+        "ckks": lambda: run_ckks_path("ckks", CKKS, m.device, CKKS_BATCH, CKKS_ITERS,
+                                      CKKS_FINGERPRINT),
     }
     launches = dict.fromkeys(LAUNCHES, 0)
     for path, run in runs.items():

@@ -1,10 +1,11 @@
 """Build, load and call the CUDA kernels of `csrc/`.
 
-The sources are compiled at first use with `nvcc` for `sm_90a` into one
-shared library with a plain C interface, loaded with `ctypes`.  The library
-goes to `build/kernels/<hash of the sources>/` at the root of the checkout
-(listed in `.gitignore`), so a changed source builds anew and an unchanged
-one is built once per checkout.
+The sources are compiled at first use with `nvcc` for `sm_90a`, one process
+per source, all started together, and linked into one shared library with a
+plain C interface, loaded with `ctypes`.  The library goes to
+`build/kernels/<hash of the sources>/` at the root of the checkout (listed
+in `.gitignore`), so a changed source builds anew and an unchanged one is
+built once per checkout.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ _SIGNATURES = {
     "poulpy_vmp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "poulpy_fused_product": [_P] * 6 + [_I] * 13 + [_P],
     "poulpy_br_block_step": [_P] * 7 + [_I] * 11 + [_P],
+    "poulpy_wide_product": [_P] * 6 + [_I] * 15 + [_P],
+    "poulpy_wide_tensor": [_P] * 6 + [_I] * 12 + [_P],
 }
 
 build_info: dict = {}
@@ -59,15 +62,29 @@ def library() -> ctypes.CDLL:
     built = False
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"tmp{os.getpid()}.so"
-        cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-               *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        tag = f"tmp{os.getpid()}"
+        nvcc = _nvcc()
+        # one nvcc per source, all at once, then one link
+        objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
+        procs = [subprocess.Popen([nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-c",
+                                   "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [(src.name, proc.communicate()[0], proc.returncode)
+                for src, proc in zip(sources, procs)]
+        (out_dir / "nvcc.log").write_text("".join(f"== {name}\n{log}" for name, log, _ in logs))
+        failed = [(name, log) for name, log, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed[0][0]}:\n{failed[0][1][-4000:]}")
+        tmp = out_dir / f"{tag}.so"
+        link = subprocess.run([nvcc, "-gencode", ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
         os.replace(tmp, so)
+        for obj in objs:
+            obj.unlink()
         built = True
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

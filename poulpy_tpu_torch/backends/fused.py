@@ -89,22 +89,29 @@ def _dft_plain(module, a, step=1, offset=0, res_size=None):
     return r
 
 
+def product_dft_ref(module: Module, a_data, pmat, dsize: int = 1):
+    """Plain dft → vmp of the fused products, in the DFT domain: one VMP for
+    dsize 1, else the sum over digits di of the VMP of limbs
+    dsize−1−di, 2·dsize−1−di, … at output limb offset di."""
+    if dsize == 1:
+        return vmp_apply_ref(module, _dft_plain(module, a_data), pmat)
+    dnum, a_size = pmat.shape[0], a_data.shape[-2]
+    res_dft = None
+    for di in range(dsize):
+        ai_size = min((a_size + di) // dsize, dnum)
+        if ai_size == 0:
+            continue
+        ai = _dft_plain(module, a_data, dsize, dsize - 1 - di, ai_size)
+        part = vmp_apply_ref(module, ai, pmat, limb_offset=di)
+        res_dft = part if res_dft is None else add_mod(res_dft, part, module.tables.p[:, None])
+    return res_dft
+
+
 def fused_glwe_product_ref(module: Module, a_data, pmat, res_size: int, res_base2k: int,
                            pm_base2k: int, dsize: int = 1, small=None):
     """Plain version: dft → vmp (per digit for dsize > 1) → idft → (+ small
     at column 0) → normalize, every stage in plain PyTorch."""
-    if dsize == 1:
-        res_dft = vmp_apply_ref(module, _dft_plain(module, a_data), pmat)
-    else:
-        dnum, a_size = pmat.shape[0], a_data.shape[-2]
-        res_dft = None
-        for di in range(dsize):
-            ai_size = min((a_size + di) // dsize, dnum)
-            if ai_size == 0:
-                continue
-            ai = _dft_plain(module, a_data, dsize, dsize - 1 - di, ai_size)
-            part = vmp_apply_ref(module, ai, pmat, limb_offset=di)
-            res_dft = part if res_dft is None else add_mod(res_dft, part, module.tables.p[:, None])
+    res_dft = product_dft_ref(module, a_data, pmat, dsize)
     big = garner_lift(module.tables, ntt_inverse(module.tables, res_dft))
     if small is not None:   # garner_lift's output is fresh: add the body in place
         big[..., 0, :, :] += _align_limbs(small, big, big.shape[-2], limb_axis=-2)[0]

@@ -9,14 +9,17 @@ int32 in [0, p), in and out.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from poulpy_tpu_torch.backends import LAUNCHES, _lib
 from poulpy_tpu_torch.hal.ntt import NttTables
 from poulpy_tpu_torch.hal.ntt import ntt_forward as ntt_forward_ref
 from poulpy_tpu_torch.hal.ntt import ntt_inverse as ntt_inverse_ref
+from poulpy_tpu_torch.hal.wide import i64c
 
-CONSTS_PER_PRIME = 8
+CONSTS_PER_PRIME = 10
 
 
 def kernel_tables(t: NttTables):
@@ -24,8 +27,9 @@ def kernel_tables(t: NttTables):
     table set on its device:
 
     tw      int32 [2, P, N]: forward / inverse bit-reversed psi powers (Montgomery);
-    consts  int64 [P·8 + P·P]: per prime (p, qinv, N^{-1}·R, garner_inv·R,
-            half_digit, garner_weight, M mod 2^64, 0), then garner_pprod·R [P, P].
+    consts  int64 [P·10 + P·P]: per prime (p, qinv, N^{-1}·R, garner_inv·R,
+            half_digit, W mod 2^64, M mod 2^64, W's bits 64–127, M's bits 64–127,
+            0), then garner_pprod·R [P, P]; W = garner weight, M = modulus.
     """
     cached = getattr(t, "_kernel_tables", None)
     if cached is None:
@@ -40,6 +44,9 @@ def kernel_tables(t: NttTables):
         per[:, 4] = t.half_digits
         per[:, 5] = t.garner_weight
         per[:, 6] = t.modulus_u64
+        weights = [math.prod(b.primes[:i]) for i in range(P)]
+        per[:, 7] = torch.tensor([i64c(w >> 64) for w in weights])
+        per[:, 8] = i64c(b.modulus >> 64)
         consts = torch.cat([per.reshape(-1), t.garner_pprod_mont.reshape(-1)]).contiguous()
         cached = (tw, consts)
         t._kernel_tables = cached

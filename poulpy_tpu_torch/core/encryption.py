@@ -1,4 +1,5 @@
-"""Secret-key encryption for GLWE / GGLWE / GGSW / LWE and the secret key.
+"""Secret-key encryption for GLWE / GGLWE / GGSW / LWE, the secret key and
+the tensor (relinearization) key.
 
 Twin of `poulpy_tpu/core/encryption.py` (the port's part).  Randomness is
 drawn on the host from the ChaCha8 `Source`, whole tensors at once and in
@@ -48,10 +49,16 @@ class NoiseInfos:
 
 def secret_new(module: Module, rank: int, source: Source, dist: str = "ternary_prob",
                **kw) -> GLWESecret:
-    """Sample a GLWE secret.  Only the ternary_prob distribution is ported."""
-    if dist != "ternary_prob":
+    """Sample a GLWE secret: `ternary_prob` (keyword `prob`, default 0.5) or
+    `ternary_hw` (keyword `hw`, the Hamming weight of each column).  The
+    binary distributions of the JAX package are not ported."""
+    n = module.n
+    if dist == "ternary_prob":
+        data = source.ternary_prob((rank, n), kw.get("prob", 0.5))
+    elif dist == "ternary_hw":
+        data = np.stack([source.ternary_hw(n, kw["hw"]) for _ in range(rank)])
+    else:
         raise NotImplementedError(f"secret distribution {dist!r} is not ported")
-    data = source.ternary_prob((rank, module.n), kw.get("prob", 0.5))
     return GLWESecret(data=torch.from_numpy(data).to(module.device), dist=dist)
 
 
@@ -138,6 +145,23 @@ def glwe_switching_key_encrypt_sk(module: Module, sk_in: GLWESecret, sk_out: GLW
     """Key-switching key sk_in → sk_out."""
     return gglwe_encrypt_sk(module, sk_in.data, sk_out, base2k, k, dnum, source_xe, source_xa,
                             dsize=dsize, **kw)
+
+
+def glwe_tensor_key_encrypt_sk(module: Module, sk: GLWESecret, sk_prepared: GLWESecretPrepared,
+                               base2k: int, k: int, dnum: int, source_xe: Source,
+                               source_xa: Source, dsize: int = 1,
+                               **kw) -> dict[tuple[int, int], GGLWECiphertext]:
+    """Tensor (relinearization) key: for i ≤ j, a GGLWE of s_i·s_j under s,
+    the exact product taken through the NTT (the coefficients are tiny)."""
+    keys = {}
+    for i in range(sk.rank):
+        for j in range(i, sk.rank):
+            si_dft = dft.dft_apply(module, sk.data[i][None, :])
+            sj_p = dft.svp_prepare(module, sk.data[j])
+            sisj = dft.idft_apply(module, dft.svp_apply(module, si_dft, sj_p))[0]
+            keys[(i, j)] = gglwe_encrypt_sk(module, sisj[None, :], sk_prepared, base2k, k, dnum,
+                                            source_xe, source_xa, dsize=dsize, **kw)
+    return keys
 
 
 def lwe_encrypt_sk(module_unused, pt, sk_lwe, base2k: int, k: int, source_xe: Source,

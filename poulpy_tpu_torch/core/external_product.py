@@ -1,15 +1,17 @@
 """GLWE × GGSW external product and CMux.
 
 Twin of `poulpy_tpu/core/external_product.py`.  Every product, any dsize,
-goes through `backends.fused.fused_glwe_product`: one CUDA launch for a CUDA
-batch, the plain stage chain (dft → vmp → idft → normalize) for a CPU one.
-The wide (i128-twin) path of the reference is not ported: a parameter set
-whose product bound exceeds 62 bits raises `NotImplementedError`.
+goes through one fused wrapper: one CUDA launch for a CUDA batch, the plain
+stage chain (dft → vmp → idft → normalize) for a CPU one.  A parameter set
+whose product bound exceeds 62 bits takes the wide (i128-twin) exit,
+`backends.wide.fused_glwe_product_wide`; the others
+`backends.fused.fused_glwe_product`.
 """
 
 from __future__ import annotations
 
 from poulpy_tpu_torch.backends.fused import fused_glwe_product
+from poulpy_tpu_torch.backends.wide import fused_glwe_product_wide
 from poulpy_tpu_torch.core.layouts import GLWECiphertext, glwe_size
 from poulpy_tpu_torch.core.operations import glwe_add, glwe_sub
 from poulpy_tpu_torch.core.prepared import GGSWPrepared
@@ -30,11 +32,11 @@ def glwe_external_product(module: Module, a: GLWECiphertext, ggsw: GGSWPrepared,
         a = GLWECiphertext(data=data, base2k=ggsw.base2k, k=a.k)
     bits = dft.product_bits(ggsw.base2k, ggsw.base2k, module.log_n, ggsw.dnum * (ggsw.rank + 1))
     if dft.needs_wide(bits):
-        raise NotImplementedError(
-            f"external product bound of {bits} bits needs the wide (i128) path, "
-            "which is not ported")
-    res = fused_glwe_product(module, a.data, ggsw.pmat, res_size, res_base2k, ggsw.base2k,
-                             dsize=ggsw.dsize)
+        res = fused_glwe_product_wide(module, a.data, ggsw.pmat, res_size, res_base2k,
+                                      ggsw.base2k, dsize=ggsw.dsize)
+    else:
+        res = fused_glwe_product(module, a.data, ggsw.pmat, res_size, res_base2k, ggsw.base2k,
+                                 dsize=ggsw.dsize)
     return GLWECiphertext(data=res, base2k=res_base2k, k=res_k)
 
 

@@ -4,14 +4,17 @@ port's part).
 The mask limbs go through one fused product with the prepared key and the
 body is added to column 0 of the big accumulator before the normalization:
 one CUDA launch for a CUDA batch (`fused_glwe_product(small=…)`), the plain
-stage chain for a CPU one.  The wide (i128-twin) path of the reference is not
-ported: a key whose product bound exceeds 62 bits raises
-`NotImplementedError`.
+stage chain for a CPU one.  A key whose product bound exceeds 62 bits takes
+the wide (i128-twin) exit, `fused_glwe_product_wide` with the body as
+column 0 of its per-column `small`.
 """
 
 from __future__ import annotations
 
+import torch
+
 from poulpy_tpu_torch.backends.fused import fused_glwe_product
+from poulpy_tpu_torch.backends.wide import fused_glwe_product_wide
 from poulpy_tpu_torch.core.layouts import GLWECiphertext, glwe_size
 from poulpy_tpu_torch.core.prepared import GGLWEPrepared
 from poulpy_tpu_torch.hal import dft
@@ -48,11 +51,16 @@ def glwe_keyswitch(module: Module, a: GLWECiphertext, key: GGLWEPrepared,
         a = glwe_normalize(module, a, key.base2k, a.k)
     bits = dft.product_bits(key.base2k, key.base2k, module.log_n, key.dnum * max(1, a.rank))
     if dft.needs_wide(bits):
-        raise NotImplementedError(
-            f"keyswitch product bound of {bits} bits needs the wide (i128) path, "
-            "which is not ported")
-    res = fused_glwe_product(module, a.data[..., 1:, :, :], key.pmat, res_size, res_base2k,
-                             key.base2k, dsize=key.dsize, small=a.data[..., 0, :, :])
+        co, psize = key.pmat.shape[2:4]
+        body = a.data[..., 0, :min(a.size, psize), :]
+        small = torch.zeros(body.shape[:-2] + (co,) + body.shape[-2:], dtype=body.dtype,
+                            device=body.device)
+        small[..., 0, :, :] = body
+        res = fused_glwe_product_wide(module, a.data[..., 1:, :, :], key.pmat, res_size,
+                                      res_base2k, key.base2k, small=small, dsize=key.dsize)
+    else:
+        res = fused_glwe_product(module, a.data[..., 1:, :, :], key.pmat, res_size, res_base2k,
+                                 key.base2k, dsize=key.dsize, small=a.data[..., 0, :, :])
     return GLWECiphertext(data=res, base2k=res_base2k, k=res_k)
 
 

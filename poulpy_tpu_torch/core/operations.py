@@ -1,9 +1,17 @@
-"""GLWE add / sub: twins of the two `poulpy_tpu/core/operations.py`
-functions that `glwe_cmux` needs."""
+"""GLWE arithmetic: twins of `poulpy_tpu/core/operations.py` (the port's
+part): add / sub / negate, plaintext adds, shifts, normalization, scalar and
+plaintext products, and the tensor product that CKKS multiplication runs on.
+
+`glwe_tensor_relinearize` is not ported yet; CKKS `mul` (`ckks/ops.py`)
+relinearizes with its own landing shift, as the JAX package's does.
+"""
 
 from __future__ import annotations
 
-from poulpy_tpu_torch.core.layouts import GLWECiphertext, glwe_size
+from poulpy_tpu_torch.core.layouts import GLWECiphertext, GLWEPlaintext, glwe_size
+from poulpy_tpu_torch.hal import dft
+from poulpy_tpu_torch.hal.module import Module
+from poulpy_tpu_torch.hal.normalization import vec_znx_normalize, vec_znx_normalize_full
 from poulpy_tpu_torch.hal.vec_znx import vec_znx_add, vec_znx_sub
 
 
@@ -21,3 +29,114 @@ def glwe_add(a: GLWECiphertext, b: GLWECiphertext) -> GLWECiphertext:
 
 def glwe_sub(a: GLWECiphertext, b: GLWECiphertext) -> GLWECiphertext:
     return _binary(a, b, lambda x, y, s: vec_znx_sub(x, y, res_size=s))
+
+
+def glwe_negate(a: GLWECiphertext) -> GLWECiphertext:
+    return a.replace(data=-a.data)
+
+
+def _set_body(a: GLWECiphertext, body) -> GLWECiphertext:
+    data = a.data.clone()
+    data[..., 0, :, :] = body
+    return a.replace(data=data)
+
+
+def glwe_add_plain(a: GLWECiphertext, pt: GLWEPlaintext) -> GLWECiphertext:
+    if a.base2k != pt.base2k:
+        raise ValueError("align base2k first")
+    return _set_body(a, vec_znx_add(a.data[..., 0, :, :], pt.data, res_size=a.size))
+
+
+def glwe_sub_plain(a: GLWECiphertext, pt: GLWEPlaintext) -> GLWECiphertext:
+    if a.base2k != pt.base2k:
+        raise ValueError("align base2k first")
+    return _set_body(a, vec_znx_sub(a.data[..., 0, :, :], pt.data, res_size=a.size))
+
+
+def glwe_lsh(k_shift: int, a: GLWECiphertext) -> GLWECiphertext:
+    """ct · 2^{k_shift} (the CKKS rescale primitive)."""
+    return a.replace(data=vec_znx_normalize_full(a.size, a.base2k, k_shift, a.data, a.base2k))
+
+
+def glwe_rsh(k_shift: int, a: GLWECiphertext) -> GLWECiphertext:
+    return a.replace(data=vec_znx_normalize_full(a.size, a.base2k, -k_shift, a.data, a.base2k))
+
+
+def glwe_lsh_add(k_shift: int, a: GLWECiphertext, b: GLWECiphertext) -> GLWECiphertext:
+    """a·2^k + b."""
+    return glwe_add(glwe_lsh(k_shift, a), b)
+
+
+def glwe_lsh_sub(k_shift: int, a: GLWECiphertext, b: GLWECiphertext) -> GLWECiphertext:
+    """a·2^k − b."""
+    return glwe_sub(glwe_lsh(k_shift, a), b)
+
+
+def glwe_normalize_inplace(a: GLWECiphertext) -> GLWECiphertext:
+    return a.replace(data=vec_znx_normalize(a.base2k, a.data))
+
+
+def glwe_mul_scalar(c: int, a: GLWECiphertext) -> GLWECiphertext:
+    """Multiply by a small integer constant, renormalized."""
+    return a.replace(data=vec_znx_normalize(a.base2k, a.data * c))
+
+
+def glwe_mul_plain(module: Module, a: GLWECiphertext, pt: GLWEPlaintext,
+                   res_size: int | None = None) -> GLWECiphertext:
+    """ct × plaintext polynomial through the bivariate convolution; the
+    product's torus scale is a.k + pt.k − base2k (the scheme layer lands it)."""
+    if a.base2k != pt.base2k:
+        raise ValueError("align base2k first")
+    base2k = a.base2k
+    res_size = a.size if res_size is None else res_size
+    prod = dft.cnv_apply(module, dft.cnv_prepare_left(module, a.data),
+                         dft.cnv_prepare_right(module, pt.data), a.size + pt.size - 1)
+    bits = dft.product_bits(base2k, base2k, module.log_n, min(a.size, pt.size))
+    if dft.needs_wide(bits):
+        assert bits + 1 < module.basis.modulus.bit_length()
+        data = dft.big_normalize_wide(module, res_size, base2k, dft.idft_apply_wide(module, prod),
+                                      base2k)
+    else:
+        data = dft.big_normalize(module, res_size, base2k, dft.idft_apply(module, prod), base2k)
+    return GLWECiphertext(data=data, base2k=base2k, k=min(a.k + pt.k, res_size * base2k))
+
+
+def tensor_product_bits(module: Module, a: GLWECiphertext, b: GLWECiphertext) -> int:
+    """Exact-value bound (bits) of one tensor-product convolution limb."""
+    return dft.product_bits(a.base2k, b.base2k, module.log_n, 2 * min(a.size, b.size))
+
+
+def glwe_tensor_product_big(module: Module, a: GLWECiphertext, b: GLWECiphertext, res_size: int,
+                            wide: bool = False):
+    """Pairwise bivariate convolution of the ciphertext polynomials.
+
+    For rank 1, (a0, a1) ⊗ (b0, b1) gives the big-domain linear terms
+    [a0·b0, a0·b1 + a1·b0] and the quadratic term {(0, 0): a1·b1},
+    decryptable under (1, s, s²); a general rank gives every symmetric
+    product.  `wide` takes the (hi, lo) pair exit of `hal/wide.py`."""
+    rank = a.rank
+    a_prep = dft.cnv_prepare_left(module, a.data)
+    b_prep = dft.cnv_prepare_right(module, b.data)
+    idft = dft.idft_apply_wide if wide else dft.idft_apply
+
+    def conv(i, j):
+        return dft.cnv_apply(module, a_prep[..., i, :, :, :], b_prep[..., j, :, :, :], res_size)
+
+    out = [conv(0, 0)]
+    for i in range(1, rank + 1):
+        out.append(dft.dft_add(module, conv(0, i), conv(i, 0)))
+    terms = {}
+    for i in range(1, rank + 1):
+        for j in range(i, rank + 1):
+            t = conv(i, j)
+            if i != j:
+                t = dft.dft_add(module, t, conv(j, i))
+            terms[(i - 1, j - 1)] = t
+    lin = [idft(module, x) for x in out]
+    quad = {k: idft(module, v) for k, v in terms.items()}
+    return lin, quad
+
+
+def glwe_tensor_square_big(module: Module, a: GLWECiphertext, res_size: int, wide: bool = False):
+    """The a == b case of `glwe_tensor_product_big`."""
+    return glwe_tensor_product_big(module, a, a, res_size, wide=wide)

@@ -4,6 +4,7 @@
   GLWESecretPrepared     data [rank, P, N]                          (Montgomery)
   GGLWEPrepared          pmat [dnum, rank_in, rank_out+1, size, P, N] (Montgomery)
   GGSWPrepared           pmat [dnum, rank+1, rank+1, size, P, N]     (Montgomery)
+  GLWETensorKeyPrepared  rank(rank+1)/2 GGLWEPrepared for the s_i·s_j terms
 """
 
 from __future__ import annotations
@@ -71,6 +72,13 @@ class GGSWPrepared(_Replace):
         return self.pmat.shape[-3]
 
 
+@dataclass(frozen=True)
+class GLWETensorKeyPrepared(_Replace):
+    """Relinearization keys: keys[(i, j)] switches s_i·s_j → s."""
+
+    keys: dict[tuple[int, int], GGLWEPrepared]
+
+
 def glwe_secret_prepare(module: Module, sk: GLWESecret) -> GLWESecretPrepared:
     return GLWESecretPrepared(data=dft.svp_prepare(module, sk.data), dist=sk.dist)
 
@@ -83,3 +91,7 @@ def ggsw_prepare(module: Module, ct: GGSWCiphertext) -> GGSWPrepared:
 def gglwe_prepare(module: Module, ct: GGLWECiphertext) -> GGLWEPrepared:
     return GGLWEPrepared(pmat=dft.vmp_prepare(module, ct.data), base2k=ct.base2k, k=ct.k,
                          dsize=ct.dsize)
+
+
+def glwe_tensor_key_prepare(module: Module, keys: dict) -> GLWETensorKeyPrepared:
+    return GLWETensorKeyPrepared(keys={k: gglwe_prepare(module, v) for k, v in keys.items()})

@@ -57,18 +57,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_product_kernel(
     ntt_fwd_rows(xin, kk, logn, tw + (size_t)pi * n, p, qinv);
 
     uint32_t* y = ys + (size_t)pi * mdim * n;
-    const int32_t* pmp = pm + (size_t)pi * kk * mdim * n;
-    for (int idx = threadIdx.x; idx < (mdim << logn); idx += blockDim.x) {
-      const int m = idx >> logn;
-      const int coef = idx & (n - 1);
-      uint64_t acc = 0;
-      for (int k = 0; k < kk; ++k) {
-        acc = mac_guard(acc, xin[(k << logn) + coef],
-                        (uint32_t)__ldg(pmp + ((size_t)k * mdim + m) * n + coef), p);
-      }
-      y[idx] = fold_redc(acc, p, qinv);
-    }
-    __syncthreads();
+    vmp_rows(y, xin, pm + (size_t)pi * kk * mdim * n, kk, mdim, 0, mdim, logn, p, qinv);
     ntt_inv_rows(y, mdim, logn, tw + (size_t)(P + pi) * n, p, qinv);
   }
 

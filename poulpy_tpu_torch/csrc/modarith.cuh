@@ -15,9 +15,14 @@ namespace poulpy {
 
 constexpr uint32_t MASK30 = (1u << 30) - 1;
 
-// Layout of the per-prime constants (backends/ntt.py: kernel_tables).
-constexpr int CONSTS_PER_PRIME = 8;
-enum { C_P = 0, C_QINV = 1, C_NINV = 2, C_GINV = 3, C_HALF = 4, C_WEIGHT = 5, C_MOD = 6 };
+// Layout of the per-prime constants (backends/ntt.py: kernel_tables).  The
+// garner weight and the modulus are 128-bit values split into their low and
+// high 64 bits (the 64-bit lift reads only the low halves).
+constexpr int CONSTS_PER_PRIME = 10;
+enum {
+  C_P = 0, C_QINV = 1, C_NINV = 2, C_GINV = 3, C_HALF = 4, C_WEIGHT = 5, C_MOD = 6,
+  C_WEIGHT_HI = 7, C_MOD_HI = 8
+};
 
 constexpr int MAX_PRIMES = 8;
 constexpr int MAX_LIMBS = 16;
@@ -172,12 +177,10 @@ __device__ __forceinline__ void normalize_full(const int64_t* a, int a_size, int
   normalize_limbs(acc, res_size, out, kr);
 }
 
-// Centred Garner CRT lift of one coefficient (hal/ntt.py garner_lift): residues
-// r[0..P) → wrapping int64.
-__device__ __forceinline__ int64_t garner(const uint32_t* r, int P, const int64_t* __restrict__ consts) {
+// Garner's mixed-radix digits d[0..P) of residues r[0..P) (hal/ntt.py garner_lift).
+__device__ __forceinline__ void garner_digits(const uint32_t* r, int P,
+                                              const int64_t* __restrict__ consts, uint32_t* d) {
   const int64_t* pprod = consts + P * CONSTS_PER_PRIME;
-  uint32_t d[MAX_PRIMES];
-  uint64_t v = 0;
   for (int i = 0; i < P; ++i) {
     const int64_t* c = consts + i * CONSTS_PER_PRIME;
     const uint32_t p = (uint32_t)c[C_P];
@@ -186,19 +189,81 @@ __device__ __forceinline__ int64_t garner(const uint32_t* r, int P, const int64_
     for (int j = 0; j < i; ++j) x = sub_mod(x, mont_mul(d[j], (uint32_t)pprod[i * P + j], p, qinv), p);
     if (i > 0) x = mont_mul(x, (uint32_t)c[C_GINV], p, qinv);
     d[i] = x;
-    v += (uint64_t)x * (uint64_t)c[C_WEIGHT];
   }
+}
+
+// True when the digit vector exceeds that of floor(M/2): the value is then
+// centred by subtracting M.
+__device__ __forceinline__ bool garner_above_half(const uint32_t* d, int P,
+                                                  const int64_t* __restrict__ consts) {
   bool gt = false, eq = true;
   for (int i = P - 1; i >= 0; --i) {
     const uint32_t h = (uint32_t)consts[i * CONSTS_PER_PRIME + C_HALF];
     gt = gt || (eq && d[i] > h);
     eq = eq && d[i] == h;
   }
-  if (gt) v -= (uint64_t)consts[C_MOD];
+  return gt;
+}
+
+// Centred Garner CRT lift of one coefficient (hal/ntt.py garner_lift): residues
+// r[0..P) → wrapping int64.
+__device__ __forceinline__ int64_t garner(const uint32_t* r, int P, const int64_t* __restrict__ consts) {
+  uint32_t d[MAX_PRIMES];
+  garner_digits(r, P, consts, d);
+  uint64_t v = 0;
+  for (int i = 0; i < P; ++i)
+    v += (uint64_t)d[i] * (uint64_t)consts[i * CONSTS_PER_PRIME + C_WEIGHT];
+  if (garner_above_half(d, P, consts)) v -= (uint64_t)consts[C_MOD];
   return (int64_t)v;
 }
 
-// ---- shared stages of the fused kernels (fused_product.cu, br_block_step.cu) ----
+// The same lift into a wrapping 128-bit value (hal/wide.py garner_lift_wide):
+// Σ d_i·W_i mod 2^128, minus M mod 2^128 when centred.
+__device__ __forceinline__ __int128 garner128(const uint32_t* r, int P,
+                                              const int64_t* __restrict__ consts) {
+  uint32_t d[MAX_PRIMES];
+  garner_digits(r, P, consts, d);
+  unsigned __int128 v = 0;
+  for (int i = 0; i < P; ++i) {
+    const int64_t* c = consts + i * CONSTS_PER_PRIME;
+    const unsigned __int128 w =
+        ((unsigned __int128)(uint64_t)c[C_WEIGHT_HI] << 64) | (uint64_t)c[C_WEIGHT];
+    v += (unsigned __int128)d[i] * w;
+  }
+  if (garner_above_half(d, P, consts))
+    v -= ((unsigned __int128)(uint64_t)consts[C_MOD_HI] << 64) | (uint64_t)consts[C_MOD];
+  return (__int128)v;
+}
+
+// hal/wide.py vec_znx_normalize_full_wide(res_size, kr, offset, a, ka) for one
+// coefficient of a_size wrapping 128-bit limbs, kr ≤ 59: output limb i sums the
+// kr-bit windows [0, 2^kr) of a[j]·2^t, t = (i+1)·kr − (j+1)·ka + offset (a
+// window with t ≥ kr is zero), then one carry scan.
+__device__ __forceinline__ void normalize_full_wide(const __int128* a, int a_size, int64_t* out,
+                                                    int res_size, int kr, int ka, int offset) {
+  const uint64_t mask = (1ull << kr) - 1;
+  int64_t acc[MAX_LIMBS];
+  for (int i = 0; i < res_size; ++i) {
+    int64_t s = 0;
+    for (int j = 0; j < a_size; ++j) {
+      const int t = (i + 1) * kr - ((j + 1) * ka - offset);
+      if (t >= kr) continue;
+      uint64_t piece;
+      if (t > 0) {
+        piece = ((uint64_t)a[j] & ((1ull << (kr - t)) - 1)) << t;
+      } else {
+        const int sh = -t;
+        piece = (uint64_t)(sh >= 128 ? a[j] >> 127 : a[j] >> sh) & mask;
+      }
+      s = wadd(s, (int64_t)piece);
+    }
+    acc[i] = s;
+  }
+  normalize_limbs(acc, res_size, out, kr);
+}
+
+// ---- shared stages of the fused kernels (fused_product.cu, br_block_step.cu,
+// wide_product.cu, wide_tensor.cu) ----
 
 // Entry: the first rmax limbs of each of the ci columns of one ciphertext
 // (a: [ci][size_a][n] int64, any value) reduced to [0, p) into the kk = ci·rmax
@@ -212,6 +277,26 @@ __device__ __forceinline__ void load_rows_mod_p(uint32_t* xin, const int64_t* __
     const int l = k - col * rmax;
     const int64_t v = a[((int64_t)col * size_a + l) * n + (idx & (n - 1))] % (int64_t)p;
     xin[idx] = (uint32_t)(v < 0 ? v + p : v);
+  }
+  __syncthreads();
+}
+
+// VMP of one prime: output rows m0 .. m0+mrows−1 of the [kk][mdim][n] matrix
+// pmp (Montgomery), y[row] = Σ_k xin[k]·pmp[k][m0+row]·R^{-1} mod p, summed in
+// u64 with one reduction, into y [mrows][n].  Ends with a barrier.
+__device__ __forceinline__ void vmp_rows(uint32_t* y, const uint32_t* xin,
+                                         const int32_t* __restrict__ pmp, int kk, int mdim,
+                                         int m0, int mrows, int logn, uint32_t p, uint32_t qinv) {
+  const int n = 1 << logn;
+  for (int idx = threadIdx.x; idx < (mrows << logn); idx += blockDim.x) {
+    const int m = m0 + (idx >> logn);
+    const int coef = idx & (n - 1);
+    uint64_t acc = 0;
+    for (int k = 0; k < kk; ++k) {
+      acc = mac_guard(acc, xin[(k << logn) + coef],
+                      (uint32_t)__ldg(pmp + ((size_t)k * mdim + m) * n + coef), p);
+    }
+    y[idx] = fold_redc(acc, p, qinv);
   }
   __syncthreads();
 }
@@ -241,6 +326,34 @@ __device__ __forceinline__ void lift_add_normalize(const uint32_t* ys, int P, in
   }
   int64_t res[MAX_LIMBS];
   normalize_full(big, psize, res, res_size, kr, ka);
+  for (int i = 0; i < res_size; ++i) out[(int64_t)i * n] = res[i];
+}
+
+// The wide twin of lift_add_normalize: the Garner lift to 128 bits, + the
+// sign-extended add[j·n] for j < add_size, then normalize_full_wide with the
+// landing offset.
+__device__ __forceinline__ void lift_add_normalize_wide(const uint32_t* ys, int P, int mdim,
+                                                        int logn, int col, int psize, int coef,
+                                                        const int64_t* __restrict__ add,
+                                                        int add_size, int64_t* __restrict__ out,
+                                                        int res_size, int kr, int ka, int offset,
+                                                        const int64_t* __restrict__ consts) {
+  const int n = 1 << logn;
+  __int128 big[MAX_LIMBS];
+  for (int j = 0; j < psize; ++j) {
+    uint32_t r[MAX_PRIMES];
+    for (int pi = 0; pi < P; ++pi) {
+      const int64_t* c = consts + pi * CONSTS_PER_PRIME;
+      const uint32_t yv = ys[((size_t)pi * mdim + col * psize + j) * n + coef];
+      r[pi] = mont_mul(yv, (uint32_t)c[C_NINV], (uint32_t)c[C_P], (uint32_t)c[C_QINV]);
+    }
+    big[j] = garner128(r, P, consts);
+    if (j < add_size)
+      big[j] = (__int128)((unsigned __int128)big[j] +
+                           (unsigned __int128)(__int128)add[(int64_t)j * n]);
+  }
+  int64_t res[MAX_LIMBS];
+  normalize_full_wide(big, psize, res, res_size, kr, ka, offset);
   for (int i = 0; i < res_size; ++i) out[(int64_t)i * n] = res[i];
 }
 

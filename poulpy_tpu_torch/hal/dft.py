@@ -1,4 +1,5 @@
-"""DFT-domain operations: dft/idft, SVP, VMP and big-accumulator normalize.
+"""DFT-domain operations: dft/idft, SVP, VMP, the bivariate convolution and
+big-accumulator ops, with the wide (i128-twin) exit of `hal/wide.py`.
 
 Twin of `poulpy_tpu/hal/dft.py` (the part the port needs), on the CRT-NTT
 domain of `hal.ntt`.  Shapes (leading axes broadcast for batching):
@@ -22,7 +23,16 @@ from poulpy_tpu_torch.backends import ntt as _ntt
 from poulpy_tpu_torch.backends import vmp as _vmp
 from poulpy_tpu_torch.hal.module import Module
 from poulpy_tpu_torch.hal.normalization import vec_znx_normalize_full
-from poulpy_tpu_torch.hal.ntt import add_mod, garner_lift, mont_mul, sub_mod, to_mont, to_residues
+from poulpy_tpu_torch.hal.ntt import (
+    add_mod,
+    fold_mod,
+    garner_lift,
+    mont_mul,
+    sub_mod,
+    to_mont,
+    to_residues,
+)
+from poulpy_tpu_torch.hal.wide import garner_lift_wide, vec_znx_normalize_full_wide
 
 
 def dft_limbs(a_size: int, step: int, offset: int, res_size: int | None):
@@ -121,6 +131,57 @@ def vmp_apply(module: Module, a_dft, pmat, limb_offset: int = 0, res_size: int |
     return _vmp.vmp_apply(module, a_dft, pmat, limb_offset, res_size)
 
 
+def cnv_prepare_left(module: Module, a):
+    """Left operand of the bivariate convolution: standard-form NTT of each limb."""
+    t = module.tables
+    return _ntt.ntt_forward(t, to_residues(t, a))
+
+
+def cnv_prepare_right(module: Module, b):
+    """Right operand: Montgomery-form NTT of each limb."""
+    t = module.tables
+    return to_mont(t, _ntt.ntt_forward(t, to_residues(t, b)))
+
+
+def cnv_apply(module: Module, a_prep, b_prep, res_size: int):
+    """res[k] = Σ_{i+j=k} a[i]·b[j]: the convolution over the limb index with
+    a negacyclic ring product per term (a standard form, b Montgomery form),
+    summed lazily in int64 and folded once per output limb."""
+    t = module.tables
+    p = t.p[:, None]
+    qinv = t.qinv[:, None]
+    a_size, b_size = a_prep.shape[-3], b_prep.shape[-3]
+    out = []
+    for k in range(res_size):
+        acc = None
+        for i in range(a_size):
+            j = k - i
+            if 0 <= j < b_size:
+                prod = mont_mul(a_prep[..., i, :, :], b_prep[..., j, :, :], p, qinv).to(torch.int64)
+                acc = prod if acc is None else acc + prod
+        if acc is None:
+            acc = torch.zeros(torch.broadcast_shapes(a_prep.shape[:-3], b_prep.shape[:-3])
+                              + a_prep.shape[-2:], dtype=a_prep.dtype, device=a_prep.device)
+        else:
+            acc = fold_mod(acc, p, qinv, t.r2[:, None]).to(a_prep.dtype)
+        out.append(acc)
+    return torch.stack(out, dim=-3)
+
+
+def big_add(a, b, res_size: int | None = None):
+    if res_size is None:
+        res_size = max(a.shape[-2], b.shape[-2])
+    a, b = _align_limbs(a, b, res_size, limb_axis=-2)
+    return a + b
+
+
+def big_sub(a, b, res_size: int | None = None):
+    if res_size is None:
+        res_size = max(a.shape[-2], b.shape[-2])
+    a, b = _align_limbs(a, b, res_size, limb_axis=-2)
+    return a - b
+
+
 def big_normalize(module: Module, res_size: int, res_base2k: int, a_big, a_base2k: int,
                   res_offset: int = 0):
     """Carry-normalize the big accumulator into `res_size` limbs of base
@@ -137,6 +198,18 @@ def product_bits(base2k_a: int, base2k_b: int, log_n: int, terms: int) -> int:
 
 def needs_wide(bits: int) -> bool:
     """True when a big-accumulator bound exceeds the exact int64 range of
-    `garner_lift` (the reference then takes its i128-twin path)."""
+    `garner_lift` (the wide i128-twin path of `hal/wide.py` then runs)."""
     return bits > 62
+
+
+def idft_apply_wide(module: Module, a_dft):
+    """vec_znx_dft → wide big (hi, lo) int64 pairs: idft_apply's i128 twin."""
+    t = module.tables
+    return garner_lift_wide(t, _ntt.ntt_inverse(t, a_dft.contiguous()))
+
+
+def big_normalize_wide(module: Module, res_size: int, res_base2k: int, pair, a_base2k: int,
+                       res_offset: int = 0):
+    del module
+    return vec_znx_normalize_full_wide(res_size, res_base2k, res_offset, pair, a_base2k)
 

@@ -165,6 +165,17 @@ class Source:
         x = np.where(f < prob, sign, 0).astype(np.int64)
         return x.reshape(shape)
 
+    def ternary_hw(self, n: int, hw: int) -> np.ndarray:
+        """Fixed-Hamming-weight ternary vector: `hw` signs (±1) at the front,
+        then a Fisher–Yates shuffle drawn with `next_u64n`."""
+        x = np.zeros(n, dtype=np.int64)
+        signs = self.u64_array(hw)
+        x[:hw] = np.where((signs >> np.uint64(63)).astype(np.int64) == 0, 1, -1)
+        for i in range(n - 1, 0, -1):
+            j = self.next_u64n(i + 1, (1 << (i + 1).bit_length()) - 1)
+            x[i], x[j] = x[j], x[i]
+        return x
+
     def binary_prob(self, shape, prob: float = 0.5) -> np.ndarray:
         """Binary coefficients: 1 w.p. prob, else 0."""
         count = int(np.prod(shape))

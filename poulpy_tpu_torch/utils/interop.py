@@ -1,9 +1,12 @@
 """Carry keys and ciphertexts between the JAX package and this one.
 
 An object crosses as its class name plus a dict of fields: arrays as numpy,
-parameters (`base2k`, `k`, `dsize`, `dist`, …) as Python values.  The field
-names are the JAX package's, so any object with one of the class names below
-and those dataclass fields converts, without this module importing JAX:
+parameters (`base2k`, `k`, `dsize`, `dist`, …) as Python values, a nested
+layout (a CKKS ciphertext's `glwe` and `meta`) as its own (name, fields),
+and a dict of layouts (a tensor key's `keys`, keyed by (i, j)) as a dict of
+(name, fields).  The field names are the JAX package's, so any object with
+one of the class names below and those dataclass fields converts, without
+this module importing JAX:
 
     port_obj = from_fields(*to_fields(jax_obj), device="cuda")
     name, fields = to_fields(port_obj)      # numpy arrays, ready for jnp.asarray
@@ -22,6 +25,7 @@ import torch
 from poulpy_tpu_torch.binfhe.blind_rotation import BlindRotationKeyPrepared
 from poulpy_tpu_torch.binfhe.gates import BootstrapKeys, GateParams
 from poulpy_tpu_torch.binfhe.lut import LookupTable
+from poulpy_tpu_torch.ckks.layouts import CKKSCiphertext, CKKSMeta, CKKSPlaintext
 from poulpy_tpu_torch.core.layouts import (
     GGSWCiphertext,
     GLWECiphertext,
@@ -29,14 +33,20 @@ from poulpy_tpu_torch.core.layouts import (
     GLWESecret,
     LWECiphertext,
 )
-from poulpy_tpu_torch.core.prepared import GGLWEPrepared, GGSWPrepared, GLWESecretPrepared
+from poulpy_tpu_torch.core.prepared import (
+    GGLWEPrepared,
+    GGSWPrepared,
+    GLWESecretPrepared,
+    GLWETensorKeyPrepared,
+)
 from poulpy_tpu_torch.hal.module import get_module
 
 CLASSES = {
     cls.__name__: cls
     for cls in (GLWESecret, GLWESecretPrepared, GLWECiphertext, GLWEPlaintext,
                 GGSWCiphertext, GGSWPrepared, GGLWEPrepared, LWECiphertext, LookupTable,
-                BlindRotationKeyPrepared)
+                BlindRotationKeyPrepared, GLWETensorKeyPrepared, CKKSMeta, CKKSCiphertext,
+                CKKSPlaintext)
 }
 
 _ARRAY_FIELDS = ("data", "pmat", "pmats")
@@ -57,8 +67,16 @@ def to_fields(obj) -> tuple[str, dict]:
         v = getattr(obj, f.name)
         if f.name in _ARRAY_FIELDS:
             v = v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        elif type(v).__name__ in CLASSES:
+            v = to_fields(v)
+        elif isinstance(v, dict):
+            v = {key: to_fields(x) for key, x in v.items()}
         fields[f.name] = v
     return name, fields
+
+
+def _is_fields(v) -> bool:
+    return isinstance(v, tuple) and len(v) == 2 and v[0] in CLASSES and isinstance(v[1], dict)
 
 
 def from_fields(name: str, fields: dict, device="cuda"):
@@ -76,5 +94,9 @@ def from_fields(name: str, fields: dict, device="cuda"):
         v = fields[f.name]
         if f.name in _ARRAY_FIELDS:
             v = torch.from_numpy(np.array(v)).to(device)  # a writable copy
+        elif _is_fields(v):
+            v = from_fields(*v, device=device)
+        elif isinstance(v, dict):
+            v = {key: from_fields(*x, device=device) for key, x in v.items()}
         kw[f.name] = v
     return cls(**kw)

@@ -172,15 +172,6 @@ def test_glwe_cmux(bits, bit):
     assert _eq(tdec.glwe_decrypt(tm, have, tskp).data, jdec.glwe_decrypt(jm, want, jskp).data)
 
 
-def test_wide_parameters_raise():
-    tm = t_get_module(N, 2, 30, "cpu")
-    ggsw = tprep.GGSWPrepared(pmat=torch.zeros(3, 2, 2, 2, 2, N, dtype=torch.int32), base2k=30,
-                              k=60)
-    ct = tlay.GLWECiphertext(data=torch.zeros(2, 2, N, dtype=torch.int64), base2k=30, k=60)
-    with pytest.raises(NotImplementedError, match="wide"):
-        text.glwe_external_product(tm, ct, ggsw)
-
-
 @pytest.mark.parametrize("bits", BITS)
 def test_interop_jax_keys_drive_the_port(bits):
     """Keys and ciphertexts made by the JAX package, carried into the port by
@@ -299,12 +290,3 @@ def test_glwe_to_lwe_key_and_sample_extract(ks_runs):
     assert _eq(t["to_lwe"].pmat, j["to_lwe"].pmat)
     assert _eq(t["extract"].data, j["extract"].data) and t["extract"].n_lwe == N_LWE
     assert _eq(t["extract_dec"], j["extract_dec"])
-
-
-def test_wide_keyswitch_raises():
-    tm = t_get_module(N, 2, 30, "cpu")
-    key = tprep.GGLWEPrepared(pmat=torch.zeros(3, 1, 2, 2, 2, N, dtype=torch.int32), base2k=30,
-                              k=60)
-    ct = tlay.GLWECiphertext(data=torch.zeros(2, 2, N, dtype=torch.int64), base2k=30, k=60)
-    with pytest.raises(NotImplementedError, match="wide"):
-        tks.glwe_keyswitch(tm, ct, key)

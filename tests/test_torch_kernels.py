@@ -336,3 +336,132 @@ def test_cuda_gate_nand_matches_cpu(cuda, block):
         assert np.array_equal(gates.decrypt_bit(out, sk), [1, 1, 1, 0])
         outs.append(out.data.cpu())
     assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nprimes,prime_bits,ci,co,rows,size_a,psize,kr,ka,s_size,offset,dsize", [
+    (64, 5, 28, 1, 2, 2, 2, 3, 52, 52, 0, 0, 1),      # tests/test_wide.py's five shapes
+    (64, 5, 28, 1, 2, 2, 2, 3, 52, 52, 3, 0, 1),
+    (64, 5, 28, 2, 2, 3, 3, 4, 44, 44, 0, 0, 1),
+    (64, 5, 28, 1, 2, 3, 3, 3, 52, 52, 2, -7, 1),
+    (64, 5, 28, 2, 2, 2, 2, 3, 26, 52, 0, 5, 1),
+    (2048, 5, 28, 1, 2, 2, 2, 3, 52, 52, 3, 0, 1),    # the CKKS mul's relinearization
+    (2048, 4, 30, 2, 2, 3, 2, 3, 44, 44, 0, 0, 1),    # a wide external product, 30-bit primes
+    (256, 4, 30, 1, 2, 3, 2, 3, 44, 44, 2, 0, 1),     # a wide keyswitch (body in column 0)
+    (256, 5, 28, 2, 2, 2, 4, 3, 52, 52, 0, 0, 2),     # dsize 2
+])
+def test_cuda_wide_product_matches_plain(cuda, n, nprimes, prime_bits, ci, co, rows, size_a,
+                                         psize, kr, ka, s_size, offset, dsize):
+    from poulpy_tpu_torch.backends import wide as twide
+
+    m = t_get_module(n, nprimes, prime_bits, cuda)
+    rng = np.random.default_rng(26)
+    lim = 1 << (ka - 1)
+    a = torch.from_numpy(rng.integers(-lim, lim, size=(6, ci, size_a, n))).to(cuda)
+    pmat = torch.from_numpy(_residues(rng, m.basis.primes,
+                                      (rows, ci, co, psize, nprimes, n))).to(cuda)
+    small = None
+    if s_size:
+        small = torch.from_numpy(rng.integers(-lim, lim, size=(6, co, s_size, n))).to(cuda)
+    before = LAUNCHES["wide_product"]
+    have = twide.fused_glwe_product_wide(m, a, pmat, 2, kr, ka, small, offset, dsize)
+    torch.cuda.synchronize()
+    assert LAUNCHES["wide_product"] == before + 1
+    want = twide.fused_glwe_product_wide_ref(m, a, pmat, 2, kr, ka, small, offset, dsize)
+    assert torch.equal(have, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,size_a,size_b,dnum,lin_size,kr,ka,offset", [
+    (64, 2, 2, 2, 3, 52, 52, 0),      # tests/test_wide.py's three shapes
+    (64, 2, 3, 3, 3, 52, 52, -9),
+    (64, 3, 3, 2, 4, 44, 52, 13),
+    (2048, 2, 2, 2, 3, 52, 52, 13),   # the CKKS mul (k 95, tensor key dnum 2, landing offset 13)
+])
+def test_cuda_wide_tensor_matches_plain(cuda, n, size_a, size_b, dnum, lin_size, kr, ka, offset):
+    from poulpy_tpu_torch.backends import wide as twide
+
+    m = t_get_module(n, 5, 28, cuda)
+    rng = np.random.default_rng(27)
+    lim = 1 << (ka - 1)
+    a = torch.from_numpy(rng.integers(-lim, lim, size=(6, 2, size_a, n))).to(cuda)
+    b = torch.from_numpy(rng.integers(-lim, lim, size=(6, 2, size_b, n))).to(cuda)
+    conv_size = size_a + size_b - 1
+    before = LAUNCHES["wide_tensor"]
+    have = twide.fused_tensor_product_wide(m, a, b, conv_size, dnum, lin_size, kr, ka, offset)
+    torch.cuda.synchronize()
+    assert LAUNCHES["wide_tensor"] == before + 1
+    want = twide.fused_tensor_product_wide_ref(m, a, b, conv_size, dnum, lin_size, kr, ka, offset)
+    assert torch.equal(have[0], want[0]) and torch.equal(have[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [True, False])
+def test_cuda_ckks_mul_matches_cpu(cuda, wide):
+    """The port's CKKS mul (fused wide pair, or NTT and VMP kernels) on the
+    card equals the port's on the CPU."""
+    from poulpy_tpu_torch.ckks import ops as ck
+    from poulpy_tpu_torch.ckks.encoder import Encoder
+    from poulpy_tpu_torch.core import encryption as enc
+    from poulpy_tpu_torch.core.prepared import glwe_secret_prepare, glwe_tensor_key_prepare
+    from poulpy_tpu_torch.hal.source import Source
+
+    n = 256
+    base2k, k_ct, k_key, ld, lb, dnum, nprimes = ((52, 95, 156, 30, 35, 2, 5) if wide
+                                                  else (17, 95, 95, 22, 30, 6, 2))
+    z = np.random.default_rng(28).normal(size=n // 2) + 0.5j
+    outs = []
+    for device in ("cpu", cuda):
+        m = t_get_module(n, nprimes, 28, device)
+        dist = {"dist": "ternary_hw", "hw": 32} if wide else {}
+        sk = enc.secret_new(m, 1, Source(bytes(32)), **dist)
+        skp = glwe_secret_prepare(m, sk)
+        xe, xa = Source(b"\x01" * 32), Source(b"\x02" * 32)
+        tsk = glwe_tensor_key_prepare(m, enc.glwe_tensor_key_encrypt_sk(
+            m, sk, skp, base2k, k_key, dnum=dnum, source_xe=xe, source_xa=xa))
+        pt = ck.encode(Encoder(n), z, base2k, k_ct, ld, lb, device=device)
+        c = ck.encrypt_sk(m, pt, skp, k_ct, xe, xa, batch_shape=(3,))
+        before = dict(LAUNCHES)
+        out = ck.mul(m, c, c, tsk)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            used = {k for k in LAUNCHES if LAUNCHES[k] != before[k]}
+            assert used == ({"wide_tensor", "wide_product"} if wide
+                            else {"ntt_forward", "ntt_inverse", "vmp"})
+        got = ck.decode(Encoder(n), ck.decrypt(m, out, skp))
+        assert np.abs(got - z * z).max() < 1e-3
+        outs.append(out.glwe.data.cpu())
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_cuda_wide_keyswitch_and_product_match_cpu(cuda):
+    """tests/test_wide.py's wide keyswitch parameters (base2k 44, N 64,
+    4 primes of 30 bits): the keyswitch and an external product by the GGSW
+    of X on the card (one wide_product launch each) equal the CPU's."""
+    from poulpy_tpu_torch.core import encryption as enc
+    from poulpy_tpu_torch.core.external_product import glwe_external_product
+    from poulpy_tpu_torch.core.keyswitching import glwe_keyswitch
+    from poulpy_tpu_torch.core.prepared import gglwe_prepare, ggsw_prepare, glwe_secret_prepare
+    from poulpy_tpu_torch.hal.source import Source
+
+    outs = []
+    for device in ("cpu", cuda):
+        m = t_get_module(64, 4, 30, device)
+        sk1 = enc.secret_new(m, 1, Source(b"\x01" * 32), dist="ternary_hw", hw=16)
+        sk2p = glwe_secret_prepare(m, enc.secret_new(m, 1, Source(b"\x02" * 32),
+                                                     dist="ternary_hw", hw=16))
+        sk1p = glwe_secret_prepare(m, sk1)
+        xe, xa = Source(b"\x03" * 32), Source(b"\x04" * 32)
+        ct = enc.glwe_encrypt_sk(m, None, sk1p, 44, 88, xe, xa, batch_shape=(3,))
+        ksk = gglwe_prepare(m, enc.glwe_switching_key_encrypt_sk(m, sk1, sk2p, 44, 132, 3, xe, xa))
+        ptg = np.zeros(64, dtype=np.int64)
+        ptg[1] = 1
+        ggsw = ggsw_prepare(m, enc.ggsw_encrypt_sk(m, ptg, sk1p, 44, 132, 3, xe, xa))
+        before = LAUNCHES["wide_product"]
+        ks, prod = glwe_keyswitch(m, ct, ksk), glwe_external_product(m, ct, ggsw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert LAUNCHES["wide_product"] == before + 2
+        outs.append((ks.data.cpu(), prod.data.cpu()))
+    assert all(torch.equal(c, g) for c, g in zip(*outs))
