@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Five paths of the port run, each with the launch counters set to 0 just
+Seven paths of the port run, each with the launch counters set to 0 just
 before it and read just after:
 
 - the product path, the headline operation of bench.py: a batched GLWE ×
@@ -21,7 +21,14 @@ before it and read just after:
   ct × ct multiply through the fused wide pair (tensor, relinearize);
 - the ckks path, bench_full.py's bench_ckks_mul: base2k 17, ct k 95, key k 95
   dnum 6, get_module(2048, 2, 28), batch 256: multiply (NTT and VMP kernels)
-  then rescale(5).
+  then rescale(5);
+- the relinearize path, on the ckks path's keys and ciphertexts:
+  glwe_tensor_relinearize of a ciphertext pair at batch 256 through the fused
+  pair (the tensor kernel, then the product kernel with the small64 add);
+- the ckks_rotate path, on the same keys and ciphertexts with the
+  automorphism keys of galois_element(1) and −1 (base2k 17, k 95, dnum 6):
+  CKKS rotate and conjugate at batch 256, each one keyswitch through the
+  product kernel with the body add, its output columns split across blocks.
 
 Phases, each printing JSON lines:
 
@@ -32,7 +39,9 @@ Phases, each printing JSON lines:
                  the plain version's time and the bound (the least time the
                  card could take: bytes over 3.35 TB/s or modular products
                  over the int32 rate, the larger; the wide kernels at the
-                 wide CKKS mul's shapes, batch 256);
+                 wide CKKS mul's shapes, the tensor kernel and the small64
+                 and small products at the relinearize and ckks_rotate
+                 paths' shapes, batch 256);
   4. verify      product path: stage by stage (NTT → VMP → inverse NTT
                  kernels, plain Garner and normalize) equals the fused kernel
                  at batch 64, and the fused result decrypts to X·m exactly;
@@ -62,7 +71,20 @@ Phases, each printing JSON lines:
                  distinct batch of 256 encrypted in set-up, ending in a host
                  checksum; then a profiled mul (torch.profiler, after a
                  warm-up step);
- 10. ckks        the same for the non-wide mul + rescale(5) (CKKS_FINGERPRINT).
+ 10. ckks        the same for the non-wide mul + rescale(5) (CKKS_FINGERPRINT);
+ 11. relinearize 1 warm-up relinearization of the ckks path's pair (c1, c2)
+                 broadcast to batch 256: RELIN_FINGERPRINT of row 0, every row
+                 equal, the decryption against d0 + d1·s + d2·s² (log2 of the
+                 torus error under RELIN_LOG2_ERR_MAX), the kernel route equal
+                 to the unfused route at batch 8; then 5 timed
+                 relinearizations on the ckks path's distinct batches, ending
+                 in a host checksum; then a profiled one;
+ 12. ckks_rotate automorphism keys from Source 0x05 / 0x06; rotate and
+                 conjugate of c1 broadcast to batch 256: ROTATE_FINGERPRINT
+                 and CONJUGATE_FINGERPRINT of row 0, every row equal, the
+                 decode error against np.roll(z, −1) and conj(z); then 5 timed
+                 rotations on distinct batches, ending in a host checksum; then
+                 a profiled one.
 
 Then one line {"kernels": [...]} (launches summed over the paths' runs)
 and, last, {"ok": true, "device": {...}}.  Any failure exits non-zero
@@ -125,6 +147,17 @@ CKKS_BATCH, CKKS_ITERS = 256, 5
 # (tests/test_torch_ckks.py::test_ckks_fingerprint_full_config recomputes them)
 CKKS_WIDE_FINGERPRINT = 270715177
 CKKS_FINGERPRINT = 808555351
+# sum(|data| mod 65536) of glwe_tensor_relinearize(c1.glwe, c2.glwe) and of
+# rotate(c1) / conjugate(c1) at the ckks configuration, computed by the JAX
+# package on the CPU (tests/test_torch_relin.py::
+# test_relinearize_and_rotation_fingerprints_full_config recomputes them)
+RELIN_FINGERPRINT = 1476054215
+ROTATE_FINGERPRINT = 797964655
+CONJUGATE_FINGERPRINT = 802332334
+# log2 of the torus error of the relinearization against d0 + d1·s + d2·s²:
+# the JAX package reads −64.0 on the CPU at this configuration (float64
+# rounding of the decode; the keyswitch noise of the k 95 key lies below it)
+RELIN_LOG2_ERR_MAX = -50
 # the wide mul's landing offset off_bits − base2k = (65 + 65) − 30 − 35 − 52
 WIDE_OFFSET = 13
 
@@ -140,7 +173,10 @@ KERNELS = {
     "vmp": ("poulpy_tpu_torch/csrc/vmp.cu", "poulpy_tpu/backends/pallas_vmp.py:67"),
     "fused_product": ("poulpy_tpu_torch/csrc/fused_product.cu", _FUSED),
     "fused_product_small": ("poulpy_tpu_torch/csrc/fused_product.cu", _FUSED),
+    "fused_product_small64": ("poulpy_tpu_torch/csrc/fused_product.cu", _FUSED),
     "br_block_step": ("poulpy_tpu_torch/csrc/br_block_step.cu", _FUSED),
+    "tensor_product": ("poulpy_tpu_torch/csrc/tensor_product.cu",
+                       "poulpy_tpu/backends/pallas_fused.py:1403"),
     "wide_product": ("poulpy_tpu_torch/csrc/wide_product.cu", f"{_WIDE}:496"),
     "wide_tensor": ("poulpy_tpu_torch/csrc/wide_tensor.cu", f"{_WIDE}:718"),
 }
@@ -151,6 +187,8 @@ PATHS = {
     "keyswitch": ("ntt_forward", "fused_product_small"),
     "ckks_wide": ("wide_tensor", "wide_product"),
     "ckks": ("ntt_forward", "ntt_inverse", "vmp"),
+    "relinearize": ("tensor_product", "fused_product_small64"),
+    "ckks_rotate": ("ntt_forward", "fused_product_small"),
 }
 
 
@@ -250,7 +288,9 @@ def tensor_ops(B: int, P: int, n: int, size_a: int, size_b: int) -> int:
 def phase_kernels(m, gm, wm) -> dict:
     """Each kernel against its plain version at its path's shapes: the
     product path's on `m`, the gate path's on `gm` at batch GATE_BATCH, the
-    wide CKKS mul's on `wm` at batch CKKS_BATCH."""
+    wide CKKS mul's on `wm` at batch CKKS_BATCH, the relinearize and
+    ckks_rotate paths' on `m` (the ckks configuration's basis) at batch
+    CKKS_BATCH."""
     import torch
 
     from poulpy_tpu_torch.backends import fused, ntt, vmp, wide
@@ -294,6 +334,21 @@ def phase_kernels(m, gm, wm) -> dict:
     digits = ints(-(2**51), 2**51, (wb, 1, c.dnum, wn))
     lin = ints(-(2**51), 2**51, (wb, 2, 3, wn))
     tkey = residues(wm, (c.dnum, 1, 2, 3, wp, wn))
+    # the relinearize path (ciphertexts of 6 limbs of 17 bits, tensor key k 95
+    # dnum 6, psize 6): the tensor step on both ciphertexts, conv 11, then the
+    # product of its 6 digits [ci 1, 6 rows] × [rows 6, ci 1, co 2, psize 6]
+    # with the 11 linear limbs of each column added, to res_size 12; the
+    # ckks_rotate path: the keyswitch of the mask [ci 1, 6 limbs] by the
+    # automorphism key [6, 1, 2, 6] with the 6-limb body, to 6 limbs.  Both
+    # products split their two output columns over two blocks.
+    k, rb, kp = CKKS, CKKS_BATCH, CKKS.nprimes
+    ra = ints(-(2**16), 2**16, (rb, 2, 6, N))
+    rbb = ints(-(2**16), 2**16, (rb, 2, 6, N))
+    rdig = ints(-(2**16), 2**16, (rb, 1, k.dnum, N))
+    rlin = ints(-(2**47), 2**47, (rb, 2, 11, N))
+    rkey = residues(m, (k.dnum, 1, 2, 6, kp, N))
+    rot_a = ints(-(2**16), 2**16, (rb, 1, 6, N))
+    rot_body = ints(-(2**16), 2**16, (rb, 6, N))
     i32, i64 = 4, 8
     cases = {
         "ntt_forward": (lambda: ntt.ntt_forward(t, x), lambda: ntt.ntt_forward_ref(t, x),
@@ -334,6 +389,24 @@ def phase_kernels(m, gm, wm) -> dict:
                                                      small=lin),
             bound((digits.numel() + lin.numel() + wb * 2 * 2 * wn) * i64 + tkey.numel() * i32,
                   fused_ops(wb, c.dnum, 6, wp, wn))),
+        "tensor_product": (
+            lambda: fused.fused_tensor_product(m, ra, rbb, 11, k.dnum, k.base2k, k.base2k),
+            lambda: fused.fused_tensor_product_ref(m, ra, rbb, 11, k.dnum, k.base2k, k.base2k),
+            bound((ra.numel() + rbb.numel() + rb * (k.dnum + 2 * 11) * N) * i64,
+                  tensor_ops(rb, kp, N, 6, 6))),
+        "fused_product_small64": (
+            lambda: fused.fused_glwe_product(m, rdig, rkey, 12, k.base2k, k.base2k, small64=rlin),
+            lambda: fused.fused_glwe_product_ref(m, rdig, rkey, 12, k.base2k, k.base2k,
+                                                 small64=rlin),
+            bound((rdig.numel() + rlin.numel() + rb * 2 * 12 * N) * i64 + rkey.numel() * i32,
+                  fused_ops(rb, k.dnum, 12, kp, N))),
+        "fused_product_small@ckks_rotate": (
+            lambda: fused.fused_glwe_product(m, rot_a, rkey, 6, k.base2k, k.base2k,
+                                             small=rot_body),
+            lambda: fused.fused_glwe_product_ref(m, rot_a, rkey, 6, k.base2k, k.base2k,
+                                                 small=rot_body),
+            bound((rot_a.numel() + rot_body.numel() + rb * 2 * 6 * N) * i64
+                  + rkey.numel() * i32, fused_ops(rb, 6, 12, kp, N))),
     }
     out = {}
     for name, (kernel, plain, bnd) in cases.items():
@@ -663,11 +736,12 @@ def ckks_mul(m, a, b, tsk, cfg: CkksConfig):
 
 
 def run_ckks_path(name: str, cfg: CkksConfig, device, batch: int, iters: int,
-                  fingerprint: int | None) -> None:
+                  fingerprint: int | None) -> tuple:
     """Set-up, 1 warm-up mul of bench_full.py's pair broadcast to `batch`
     rows (fingerprint of row 0, every row equal, decode error), `iters`
     timed muls on distinct batches ending in a host checksum, and one
-    profiled mul."""
+    profiled mul.  Returns the set-up (`ckks_setup`'s tuple) for the paths
+    that share it."""
     import numpy as np
     import torch
 
@@ -723,6 +797,152 @@ def run_ckks_path(name: str, cfg: CkksConfig, device, batch: int, iters: int,
         profile_once(f"{name}_profile",
                      lambda: ckks_mul(m, rows(t1, t1.glwe.data[0]), rows(t2, t2.glwe.data[0]),
                                       tsk, cfg), dt / iters * 1e3)
+    return m, skp, tsk, encoder, z, (c1, c2), (t1, t2)
+
+
+def broadcast(ct, batch: int):
+    """A GLWE ciphertext repeated to `batch` rows, in contiguous memory."""
+    return ct.replace(data=ct.data.expand((batch,) + tuple(ct.data.shape)).contiguous())
+
+
+def relin_log2_err(m, skp, a, b, prod) -> float:
+    """log2 of the largest torus distance between the decryption of `prod`
+    and d0 + d1·s + d2·s², the tensor product of `a` and `b` decrypted
+    exactly (tests/test_core.py test_tensor_relinearize)."""
+    import numpy as np
+
+    from poulpy_tpu_torch.core.decryption import glwe_decrypt
+    from poulpy_tpu_torch.core.operations import glwe_tensor_product_big
+    from poulpy_tpu_torch.hal import dft
+    from poulpy_tpu_torch.hal.normalization import vec_znx_normalize
+    from poulpy_tpu_torch.hal.vec_znx import decode_vec_float
+
+    base2k = a.base2k
+    have = glwe_decrypt(m, prod, skp)
+    lin, quad = glwe_tensor_product_big(m, a, b, a.size + b.size - 1)
+
+    def times_s(big):
+        return dft.idft_apply(m, dft.svp_apply(m, dft.dft_apply(m, vec_znx_normalize(base2k, big)),
+                                               skp.data[0]))
+
+    total = lin[0] + times_s(lin[1]) + times_s(times_s(quad[(0, 0)]))
+    want = dft.big_normalize(m, have.data.shape[-2], base2k, total, base2k)
+    err = decode_vec_float(base2k, have.data) - decode_vec_float(base2k, want)
+    err -= np.round(err)
+    return float(np.log2(max(np.abs(err).max(), 2.0**-200)))
+
+
+def run_relinearize_path(setup, batch: int, iters: int, fingerprint: int | None) -> None:
+    """On the ckks path's set-up: 1 warm-up relinearization of its pair
+    broadcast to `batch` rows (fingerprint, rows equal, the algebraic check,
+    kernel route == unfused route at batch 8), `iters` timed ones on the
+    distinct batches, and one profiled."""
+    import torch
+
+    from poulpy_tpu_torch.backends import LAUNCHES
+    from poulpy_tpu_torch.core import operations as ops
+
+    m, skp, tsk, _, _, (c1, c2), (t1, t2) = setup
+    device = m.device
+    a, b = broadcast(c1.glwe, batch), broadcast(c2.glwe, batch)
+    out = ops.glwe_tensor_relinearize(m, a, b, tsk)
+    data = out.data
+    value = int((data[0].abs() % 65536).sum())
+    rows_equal = bool((data == data[:1]).all())
+    log2_err = relin_log2_err(m, skp, c1.glwe, c2.glwe, out.replace(data=data[0]))
+    small = 8
+    fused_small = ops.glwe_tensor_relinearize(m, broadcast(c1.glwe, small),
+                                              broadcast(c2.glwe, small), tsk)
+    fits = ops.tensor_fits
+    ops.tensor_fits = lambda *args: False        # the unfused data flow, for comparison
+    try:
+        unfused = ops.glwe_tensor_relinearize(m, broadcast(c1.glwe, small),
+                                              broadcast(c2.glwe, small), tsk)
+    finally:
+        ops.tensor_fits = fits
+    routes_equal = bool(torch.equal(fused_small.data, unfused.data))
+    emit(phase="relinearize_warmup", fingerprint=value, fingerprint_expected=fingerprint,
+         rows_equal=rows_equal, log2_err_vs_tensor=log2_err, log2_err_max=RELIN_LOG2_ERR_MAX,
+         kernel_route_vs_unfused_bit_exact=routes_equal, shape=list(data.shape), k=out.k)
+    if (not rows_equal or not routes_equal or log2_err > RELIN_LOG2_ERR_MAX
+            or (fingerprint is not None and value != fingerprint)):
+        raise SystemExit(f"relinearize warm-up failed: fingerprint {value}, rows equal "
+                         f"{rows_equal}, routes equal {routes_equal}, log2 err {log2_err}")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    before = dict(LAUNCHES)
+    sync(device)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        out = ops.glwe_tensor_relinearize(m, t1.glwe.replace(data=t1.glwe.data[i]),
+                                          t2.glwe.replace(data=t2.glwe.data[i]), tsk)
+    value = int((out.data.abs() % 65536).sum())
+    dt = time.perf_counter() - t0
+    per_op = {k: (LAUNCHES[k] - before[k]) / iters for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    emit(phase="relinearize", batch=batch, iters=iters, relins_per_s=batch * iters / dt,
+         ms_per_batch=dt / iters * 1e3, checksum=value, launches_per_op=per_op,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else None)
+    if device.type == "cuda":
+        profile_once("relinearize_profile",
+                     lambda: ops.glwe_tensor_relinearize(m, t1.glwe.replace(data=t1.glwe.data[0]),
+                                                         t2.glwe.replace(data=t2.glwe.data[0]),
+                                                         tsk), dt / iters * 1e3)
+
+
+def run_rotate_path(setup, batch: int, iters: int, fingerprints: dict | None) -> None:
+    """On the ckks path's set-up: the automorphism keys of galois_element(1)
+    and −1 from Source 0x05 / 0x06 (tests/test_ckks.py's seeds), rotate and
+    conjugate of c1 broadcast to `batch` rows (fingerprints, rows equal,
+    decode errors), then `iters` timed rotations on distinct batches."""
+    import numpy as np
+    import torch
+
+    from poulpy_tpu_torch.backends import LAUNCHES
+    from poulpy_tpu_torch.ckks import ops as ck
+    from poulpy_tpu_torch.core import encryption as enc
+    from poulpy_tpu_torch.core.prepared import GLWEAutomorphismKeyPrepared, gglwe_prepare
+    from poulpy_tpu_torch.hal.source import Source
+
+    m, skp, _, encoder, z, (c1, _), (t1, _) = setup
+    device, cfg = m.device, CKKS
+    t0 = time.perf_counter()
+    sk = enc.secret_new(m, 1, Source(bytes(32)))        # the ckks path's secret, drawn again
+    xe, xa = Source(b"" * 32), Source(b"" * 32)
+    keys = {}
+    for name, p in (("rotate", m.galois_element(1)), ("conjugate", -1)):
+        key, _ = enc.glwe_automorphism_key_encrypt_sk(m, p, sk, cfg.base2k, cfg.k_key, cfg.dnum,
+                                                      xe, xa)
+        keys[name] = GLWEAutomorphismKeyPrepared(key=gglwe_prepare(m, key), p=p)
+    sync(device)
+    emit(phase="ckks_rotate_setup", automorphism_keys_s=time.perf_counter() - t0)
+    cb = c1.replace(glwe=broadcast(c1.glwe, batch))
+    checks = {}
+    for name, want in (("rotate", np.roll(z, -1)), ("conjugate", np.conj(z))):
+        data = getattr(ck, name)(m, cb, keys[name]).glwe.data
+        row0 = c1.replace(glwe=c1.glwe.replace(data=data[0]))
+        checks[name] = dict(fingerprint=int((data[0].abs() % 65536).sum()),
+                            rows_equal=bool((data == data[:1]).all()),
+                            decode_err=float(np.abs(ck.decode(encoder, ck.decrypt(m, row0, skp))
+                                                    - want).max()))
+    emit(phase="ckks_rotate_warmup", fingerprints_expected=fingerprints, **checks)
+    for name, c in checks.items():
+        if (not c["rows_equal"] or c["decode_err"] > 1e-4
+                or (fingerprints is not None and c["fingerprint"] != fingerprints[name])):
+            raise SystemExit(f"ckks_rotate warm-up failed: {name} {c}")
+    before = dict(LAUNCHES)
+    sync(device)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        out = ck.rotate(m, t1.replace(glwe=t1.glwe.replace(data=t1.glwe.data[i])), keys["rotate"])
+    value = int((out.glwe.data.abs() % 65536).sum())
+    dt = time.perf_counter() - t0
+    per_op = {k: (LAUNCHES[k] - before[k]) / iters for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    emit(phase="ckks_rotate", batch=batch, iters=iters, rotations_per_s=batch * iters / dt,
+         ms_per_batch=dt / iters * 1e3, checksum=value, launches_per_op=per_op)
+    if device.type == "cuda":
+        profile_once("ckks_rotate_profile",
+                     lambda: ck.rotate(m, t1.replace(glwe=t1.glwe.replace(data=t1.glwe.data[0])),
+                                       keys["rotate"]), dt / iters * 1e3)
 
 
 def run_gate_path(device, n_lwe: int, batch: int, verify_batch: int, std_n_lwe: int,
@@ -772,6 +992,7 @@ def main() -> int:
     timings = phase_kernels(m, gm, wm)
     torch.cuda.empty_cache()
 
+    shared = {}                                   # the ckks path's set-up, for the two after it
     runs = {
         "product": lambda: (phase_verify(m), phase_bench(m)),
         "gate": lambda: run_gate_path(m.device, GATE_N_LWE, GATE_BATCH, GATE_VERIFY_BATCH,
@@ -779,8 +1000,13 @@ def main() -> int:
         "keyswitch": lambda: phase_keyswitch(m.device, KS_N),
         "ckks_wide": lambda: run_ckks_path("ckks_wide", CKKS_WIDE, m.device, CKKS_BATCH,
                                            CKKS_ITERS, CKKS_WIDE_FINGERPRINT),
-        "ckks": lambda: run_ckks_path("ckks", CKKS, m.device, CKKS_BATCH, CKKS_ITERS,
-                                      CKKS_FINGERPRINT),
+        "ckks": lambda: shared.update(ckks=run_ckks_path("ckks", CKKS, m.device, CKKS_BATCH,
+                                                         CKKS_ITERS, CKKS_FINGERPRINT)),
+        "relinearize": lambda: run_relinearize_path(shared["ckks"], CKKS_BATCH, CKKS_ITERS,
+                                                    RELIN_FINGERPRINT),
+        "ckks_rotate": lambda: run_rotate_path(shared["ckks"], CKKS_BATCH, CKKS_ITERS,
+                                               {"rotate": ROTATE_FINGERPRINT,
+                                                "conjugate": CONJUGATE_FINGERPRINT}),
     }
     launches = dict.fromkeys(LAUNCHES, 0)
     for path, run in runs.items():

@@ -1,18 +1,23 @@
-"""Fused product kernels (`csrc/fused_product.cu`, `csrc/br_block_step.cu`)
-and their plain PyTorch twins.
+"""Fused product kernels (`csrc/fused_product.cu`, `csrc/br_block_step.cu`,
+`csrc/tensor_product.cu`) and their plain PyTorch twins.
 
-Replace three call patterns of `poulpy_tpu/backends/pallas_fused.py`
-(`_pipe_fn` → `_kernel_pipe`):
+Replace four call patterns of `poulpy_tpu/backends/pallas_fused.py`
+(`_pipe_fn` → `_kernel_pipe`, and `_tensor_fn` → `_kernel_tensor`):
 
 - the product (block 1, no rotate): `fused_glwe_product`,
       big_normalize(idft(vmp(dft(a), pmat)))
   for any dsize (the dsize > 1 digit grouping is folded into the matrix by
   `pm_kernel_layout_dsize`);
 - the same with `small`, the keyswitch body added to column 0 of the big
-  accumulator before the normalization (`fused_glwe_product(small=…)`);
+  accumulator before the normalization (`fused_glwe_product(small=…)`), or
+  with `small64`, the 64-bit linear terms of a tensor product added to every
+  column over max(psize, s64) limbs (`fused_glwe_product(small64=…)`, the
+  relinearization);
 - the block-binary CGGI step (block > 1, rotate, add_acc):
   `fused_br_block_step`,
-      acc ← normalize(acc + idft(Σ_i NTT(X^{a_i} − 1) · (dft(acc) ⊡ BRK_i))).
+      acc ← normalize(acc + idft(Σ_i NTT(X^{a_i} − 1) · (dft(acc) ⊡ BRK_i)));
+- the rank-1 tensor product: `fused_tensor_product`, the quadratic term's
+  gadget digits and the raw 64-bit linear terms that feed `small64`.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA one.  The plain versions (`*_ref`) are built from plain
@@ -30,7 +35,7 @@ import torch.nn.functional as F
 from poulpy_tpu_torch.backends import LAUNCHES, _lib
 from poulpy_tpu_torch.backends.ntt import kernel_tables
 from poulpy_tpu_torch.backends.vmp import vmp_apply_ref
-from poulpy_tpu_torch.hal.dft import _align_limbs, dft_add, dft_limbs, dft_sub
+from poulpy_tpu_torch.hal.dft import _align_limbs, cnv_apply, dft_add, dft_limbs, dft_sub
 from poulpy_tpu_torch.hal.module import Module
 from poulpy_tpu_torch.hal.normalization import vec_znx_normalize_full
 from poulpy_tpu_torch.hal.ntt import (
@@ -40,6 +45,7 @@ from poulpy_tpu_torch.hal.ntt import (
     mont_mul,
     ntt_forward,
     ntt_inverse,
+    to_mont,
     to_residues,
 )
 from poulpy_tpu_torch.hal.primes import R
@@ -108,21 +114,38 @@ def product_dft_ref(module: Module, a_data, pmat, dsize: int = 1):
 
 
 def fused_glwe_product_ref(module: Module, a_data, pmat, res_size: int, res_base2k: int,
-                           pm_base2k: int, dsize: int = 1, small=None):
+                           pm_base2k: int, dsize: int = 1, small=None, small64=None):
     """Plain version: dft → vmp (per digit for dsize > 1) → idft → (+ small
-    at column 0) → normalize, every stage in plain PyTorch."""
+    at column 0 | + small64 per column) → normalize, every stage in plain
+    PyTorch."""
     res_dft = product_dft_ref(module, a_data, pmat, dsize)
     big = garner_lift(module.tables, ntt_inverse(module.tables, res_dft))
     if small is not None:   # garner_lift's output is fresh: add the body in place
         big[..., 0, :, :] += _align_limbs(small, big, big.shape[-2], limb_axis=-2)[0]
+    if small64 is not None:
+        s64 = small64.shape[-2]
+        if s64 > big.shape[-2]:
+            big = F.pad(big, (0, 0, 0, s64 - big.shape[-2]))
+        big[..., :s64, :] += small64
     return vec_znx_normalize_full(res_size, res_base2k, 0, big, pm_base2k)
 
 
-def fused_smem_bytes(kk: int, mdim: int, nprimes: int, n: int) -> int:
-    """Shared memory of one block of either kernel: the KK input rows of one
-    prime, then the M output rows of every prime (all live for the Garner
-    lift)."""
-    return 4 * n * (kk + nprimes * mdim)
+def fused_smem_bytes(kk: int, mrows: int, nprimes: int, n: int) -> int:
+    """Shared memory of one block of the product kernels: the KK input rows
+    of one prime, then the block's `mrows` output rows of every prime (all
+    live for the Garner lift)."""
+    return 4 * n * (kk + nprimes * mrows)
+
+
+def cols_per_block(kk: int, co: int, psize: int, nprimes: int, n: int) -> int:
+    """The most output columns one block of the product kernels can hold (a
+    divisor of co), so that its rows fit in shared memory; raises if one
+    column does not fit."""
+    for cpb in range(co, 0, -1):
+        if co % cpb == 0 and fused_smem_bytes(kk, cpb * psize, nprimes, n) <= SMEM_LIMIT:
+            return cpb
+    raise ValueError(f"one output column needs {fused_smem_bytes(kk, psize, nprimes, n)} B "
+                     f"of shared memory > {SMEM_LIMIT}")
 
 
 def _check_bounds(P: int, psize: int, res_size: int, smem: int) -> None:
@@ -133,33 +156,47 @@ def _check_bounds(P: int, psize: int, res_size: int, smem: int) -> None:
         raise ValueError(f"kernel needs {smem} B of shared memory > {SMEM_LIMIT}")
 
 
+def product_fits(module: Module, kk: int, psize: int, res_size: int, ext: int) -> bool:
+    """True when `fused_glwe_product`'s kernel takes these shapes: its
+    compile-time bounds, and one output column's rows in shared memory."""
+    return (module.nprimes <= MAX_PRIMES and max(psize, res_size, ext) <= MAX_LIMBS
+            and fused_smem_bytes(kk, psize, module.nprimes, module.n) <= SMEM_LIMIT)
+
+
 def fused_glwe_product(module: Module, a_data, pmat, res_size: int, res_base2k: int,
-                       pm_base2k: int, dsize: int = 1, small=None):
+                       pm_base2k: int, dsize: int = 1, small=None, small64=None):
     """`a_data` [..., ci, size_a, N] int64 limbs × `pmat` [rows, ci, co, psize,
     P, N] → [..., co, res_size, N] normalized int64 limbs in base
     2^res_base2k.  `small` [..., s_size, N] int64, if given, is added to
-    column 0 of the big accumulator (the keyswitch body).  Plain version on
-    CPU tensors, one CUDA launch on CUDA."""
+    column 0 of the big accumulator (the keyswitch body, limbs past psize
+    dropped); `small64` [..., co, s64, N] wrapping int64, if given, is added
+    to every column, the accumulator extended with zero limbs to
+    max(psize, s64) (a tensor product's linear terms).  Plain version on CPU
+    tensors, one CUDA launch on CUDA."""
+    if small is not None and small64 is not None:
+        raise ValueError("pass small or small64, not both")
     if a_data.device.type == "cpu":
         return fused_glwe_product_ref(module, a_data, pmat, res_size, res_base2k,
-                                      pm_base2k, dsize, small)
+                                      pm_base2k, dsize, small, small64)
     P, n = module.nprimes, module.n
     rows, ci, co, psize = pmat.shape[:4]
     lead = a_data.shape[:-3]
     a_size = a_data.shape[-2]
     rmax = min(rows * dsize, a_size)
-    kk, mdim = ci * rmax, co * psize
+    kk = ci * rmax
     if a_data.shape[-3] != ci or a_data.shape[-1] != n:
         raise ValueError(f"a_data: expected [..., {ci}, size, {n}], got {tuple(a_data.shape)}")
-    smem = fused_smem_bytes(kk, mdim, P, n)
-    _check_bounds(P, psize, res_size, smem)
+    cpb = cols_per_block(kk, co, psize, P, n)
+    smem = fused_smem_bytes(kk, cpb * psize, P, n)
+    s64 = 0 if small64 is None else small64.shape[-2]
+    _check_bounds(P, max(psize, s64), res_size, smem)
     if pmat.device != a_data.device or module.device != a_data.device:
         raise ValueError("a_data, pmat and module must be on one device")
     pm = pm_kernel_layout(pmat, rmax) if dsize == 1 else pm_kernel_layout_dsize(pmat, rmax, dsize)
     B = a_data.numel() // (ci * a_size * n) if a_data.numel() else 0
     a = a_data.reshape(B, ci, a_size, n).contiguous()    # the keyswitch passes a column view
     _lib.require(a, "a_data", torch.int64)
-    s_size, sm_ptr = 0, None
+    s_size, sm_ptr, s64_ptr = 0, None, None
     if small is not None:
         s_size = small.shape[-2]
         if tuple(small.shape) != tuple(lead) + (s_size, n):
@@ -167,19 +204,102 @@ def fused_glwe_product(module: Module, a_data, pmat, res_size: int, res_base2k: 
         small = small.reshape(B, s_size, n).contiguous()
         _lib.require(small, "small", torch.int64)
         sm_ptr = small.data_ptr()
+    if small64 is not None:
+        if tuple(small64.shape) != tuple(lead) + (co, s64, n):
+            raise ValueError(f"small64: expected {tuple(lead) + (co, s64, n)}, "
+                             f"got {tuple(small64.shape)}")
+        small64 = small64.reshape(B, co, s64, n).contiguous()
+        _lib.require(small64, "small64", torch.int64)
+        s64_ptr = small64.data_ptr()
     out = torch.empty(lead + (co, res_size, n), dtype=torch.int64, device=a_data.device)
     if B == 0:
         return out
-    if rmax == 0 and small is None:
+    if rmax == 0 and small is None and small64 is None:
         return out.zero_()
     tw, consts = kernel_tables(module.tables)
     err = _lib.library().poulpy_fused_product(
-        a.data_ptr(), pm.data_ptr(), sm_ptr, out.data_ptr(), tw.data_ptr(), consts.data_ptr(),
-        B, ci, a_size, rmax, co, psize, s_size, res_size, res_base2k, pm_base2k, P,
-        module.log_n, smem, _lib.stream())
+        a.data_ptr(), pm.data_ptr(), sm_ptr, s64_ptr, out.data_ptr(), tw.data_ptr(),
+        consts.data_ptr(), B, ci, a_size, rmax, co, psize, s_size, s64, res_size, res_base2k,
+        pm_base2k, cpb, P, module.log_n, smem, _lib.stream())
     _lib.check(err, "poulpy_fused_product")
-    LAUNCHES["fused_product" if small is None else "fused_product_small"] += 1
+    LAUNCHES["fused_product_small" if small is not None
+             else "fused_product_small64" if small64 is not None else "fused_product"] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# Rank-1 tensor product
+# --------------------------------------------------------------------------
+
+def fused_tensor_product_ref(module: Module, a_data, b_data, conv_size: int, dnum: int, kr: int,
+                             ka: int):
+    """Plain version: `glwe_tensor_product_big`'s rank-1 data flow (left
+    operand standard NTT, right operand Montgomery NTT, limb convolution per
+    column pair, Garner lift), then `big_normalize` of the quadratic term."""
+    t = module.tables
+    a_prep = ntt_forward(t, to_residues(t, a_data))
+    b_prep = to_mont(t, ntt_forward(t, to_residues(t, b_data)))
+
+    def conv(i, j):
+        return cnv_apply(module, a_prep[..., i, :, :, :], b_prep[..., j, :, :, :], conv_size)
+
+    terms = [conv(0, 0), dft_add(module, conv(0, 1), conv(1, 0)), conv(1, 1)]
+    big = [garner_lift(t, ntt_inverse(t, x)) for x in terms]
+    return vec_znx_normalize_full(dnum, kr, 0, big[2], ka), torch.stack(big[:2], dim=-3)
+
+
+def tensor_smem_bytes(size_a: int, size_b: int, conv_size: int, n: int) -> int:
+    """Shared memory of one tensor block: the rows of one prime that the
+    cross pair reads, or the conv_size rows written over them if more."""
+    return 4 * n * max(2 * (size_a + size_b), conv_size)
+
+
+def tensor_fits(module: Module, size_a: int, size_b: int, conv_size: int, dnum: int) -> bool:
+    """True when `fused_tensor_product`'s kernel takes these shapes."""
+    return (module.nprimes <= MAX_PRIMES and max(size_a, size_b, conv_size, dnum) <= MAX_LIMBS
+            and tensor_smem_bytes(size_a, size_b, conv_size, module.n) <= SMEM_LIMIT)
+
+
+def fused_tensor_product(module: Module, a_data, b_data, conv_size: int, dnum: int, kr: int,
+                         ka: int):
+    """Rank-1 tensor product of `a_data` [..., 2, size_a, N] and `b_data`
+    [..., 2, size_b, N] int64 limbs (base 2^ka) → (d [..., dnum, N], the
+    quadratic term a1·b1 normalized to `dnum` digits of base 2^kr; lin64
+    [..., 2, conv_size, N], the wrapping-int64 linear terms a0·b0 and
+    a0·b1 + a1·b0).  Plain version on CPU tensors, one CUDA launch on CUDA."""
+    if a_data.device.type == "cpu":
+        return fused_tensor_product_ref(module, a_data, b_data, conv_size, dnum, kr, ka)
+    P, n = module.nprimes, module.n
+    lead = a_data.shape[:-3]
+    size_a, size_b = a_data.shape[-2], b_data.shape[-2]
+    if tuple(a_data.shape[-3:]) != (2, size_a, n) or tuple(b_data.shape) != tuple(lead) + (
+            2, size_b, n):
+        raise ValueError(f"a_data {tuple(a_data.shape)}, b_data {tuple(b_data.shape)}: expected "
+                         f"rank-1 ciphertexts [..., 2, size, {n}] with one batch shape")
+    if not tensor_fits(module, size_a, size_b, conv_size, dnum):
+        raise ValueError(f"tensor kernel bounds: P ≤ {MAX_PRIMES}, limbs ≤ {MAX_LIMBS}, "
+                         f"{tensor_smem_bytes(size_a, size_b, conv_size, n)} B of shared memory "
+                         f"≤ {SMEM_LIMIT}")
+    if b_data.device != a_data.device or module.device != a_data.device:
+        raise ValueError("a_data, b_data and module must be on one device")
+    B = a_data.numel() // (2 * size_a * n) if a_data.numel() else 0
+    a = a_data.reshape(B, 2, size_a, n).contiguous()
+    b = b_data.reshape(B, 2, size_b, n).contiguous()
+    _lib.require(a, "a_data", torch.int64)
+    _lib.require(b, "b_data", torch.int64)
+    d = torch.empty(lead + (dnum, n), dtype=torch.int64, device=a_data.device)
+    lin = torch.empty(lead + (2, conv_size, n), dtype=torch.int64, device=a_data.device)
+    if B == 0:
+        return d, lin
+    scratch = torch.empty((B * 3, P, conv_size, n), dtype=torch.int32, device=a_data.device)
+    tw, consts = kernel_tables(module.tables)
+    err = _lib.library().poulpy_tensor_product(
+        a.data_ptr(), b.data_ptr(), d.data_ptr(), lin.data_ptr(), scratch.data_ptr(),
+        tw.data_ptr(), consts.data_ptr(), B, size_a, size_b, conv_size, dnum, kr, ka, P,
+        module.log_n, tensor_smem_bytes(size_a, size_b, conv_size, n), _lib.stream())
+    _lib.check(err, "poulpy_tensor_product")
+    LAUNCHES["tensor_product"] += 1
+    return d, lin
 
 
 # --------------------------------------------------------------------------

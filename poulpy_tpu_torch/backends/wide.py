@@ -26,8 +26,9 @@ import torch
 
 from poulpy_tpu_torch.backends import LAUNCHES, _lib
 from poulpy_tpu_torch.backends.fused import (
-    SMEM_LIMIT,
     _check_bounds,
+    cols_per_block,
+    fused_smem_bytes,
     pm_kernel_layout,
     pm_kernel_layout_dsize,
     product_dft_ref,
@@ -68,22 +69,6 @@ def fused_glwe_product_wide_ref(module: Module, a_data, pmat, res_size: int, res
     return vec_znx_normalize_full_wide(res_size, res_base2k, res_offset, pair, pm_base2k)
 
 
-def wide_smem_bytes(kk: int, cpb: int, psize: int, nprimes: int, n: int) -> int:
-    """Shared memory of one wide-product block: the KK input rows of one
-    prime, then the output rows of its `cpb` columns for every prime."""
-    return 4 * n * (kk + nprimes * cpb * psize)
-
-
-def wide_cols_per_block(kk: int, co: int, psize: int, nprimes: int, n: int) -> int:
-    """The most output columns one block can hold (a divisor of co), so that
-    its rows fit in shared memory; raises if one column does not fit."""
-    for cpb in range(co, 0, -1):
-        if co % cpb == 0 and wide_smem_bytes(kk, cpb, psize, nprimes, n) <= SMEM_LIMIT:
-            return cpb
-    raise ValueError(f"one output column needs {wide_smem_bytes(kk, 1, psize, nprimes, n)} B "
-                     f"of shared memory > {SMEM_LIMIT}")
-
-
 def fused_glwe_product_wide(module: Module, a_data, pmat, res_size: int, res_base2k: int,
                             pm_base2k: int, small=None, res_offset: int = 0, dsize: int = 1):
     """`a_data` [..., ci, size_a, N] int64 limbs × `pmat` [rows, ci, co,
@@ -103,8 +88,8 @@ def fused_glwe_product_wide(module: Module, a_data, pmat, res_size: int, res_bas
     kk = ci * rmax
     if a_data.shape[-3] != ci or a_data.shape[-1] != n:
         raise ValueError(f"a_data: expected [..., {ci}, size, {n}], got {tuple(a_data.shape)}")
-    cpb = wide_cols_per_block(kk, co, psize, P, n)
-    smem = wide_smem_bytes(kk, cpb, psize, P, n)
+    cpb = cols_per_block(kk, co, psize, P, n)
+    smem = fused_smem_bytes(kk, cpb * psize, P, n)
     _check_bounds(P, psize, res_size, smem)
     if pmat.device != a_data.device or module.device != a_data.device:
         raise ValueError("a_data, pmat and module must be on one device")
@@ -158,7 +143,7 @@ def fused_tensor_product_wide_ref(module: Module, a_data, b_data, conv_size: int
     return d, lin
 
 
-def tensor_smem_bytes(size_a: int, size_b: int, conv_size: int, nprimes: int, n: int) -> int:
+def wide_tensor_smem_bytes(size_a: int, size_b: int, conv_size: int, nprimes: int, n: int) -> int:
     """Shared memory of one tensor block: both columns of both operands (one
     prime at a time), then one pair's conv_size rows for every prime."""
     return 4 * n * (2 * (size_a + size_b) + nprimes * conv_size)
@@ -183,7 +168,7 @@ def fused_tensor_product_wide(module: Module, a_data, b_data, conv_size: int, dn
             2, size_b, n):
         raise ValueError(f"a_data {tuple(a_data.shape)}, b_data {tuple(b_data.shape)}: expected "
                          f"rank-1 ciphertexts [..., 2, size, {n}] with one batch shape")
-    smem = tensor_smem_bytes(size_a, size_b, conv_size, P, n)
+    smem = wide_tensor_smem_bytes(size_a, size_b, conv_size, P, n)
     _check_bounds(P, conv_size, max(dnum, lin_size), smem)
     if b_data.device != a_data.device or module.device != a_data.device:
         raise ValueError("a_data, b_data and module must be on one device")

@@ -1,6 +1,6 @@
 """Leveled CKKS over the torus: twin of `poulpy_tpu/ckks/` (layouts, the
-host encoder and the leveled operations; rotations, conjugation and the
-plaintext helpers of `plaintext.py` are not ported yet).
+host encoder, the leveled operations with rotations and conjugation, and the
+plaintext forms of `plaintext.py`).
 
 Ciphertexts are GLWEs with a `CKKSMeta{log_delta, log_budget}` bit-level
 scale and capacity tracker; rescaling is a pure limb bit-shift.

@@ -1,5 +1,4 @@
-"""Leveled CKKS operations: twin of `poulpy_tpu/ckks/ops.py` without the
-automorphism-based `rotate`, `rotate_by` and `conjugate` (not ported yet).
+"""Leveled CKKS operations: twin of `poulpy_tpu/ckks/ops.py`.
 
 Meta bookkeeping follows the reference:
   add/sub     → align budgets
@@ -16,6 +15,9 @@ Meta bookkeeping follows the reference:
     relinearize launch on the card);
   - other wide shapes: the unfused wide data flow (`hal/wide.py` pairs);
   - otherwise the unfused data flow (NTT and VMP kernels on the card).
+
+`rotate`, `rotate_by` and `conjugate` are GLWE automorphisms: a keyswitch
+(one `fused_product_small` launch on the card) and a permutation.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from poulpy_tpu_torch.ckks.encoder import Encoder
 from poulpy_tpu_torch.ckks.layouts import CKKSCiphertext, CKKSMeta, CKKSPlaintext
 from poulpy_tpu_torch.core import decryption as core_dec
 from poulpy_tpu_torch.core import encryption as core_enc
+from poulpy_tpu_torch.core.automorphism import glwe_automorphism
 from poulpy_tpu_torch.core.keyswitching import gglwe_product_dft
 from poulpy_tpu_torch.core.layouts import GLWECiphertext, GLWEPlaintext, glwe_size
 from poulpy_tpu_torch.core.operations import (
@@ -320,6 +323,27 @@ def mul_plain(module: Module, a: CKKSCiphertext, pt: CKKSPlaintext) -> CKKSCiphe
                                  res_offset=off_bits - base2k)
     return CKKSCiphertext(glwe=GLWECiphertext(data=data, base2k=base2k, k=ga.k),
                           meta=CKKSMeta(log_delta=res_delta, log_budget=res_budget))
+
+
+def rotate(module: Module, a: CKKSCiphertext, auto_key, steps_unused: int = 0) -> CKKSCiphertext:
+    """Slot rotation: the automorphism X → X^{5^r} of the key's Galois
+    element 5^r rotates the slots by r."""
+    glwe = glwe_automorphism(module, a.glwe, auto_key, a.glwe.base2k, a.glwe.k)
+    return CKKSCiphertext(glwe=glwe, meta=a.meta)
+
+
+def rotate_by(module: Module, a: CKKSCiphertext, key_map: dict, r: int) -> CKKSCiphertext:
+    """Slot rotation by `r` with a key map {r: automorphism key}; raises
+    MissingAutomorphismKey when `r` has no key."""
+    if r not in key_map:
+        raise MissingAutomorphismKey("rotate", r)
+    return rotate(module, a, key_map[r])
+
+
+def conjugate(module: Module, a: CKKSCiphertext, auto_key) -> CKKSCiphertext:
+    """Complex conjugation of the slots: the automorphism X → X^{-1}."""
+    glwe = glwe_automorphism(module, a.glwe, auto_key, a.glwe.base2k, a.glwe.k)
+    return CKKSCiphertext(glwe=glwe, meta=a.meta)
 
 
 # ---- composite operations ----------------------------------------------------

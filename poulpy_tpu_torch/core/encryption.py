@@ -24,12 +24,12 @@ from poulpy_tpu_torch.core.layouts import (
     LWECiphertext,
     glwe_size,
 )
-from poulpy_tpu_torch.core.prepared import GLWESecretPrepared
+from poulpy_tpu_torch.core.prepared import GLWESecretPrepared, glwe_secret_prepare
 from poulpy_tpu_torch.hal import dft
 from poulpy_tpu_torch.hal.module import Module
 from poulpy_tpu_torch.hal.normalization import vec_znx_normalize
 from poulpy_tpu_torch.hal.source import Source
-from poulpy_tpu_torch.hal.vec_znx import vec_znx_sub
+from poulpy_tpu_torch.hal.vec_znx import vec_znx_automorphism, vec_znx_sub
 
 DEFAULT_SIGMA_XE = 3.2
 DEFAULT_BOUND_XE = 6.0 * DEFAULT_SIGMA_XE
@@ -145,6 +145,19 @@ def glwe_switching_key_encrypt_sk(module: Module, sk_in: GLWESecret, sk_out: GLW
     """Key-switching key sk_in → sk_out."""
     return gglwe_encrypt_sk(module, sk_in.data, sk_out, base2k, k, dnum, source_xe, source_xa,
                             dsize=dsize, **kw)
+
+
+def glwe_automorphism_key_encrypt_sk(module: Module, p: int, sk: GLWESecret, base2k: int, k: int,
+                                     dnum: int, source_xe: Source, source_xa: Source,
+                                     dsize: int = 1, **kw) -> tuple[GGLWECiphertext, int]:
+    """Automorphism key of Galois element p: a GGLWE of s under the permuted
+    secret φ_{p^{-1}}(s), so that a keyswitch then φ_p maps an encryption of
+    m under s to one of φ_p(m) under s.  Returns (key, p)."""
+    p_inv = pow(int(p) % (2 * module.n), -1, 2 * module.n)
+    sk_out = GLWESecret(data=vec_znx_automorphism(p_inv, sk.data), dist=sk.dist)
+    key = gglwe_encrypt_sk(module, sk.data, glwe_secret_prepare(module, sk_out), base2k, k, dnum,
+                           source_xe, source_xa, dsize=dsize, **kw)
+    return key, p
 
 
 def glwe_tensor_key_encrypt_sk(module: Module, sk: GLWESecret, sk_prepared: GLWESecretPrepared,

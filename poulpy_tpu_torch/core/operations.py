@@ -1,18 +1,39 @@
-"""GLWE arithmetic: twins of `poulpy_tpu/core/operations.py` (the port's
-part): add / sub / negate, plaintext adds, shifts, normalization, scalar and
-plaintext products, and the tensor product that CKKS multiplication runs on.
+"""GLWE arithmetic: twin of `poulpy_tpu/core/operations.py`: add / sub /
+negate, plaintext adds, rotations, shifts, normalization, scalar and
+plaintext products, the tensor product and its relinearization.
 
-`glwe_tensor_relinearize` is not ported yet; CKKS `mul` (`ckks/ops.py`)
-relinearizes with its own landing shift, as the JAX package's does.
+`glwe_tensor_relinearize` takes, for a rank-1, non-wide product whose
+tensor key shares the ciphertexts' base2k and whose shapes the kernels
+take, the fused pair of `backends/fused.py` (one `tensor_product` and one
+`fused_product_small64` launch on the card); otherwise the unfused data
+flow (NTT and VMP kernels on the card).  The two routes give equal results.
+CKKS `mul` (`ckks/ops.py`) relinearizes with its own landing shift, as the
+JAX package's does.
 """
 
 from __future__ import annotations
 
+import torch
+
+from poulpy_tpu_torch.backends.fused import (
+    fused_glwe_product,
+    fused_tensor_product,
+    product_fits,
+    tensor_fits,
+)
+from poulpy_tpu_torch.core.keyswitching import gglwe_product_dft
 from poulpy_tpu_torch.core.layouts import GLWECiphertext, GLWEPlaintext, glwe_size
+from poulpy_tpu_torch.core.prepared import GLWETensorKeyPrepared
 from poulpy_tpu_torch.hal import dft
 from poulpy_tpu_torch.hal.module import Module
 from poulpy_tpu_torch.hal.normalization import vec_znx_normalize, vec_znx_normalize_full
-from poulpy_tpu_torch.hal.vec_znx import vec_znx_add, vec_znx_sub
+from poulpy_tpu_torch.hal.vec_znx import (
+    vec_znx_add,
+    vec_znx_mul_xp_minus_one,
+    vec_znx_rotate,
+    vec_znx_sub,
+)
+from poulpy_tpu_torch.hal.wide import wadd
 
 
 def _binary(ct_a: GLWECiphertext, ct_b: GLWECiphertext, op):
@@ -51,6 +72,22 @@ def glwe_sub_plain(a: GLWECiphertext, pt: GLWEPlaintext) -> GLWECiphertext:
     if a.base2k != pt.base2k:
         raise ValueError("align base2k first")
     return _set_body(a, vec_znx_sub(a.data[..., 0, :, :], pt.data, res_size=a.size))
+
+
+def glwe_rotate(p, a: GLWECiphertext) -> GLWECiphertext:
+    """ct · X^p; `p` may be batched."""
+    return a.replace(data=vec_znx_rotate(p, a.data))
+
+
+def ggsw_rotate(p, a):
+    """GGSW · X^p: every (row, column) sub-GLWE rotated, which multiplies the
+    GGSW plaintext by X^p; `p` may be batched."""
+    return a.replace(data=vec_znx_rotate(p, a.data))
+
+
+def glwe_mul_xp_minus_one(p, a: GLWECiphertext) -> GLWECiphertext:
+    """(X^p − 1)·ct, the CGGI accumulator update."""
+    return a.replace(data=vec_znx_mul_xp_minus_one(p, a.data))
 
 
 def glwe_lsh(k_shift: int, a: GLWECiphertext) -> GLWECiphertext:
@@ -140,3 +177,75 @@ def glwe_tensor_product_big(module: Module, a: GLWECiphertext, b: GLWECiphertext
 def glwe_tensor_square_big(module: Module, a: GLWECiphertext, res_size: int, wide: bool = False):
     """The a == b case of `glwe_tensor_product_big`."""
     return glwe_tensor_product_big(module, a, a, res_size, wide=wide)
+
+
+def glwe_tensor_relinearize(module: Module, a: GLWECiphertext, b: GLWECiphertext,
+                            tensor_key: GLWETensorKeyPrepared, res_base2k: int | None = None,
+                            res_k: int | None = None) -> GLWECiphertext:
+    """ct × ct: the tensor product, each s_i·s_j term keyswitched back to s
+    through the tensor key, the linear terms added per column.
+
+    The result is the product of the ciphertexts' unreduced values pt + I
+    (I the integer part of Σ c_i·s_i), so it carries the mask-wrap cross
+    terms I_a·pt_b + I_b·pt_a above pt_a·pt_b; CKKS `mul` is the consumer
+    that lands the product below them."""
+    if a.base2k != b.base2k:
+        raise ValueError("align base2k first")
+    base2k = a.base2k
+    res_base2k = base2k if res_base2k is None else res_base2k
+    res_k = min(a.k + b.k, a.size * base2k + b.size * base2k) if res_k is None else res_k
+    rank = a.rank
+    conv_size = a.size + b.size - 1
+    any_key = next(iter(tensor_key.keys.values()))
+    bits = max(tensor_product_bits(module, a, b),
+               dft.product_bits(any_key.base2k, any_key.base2k, module.log_n,
+                                any_key.dnum * rank * (rank + 1)))
+    wide = dft.needs_wide(bits)
+    if wide:
+        assert bits + 1 < module.basis.modulus.bit_length()
+    res_size = glwe_size(res_base2k, res_k)
+
+    if not wide and rank == 1:
+        key1 = tensor_key.keys[(0, 0)]
+        dnum, psize = key1.dnum * key1.dsize, key1.pmat.shape[3]
+        if (key1.base2k == base2k and a.data.shape[:-3] == b.data.shape[:-3]
+                and tensor_fits(module, a.size, b.size, conv_size, dnum)
+                and product_fits(module, dnum, psize, res_size, max(psize, conv_size))):
+            d, lin64 = fused_tensor_product(module, a.data, b.data, conv_size, dnum,
+                                            key1.base2k, base2k)
+            data = fused_glwe_product(module, d[..., None, :, :], key1.pmat, res_size,
+                                      res_base2k, base2k, dsize=key1.dsize, small64=lin64)
+            return GLWECiphertext(data=data, base2k=res_base2k, k=res_k)
+
+    lin, quad = glwe_tensor_product_big(module, a, b, conv_size, wide=wide)
+    norm = dft.big_normalize_wide if wide else dft.big_normalize
+    acc = None
+    for (i, j), big in quad.items():
+        key = tensor_key.keys[(min(i, j), max(i, j))]
+        d = norm(module, key.dnum * key.dsize, key.base2k, big, base2k)
+        part = gglwe_product_dft(module, dft.dft_apply(module, d[..., None, :, :]), key)
+        acc = part if acc is None else dft.dft_add(module, acc, part)
+
+    if wide:
+        ks_hi, ks_lo = dft.idft_apply_wide(module, acc)
+        hi_cols, lo_cols = [], []
+        for c in range(rank + 1):
+            m = max(ks_hi.shape[-2], lin[c][0].shape[-2])
+            ch, ah = dft._align_limbs(ks_hi[..., c, :, :], lin[c][0], m, limb_axis=-2)
+            cl, al = dft._align_limbs(ks_lo[..., c, :, :], lin[c][1], m, limb_axis=-2)
+            nh, nl = wadd(ch, cl, ah, al)
+            hi_cols.append(nh)
+            lo_cols.append(nl)
+        data = dft.big_normalize_wide(module, res_size, res_base2k,
+                                      (torch.stack(hi_cols, dim=-3), torch.stack(lo_cols, dim=-3)),
+                                      base2k)
+        return GLWECiphertext(data=data, base2k=res_base2k, k=res_k)
+
+    ks_big = dft.idft_apply(module, acc)      # [..., rank+1, size_key, N]
+    cols = []
+    for c in range(rank + 1):
+        m = max(ks_big.shape[-2], lin[c].shape[-2])
+        col, add = dft._align_limbs(ks_big[..., c, :, :], lin[c], m, limb_axis=-2)
+        cols.append(col + add)
+    data = dft.big_normalize(module, res_size, res_base2k, torch.stack(cols, dim=-3), base2k)
+    return GLWECiphertext(data=data, base2k=res_base2k, k=res_k)

@@ -4,6 +4,7 @@
   GLWESecretPrepared     data [rank, P, N]                          (Montgomery)
   GGLWEPrepared          pmat [dnum, rank_in, rank_out+1, size, P, N] (Montgomery)
   GGSWPrepared           pmat [dnum, rank+1, rank+1, size, P, N]     (Montgomery)
+  GLWEAutomorphismKeyPrepared  a GGLWEPrepared and its Galois element p
   GLWETensorKeyPrepared  rank(rank+1)/2 GGLWEPrepared for the s_i·s_j terms
 """
 
@@ -70,6 +71,14 @@ class GGSWPrepared(_Replace):
     @property
     def size(self) -> int:
         return self.pmat.shape[-3]
+
+
+@dataclass(frozen=True)
+class GLWEAutomorphismKeyPrepared(_Replace):
+    """Switches φ_{p^{-1}}(s) → s; applied with the permutation X → X^p."""
+
+    key: GGLWEPrepared
+    p: int
 
 
 @dataclass(frozen=True)

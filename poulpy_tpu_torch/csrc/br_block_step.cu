@@ -88,8 +88,8 @@ __global__ void __launch_bounds__(THREADS, 1) br_block_step_kernel(
     const int col = idx >> logn;
     const int coef = idx & (n - 1);
     lift_add_normalize(ys, P, mdim, logn, col, psize, coef, ab + (int64_t)col * size * n + coef,
-                       add_size, out + ((b * cols + col) * res_size) * n + coef, res_size, kr,
-                       kr, consts);
+                       add_size, psize, out + ((b * cols + col) * res_size) * n + coef, res_size,
+                       kr, kr, consts);
   }
 }
 

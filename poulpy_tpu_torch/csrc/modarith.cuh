@@ -263,7 +263,7 @@ __device__ __forceinline__ void normalize_full_wide(const __int128* a, int a_siz
 }
 
 // ---- shared stages of the fused kernels (fused_product.cu, br_block_step.cu,
-// wide_product.cu, wide_tensor.cu) ----
+// wide_product.cu, wide_tensor.cu, tensor_product.cu) ----
 
 // Entry: the first rmax limbs of each of the ci columns of one ciphertext
 // (a: [ci][size_a][n] int64, any value) reduced to [0, p) into the kk = ci·rmax
@@ -301,32 +301,76 @@ __device__ __forceinline__ void vmp_rows(uint32_t* y, const uint32_t* xin,
   __syncthreads();
 }
 
-// Exit for one output column `col` and coefficient `coef`: the N^{-1} scale of
-// the inverse NTT, the Garner lift of each of the psize limbs (ys: [P][mdim][n]
-// residues, rows col·psize + j), + add[j·n] for j < min(add_size, psize)
-// (wrapping int64), then normalize_full to res_size limbs of base 2^kr written
-// to out[i·n], i < res_size.
+// The 64-bit value of row `row`, coefficient `coef`, of an inverse-NTT'd block
+// ys [P][rows][n] (shared or global memory): the N^{-1} scale, then the Garner
+// lift.
+__device__ __forceinline__ int64_t lift_limb(const uint32_t* ys, int P, int rows, int logn,
+                                             int row, int coef,
+                                             const int64_t* __restrict__ consts) {
+  uint32_t r[MAX_PRIMES];
+  for (int pi = 0; pi < P; ++pi) {
+    const int64_t* c = consts + pi * CONSTS_PER_PRIME;
+    const uint32_t yv = ys[(((size_t)pi * rows + row) << logn) + coef];
+    r[pi] = mont_mul(yv, (uint32_t)c[C_NINV], (uint32_t)c[C_P], (uint32_t)c[C_QINV]);
+  }
+  return garner(r, P, consts);
+}
+
+// Exit for one output column `col` and coefficient `coef`: the lift of each of
+// the psize limbs (ys: [P][mdim][n] residues, rows col·psize + j), zero limbs
+// up to ext ≥ psize, + add[j·n] for j < add_size ≤ ext (wrapping int64), then
+// normalize_full of the ext limbs to res_size limbs of base 2^kr written to
+// out[i·n], i < res_size.  ext ≤ MAX_LIMBS (the wrappers check it).
 __device__ __forceinline__ void lift_add_normalize(const uint32_t* ys, int P, int mdim, int logn,
                                                    int col, int psize, int coef,
                                                    const int64_t* __restrict__ add, int add_size,
-                                                   int64_t* __restrict__ out, int res_size,
-                                                   int kr, int ka,
+                                                   int ext, int64_t* __restrict__ out,
+                                                   int res_size, int kr, int ka,
                                                    const int64_t* __restrict__ consts) {
   const int n = 1 << logn;
   int64_t big[MAX_LIMBS];
-  for (int j = 0; j < psize; ++j) {
-    uint32_t r[MAX_PRIMES];
-    for (int pi = 0; pi < P; ++pi) {
-      const int64_t* c = consts + pi * CONSTS_PER_PRIME;
-      const uint32_t yv = ys[((size_t)pi * mdim + col * psize + j) * n + coef];
-      r[pi] = mont_mul(yv, (uint32_t)c[C_NINV], (uint32_t)c[C_P], (uint32_t)c[C_QINV]);
-    }
-    big[j] = garner(r, P, consts);
+  for (int j = 0; j < ext; ++j) {
+    big[j] = j < psize ? lift_limb(ys, P, mdim, logn, col * psize + j, coef, consts) : 0;
     if (j < add_size) big[j] = wadd(big[j], add[(int64_t)j * n]);
   }
   int64_t res[MAX_LIMBS];
-  normalize_full(big, psize, res, res_size, kr, ka);
+  normalize_full(big, ext, res, res_size, kr, ka);
   for (int i = 0; i < res_size; ++i) out[(int64_t)i * n] = res[i];
+}
+
+// Rank-1 tensor step, one prime, one coefficient: the limb convolution of
+// column pair `pair` (0: a0·b0, 1: a0·b1 + a1·b0, 2: a1·b1) of the NTT'd
+// standard residues xa [ncols][size_a][n] and xb [ncols][size_b][n] (ncols 2
+// for pair 1, else 1), y[k·n + coef] = Σ_{l + j = k} xa_l·xb_j mod p for
+// k < conv_size ≤ MAX_LIMBS.  The sums run in u64 folded at 2^63 (mac_guard)
+// and are reduced once.  IN_PLACE: every input of the coefficient is read
+// before any output is written, so y may alias xa (a thread then works on
+// its own column of the rows); otherwise each output is written as it is
+// summed.
+template <bool IN_PLACE>
+__device__ __forceinline__ void pair_conv(uint32_t* y, const uint32_t* xa, const uint32_t* xb,
+                                          int pair, int size_a, int size_b, int conv_size,
+                                          int logn, int coef, uint32_t p) {
+  uint32_t res[IN_PLACE ? MAX_LIMBS : 1];
+  for (int k = 0; k < conv_size; ++k) {
+    uint64_t acc = 0;
+    for (int l = 0; l < size_a; ++l) {
+      const int j = k - l;
+      if (j < 0 || j >= size_b) continue;
+      if (pair == 1) {
+        acc = mac_guard(acc, xa[(l << logn) + coef], xb[((size_b + j) << logn) + coef], p);
+        acc = mac_guard(acc, xa[((size_a + l) << logn) + coef], xb[(j << logn) + coef], p);
+      } else {
+        acc = mac_guard(acc, xa[(l << logn) + coef], xb[(j << logn) + coef], p);
+      }
+    }
+    if (IN_PLACE)
+      res[k] = (uint32_t)(acc % p);
+    else
+      y[(k << logn) + coef] = (uint32_t)(acc % p);
+  }
+  if (IN_PLACE)
+    for (int k = 0; k < conv_size; ++k) y[(k << logn) + coef] = res[k];
 }
 
 // The wide twin of lift_add_normalize: the Garner lift to 128 bits, + the

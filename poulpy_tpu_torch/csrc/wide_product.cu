@@ -23,7 +23,7 @@
 // needs 4·N·(KK + P·M) bytes, 262,144 at the mul shape (N 2048, KK 2, M 6,
 // P 5): over the 232,448 a block may have.  So a block takes one ciphertext and a group of
 // `cpb` output columns (co/cpb blocks per ciphertext, cpb the largest divisor
-// of co that fits, backends/wide.py wide_cols_per_block): 4·N·(KK + P·cpb·psize)
+// of co that fits, backends/fused.py cols_per_block): 4·N·(KK + P·cpb·psize)
 // bytes, 139,264 at the mul shape with cpb 1.  Each block recomputes the KK
 // forward NTT rows (cheap beside the M·P inverse rows it keeps); the entry,
 // NTT, VMP and inverse NTT are modarith.cuh's device functions, shared with
@@ -83,7 +83,8 @@ __global__ void __launch_bounds__(THREADS, 1) wide_product_kernel(
 // (backends/fused.py pm_kernel_layout / pm_kernel_layout_dsize); small: [B, co,
 // s_size, N] int64 or null; out: [B, co, res_size, N] int64; tw, consts:
 // backends/ntt.py kernel_tables; cpb: output columns per block (divides co);
-// smem: backends/wide.py wide_smem_bytes.  Returns the cudaError_t of the launch.
+// smem: backends/fused.py fused_smem_bytes(kk, cpb·psize, P, n).  Returns the
+// cudaError_t of the launch.
 extern "C" int poulpy_wide_product(const void* a, const void* pm, const void* small, void* out,
                                    const void* tw, const void* consts, int B, int ci, int size_a,
                                    int rmax, int co, int psize, int s_size, int res_size, int kr,

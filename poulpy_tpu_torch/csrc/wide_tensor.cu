@@ -62,22 +62,8 @@ __global__ void __launch_bounds__(THREADS, 1) wide_tensor_kernel(
     ntt_fwd_rows(xa, ncols * (size_a + size_b), logn, tw + (size_t)pi * n, p, qinv);
 
     uint32_t* y = ys + (size_t)pi * conv_size * n;
-    for (int idx = threadIdx.x; idx < (conv_size << logn); idx += blockDim.x) {
-      const int k = idx >> logn;
-      const int coef = idx & (n - 1);
-      uint64_t acc = 0;
-      for (int l = 0; l < size_a; ++l) {
-        const int j = k - l;
-        if (j < 0 || j >= size_b) continue;
-        if (pair == 1) {    // a0·b1 + a1·b0
-          acc = mac_guard(acc, xa[(l << logn) + coef], xb[((size_b + j) << logn) + coef], p);
-          acc = mac_guard(acc, xa[((size_a + l) << logn) + coef], xb[(j << logn) + coef], p);
-        } else {
-          acc = mac_guard(acc, xa[(l << logn) + coef], xb[(j << logn) + coef], p);
-        }
-      }
-      y[idx] = (uint32_t)(acc % p);
-    }
+    for (int coef = threadIdx.x; coef < n; coef += blockDim.x)
+      pair_conv<false>(y, xa, xb, pair, size_a, size_b, conv_size, logn, coef, p);
     __syncthreads();
     ntt_inv_rows(y, conv_size, logn, tw + (size_t)(P + pi) * n, p, qinv);
   }
@@ -98,7 +84,7 @@ __global__ void __launch_bounds__(THREADS, 1) wide_tensor_kernel(
 
 // a: [B, 2, size_a, N], b: [B, 2, size_b, N] int64; d: [B, dnum, N], lin: [B, 2,
 // lin_size, N] int64; tw, consts: backends/ntt.py kernel_tables; smem:
-// backends/wide.py tensor_smem_bytes.  Returns the cudaError_t of the launch.
+// backends/wide.py wide_tensor_smem_bytes.  Returns the cudaError_t of the launch.
 extern "C" int poulpy_wide_tensor(const void* a, const void* b, void* d, void* lin,
                                   const void* tw, const void* consts, int B, int size_a,
                                   int size_b, int conv_size, int dnum, int lin_size, int kr,

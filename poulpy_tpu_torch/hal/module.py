@@ -13,6 +13,8 @@ import torch
 from poulpy_tpu_torch.hal.ntt import NttTables, canonical_device
 from poulpy_tpu_torch.hal.primes import LOG_N_MAX, PrimeBasis, ntt_primes
 
+GALOIS_GENERATOR = 5  # the generator of the slot rotations (module.rs GALOISGENERATOR)
+
 
 class Module:
     """Backend handle: ring degree + CRT-NTT tables on `device` (the card
@@ -34,6 +36,15 @@ class Module:
     @property
     def nprimes(self) -> int:
         return self.basis.nprimes
+
+    def galois_element(self, generator_exp: int) -> int:
+        """5^|exp| (its inverse for a negative exp) mod 2N."""
+        two_n = 2 * self.n
+        g = pow(GALOIS_GENERATOR, abs(generator_exp), two_n)
+        return pow(g, -1, two_n) if generator_exp < 0 else g
+
+    def galois_element_inv(self, gal_el: int) -> int:
+        return pow(gal_el, -1, 2 * self.n)
 
     def __repr__(self):
         return f"Module(n={self.n}, primes={self.basis.primes}, device={self.device})"

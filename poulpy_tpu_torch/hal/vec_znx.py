@@ -7,6 +7,7 @@ operands: sum over the common limbs, copy the longer tail, zero beyond.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -47,6 +48,11 @@ def vec_znx_rotate(p, a):
 def vec_znx_automorphism(p: int, a):
     """X → X^p on every limb."""
     return znx.znx_automorphism(p, a)
+
+
+def vec_znx_mul_xp_minus_one(p, a):
+    """(X^p − 1)·a; `p` may be batched as in `vec_znx_rotate`."""
+    return znx.znx_rotate(p, a) - a
 
 
 def encode_vec_i64(base2k: int, k: int, size: int, data):
@@ -90,3 +96,10 @@ def decode_vec_i64(base2k: int, k: int, a):
         else:
             data = (data << base2k) + a[..., i, :]
     return data
+
+
+def decode_vec_float(base2k: int, a) -> np.ndarray:
+    """Decode to float64 torus values (host numpy): Σ_j a[j]·2^{-(j+1)·base2k}."""
+    a = (a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)).astype(np.float64)
+    scale = np.array([2.0 ** (-(j + 1) * base2k) for j in range(a.shape[-2])])
+    return np.tensordot(np.moveaxis(a, -2, -1), scale, axes=([-1], [0]))

@@ -2,11 +2,11 @@
 
 An object crosses as its class name plus a dict of fields: arrays as numpy,
 parameters (`base2k`, `k`, `dsize`, `dist`, …) as Python values, a nested
-layout (a CKKS ciphertext's `glwe` and `meta`) as its own (name, fields),
-and a dict of layouts (a tensor key's `keys`, keyed by (i, j)) as a dict of
-(name, fields).  The field names are the JAX package's, so any object with
-one of the class names below and those dataclass fields converts, without
-this module importing JAX:
+layout (a CKKS ciphertext's `glwe` and `meta`, an automorphism key's `key`)
+as its own (name, fields), and a dict of layouts (a tensor key's `keys`,
+keyed by (i, j)) as a dict of (name, fields).  The field names are the JAX
+package's, so any object with one of the class names below and those
+dataclass fields converts, without this module importing JAX:
 
     port_obj = from_fields(*to_fields(jax_obj), device="cuda")
     name, fields = to_fields(port_obj)      # numpy arrays, ready for jnp.asarray
@@ -26,7 +26,13 @@ from poulpy_tpu_torch.binfhe.blind_rotation import BlindRotationKeyPrepared
 from poulpy_tpu_torch.binfhe.gates import BootstrapKeys, GateParams
 from poulpy_tpu_torch.binfhe.lut import LookupTable
 from poulpy_tpu_torch.ckks.layouts import CKKSCiphertext, CKKSMeta, CKKSPlaintext
+from poulpy_tpu_torch.ckks.plaintext import (
+    CKKSPlaintextCstRnx,
+    CKKSPlaintextCstZnx,
+    CKKSPlaintextVecRnx,
+)
 from poulpy_tpu_torch.core.layouts import (
+    GGLWECiphertext,
     GGSWCiphertext,
     GLWECiphertext,
     GLWEPlaintext,
@@ -36,6 +42,7 @@ from poulpy_tpu_torch.core.layouts import (
 from poulpy_tpu_torch.core.prepared import (
     GGLWEPrepared,
     GGSWPrepared,
+    GLWEAutomorphismKeyPrepared,
     GLWESecretPrepared,
     GLWETensorKeyPrepared,
 )
@@ -44,12 +51,13 @@ from poulpy_tpu_torch.hal.module import get_module
 CLASSES = {
     cls.__name__: cls
     for cls in (GLWESecret, GLWESecretPrepared, GLWECiphertext, GLWEPlaintext,
-                GGSWCiphertext, GGSWPrepared, GGLWEPrepared, LWECiphertext, LookupTable,
-                BlindRotationKeyPrepared, GLWETensorKeyPrepared, CKKSMeta, CKKSCiphertext,
-                CKKSPlaintext)
+                GGSWCiphertext, GGSWPrepared, GGLWECiphertext, GGLWEPrepared, LWECiphertext,
+                LookupTable, BlindRotationKeyPrepared, GLWETensorKeyPrepared,
+                GLWEAutomorphismKeyPrepared, CKKSMeta, CKKSCiphertext, CKKSPlaintext,
+                CKKSPlaintextVecRnx, CKKSPlaintextCstRnx, CKKSPlaintextCstZnx)
 }
 
-_ARRAY_FIELDS = ("data", "pmat", "pmats")
+_ARRAY_FIELDS = ("data", "pmat", "pmats", "coeffs")
 _KEYS = ("brk", "to_lwe", "lut")          # the keys of a BootstrapKeys
 
 

@@ -465,3 +465,156 @@ def test_cuda_wide_keyswitch_and_product_match_cpu(cuda):
             assert LAUNCHES["wide_product"] == before + 2
         outs.append((ks.data.cpu(), prod.data.cpu()))
     assert all(torch.equal(c, g) for c, g in zip(*outs))
+
+
+# --------------------------------------------------------------------------
+# The column split, the small64 exit and the rank-1 tensor kernel
+# --------------------------------------------------------------------------
+
+def test_column_split_and_tensor_shared_memory():
+    """The product kernels split output columns over blocks only where all
+    of co does not fit (the CKKS keyswitch and relinearization: KK 6, co 2,
+    psize 6, P 2, N 2048); the tensor kernel's workspace at the relinearize
+    path's shape."""
+    assert tfused.cols_per_block(6, 2, 4, 2, 2048) == 2          # the headline product
+    assert tfused.cols_per_block(2, 2, 3, 2, 1024) == 2          # the gate keyswitch
+    assert tfused.fused_smem_bytes(6, 2 * 6, 2, 2048) == 245760 > tfused.SMEM_LIMIT
+    assert tfused.cols_per_block(6, 2, 6, 2, 2048) == 1
+    assert tfused.fused_smem_bytes(6, 6, 2, 2048) == 147456
+    assert tfused.cols_per_block(6, 4, 3, 2, 2048) == 2
+    with pytest.raises(ValueError, match="one output column"):
+        tfused.cols_per_block(6, 2, 16, 8, 2048)
+    assert tfused.tensor_smem_bytes(6, 6, 11, 2048) == 196608
+    m = t_get_module(2048, 2, 28, "cpu")
+    assert tfused.tensor_fits(m, 6, 6, 11, 6) and not tfused.tensor_fits(m, 8, 8, 15, 6)
+    assert tfused.product_fits(m, 6, 6, 12, 11) and not tfused.product_fits(m, 6, 6, 12, 17)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nprimes,prime_bits,size_a,size_b,dnum,kr,ka,lim", [
+    (64, 2, 28, 3, 3, 4, 17, 17, 40),
+    (64, 2, 30, 2, 3, 3, 13, 17, 40),
+    (256, 3, 30, 4, 2, 5, 15, 17, 16),
+    (2048, 2, 28, 6, 6, 6, 17, 17, 16),   # the relinearize path (k 95, conv 11, dnum 6)
+])
+def test_cuda_tensor_product_matches_plain(cuda, n, nprimes, prime_bits, size_a, size_b, dnum,
+                                           kr, ka, lim):
+    m = t_get_module(n, nprimes, prime_bits, cuda)
+    rng = np.random.default_rng(29)
+    a = torch.from_numpy(rng.integers(-(2**lim), 2**lim, size=(5, 2, size_a, n))).to(cuda)
+    b = torch.from_numpy(rng.integers(-(2**lim), 2**lim, size=(5, 2, size_b, n))).to(cuda)
+    conv_size = size_a + size_b - 1
+    before = LAUNCHES["tensor_product"]
+    have = tfused.fused_tensor_product(m, a, b, conv_size, dnum, kr, ka)
+    torch.cuda.synchronize()
+    assert LAUNCHES["tensor_product"] == before + 1
+    want = tfused.fused_tensor_product_ref(m, a, b, conv_size, dnum, kr, ka)
+    assert torch.equal(have[0], want[0]) and torch.equal(have[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nprimes,prime_bits,rows,psize,s64,res_size,dsize", [
+    (256, 2, 28, 3, 4, 7, 8, 1),      # linear terms longer than the product
+    (256, 2, 30, 3, 4, 3, 5, 1),      # and shorter
+    (256, 3, 30, 4, 3, 6, 6, 2),      # dsize 2
+    (2048, 2, 28, 6, 6, 11, 12, 1),   # the relinearize path: two blocks per ciphertext
+])
+def test_cuda_fused_small64_matches_plain(cuda, n, nprimes, prime_bits, rows, psize, s64,
+                                          res_size, dsize):
+    m = t_get_module(n, nprimes, prime_bits, cuda)
+    rng = np.random.default_rng(30)
+    a = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(6, 1, rows * dsize, n))).to(cuda)
+    small64 = torch.from_numpy(rng.integers(-(2**47), 2**47, size=(6, 2, s64, n))).to(cuda)
+    pmat = torch.from_numpy(_residues(rng, m.basis.primes,
+                                      (rows, 1, 2, psize, nprimes, n))).to(cuda)
+    before = LAUNCHES["fused_product_small64"]
+    have = tfused.fused_glwe_product(m, a, pmat, res_size, 17, 17, dsize, small64=small64)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_product_small64"] == before + 1
+    want = tfused.fused_glwe_product_ref(m, a, pmat, res_size, 17, 17, dsize, small64=small64)
+    assert torch.equal(have, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["product", "small", "small64"])
+def test_cuda_fused_column_split_matches_plain(cuda, pattern):
+    """N 2048, P 2, KK 6, co 2, psize 6: all of co needs 245,760 B of shared
+    memory, so each output column takes a block of its own."""
+    m = t_get_module(2048, 2, 28, cuda)
+    rng = np.random.default_rng(31)
+    a = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(9, 1, 6, 2048))).to(cuda)
+    pmat = torch.from_numpy(_residues(rng, m.basis.primes, (6, 1, 2, 6, 2, 2048))).to(cuda)
+    kw = {}
+    if pattern == "small":
+        kw["small"] = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(9, 6, 2048))).to(cuda)
+    elif pattern == "small64":
+        kw["small64"] = torch.from_numpy(rng.integers(-(2**47), 2**47,
+                                                      size=(9, 2, 11, 2048))).to(cuda)
+    counter = {"product": "fused_product", "small": "fused_product_small",
+               "small64": "fused_product_small64"}[pattern]
+    before = LAUNCHES[counter]
+    have = tfused.fused_glwe_product(m, a, pmat, 6, 17, 17, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES[counter] == before + 1
+    assert torch.equal(have, tfused.fused_glwe_product_ref(m, a, pmat, 6, 17, 17, **kw))
+
+
+def _ckks_keys(device, n):
+    """The ckks configuration's secret, tensor key and automorphism keys (5
+    and −1) at degree n, and two encryptions of random slots (batch 3)."""
+    from poulpy_tpu_torch.ckks import ops as ck
+    from poulpy_tpu_torch.ckks.encoder import Encoder
+    from poulpy_tpu_torch.core import encryption as enc
+    from poulpy_tpu_torch.core.prepared import (
+        GLWEAutomorphismKeyPrepared,
+        gglwe_prepare,
+        glwe_secret_prepare,
+        glwe_tensor_key_prepare,
+    )
+    from poulpy_tpu_torch.hal.source import Source
+
+    m = t_get_module(n, 2, 28, device)
+    sk = enc.secret_new(m, 1, Source(bytes(32)))
+    skp = glwe_secret_prepare(m, sk)
+    xe, xa = Source(b"\x01" * 32), Source(b"\x02" * 32)
+    tsk = glwe_tensor_key_prepare(m, enc.glwe_tensor_key_encrypt_sk(m, sk, skp, 17, 95, 6, xe, xa))
+    atk = {}
+    for p in (m.galois_element(1), -1):
+        key, _ = enc.glwe_automorphism_key_encrypt_sk(m, p, sk, 17, 95, 6, xe, xa)
+        atk[p] = GLWEAutomorphismKeyPrepared(key=gglwe_prepare(m, key), p=p)
+    z = np.random.default_rng(32).normal(size=n // 2) + 0.25j
+    pt = ck.encode(Encoder(n), z, 17, 95, 22, 30, device=device)
+    cts = [ck.encrypt_sk(m, pt, skp, 95, xe, xa, batch_shape=(3,)) for _ in range(2)]
+    return m, tsk, atk, cts
+
+
+@pytest.mark.cuda
+def test_cuda_relinearize_and_rotations_match_cpu(cuda):
+    """glwe_tensor_relinearize (one tensor_product and one
+    fused_product_small64 launch), and CKKS rotate / conjugate and the
+    keyswitch under them (one fused_product_small launch each) at the ckks
+    configuration (key k 95, dnum 6) on N 2048, where the keyswitch's
+    product needs the column split, equal the port's CPU results (which
+    equal the JAX package's: tests/test_torch_relin.py,
+    tests/test_torch_automorphism.py)."""
+    from poulpy_tpu_torch.ckks import ops as ck
+    from poulpy_tpu_torch.core.keyswitching import glwe_keyswitch
+    from poulpy_tpu_torch.core.operations import glwe_tensor_relinearize
+
+    outs = []
+    for device in ("cpu", cuda):
+        m, tsk, atk, (c1, c2) = _ckks_keys(device, 2048)
+        before = dict(LAUNCHES)
+        res = [glwe_tensor_relinearize(m, c1.glwe, c2.glwe, tsk).data]
+        if device != "cpu":
+            torch.cuda.synchronize()
+            used = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+            assert used == {"tensor_product": 1, "fused_product_small64": 1}
+        for p, key in atk.items():
+            before = LAUNCHES["fused_product_small"]
+            res.append((ck.rotate if p != -1 else ck.conjugate)(m, c1, key).glwe.data)
+            res.append(glwe_keyswitch(m, c1.glwe, key.key).data)
+            if device != "cpu":
+                assert LAUNCHES["fused_product_small"] == before + 2
+        outs.append([r.cpu() for r in res])
+    assert all(torch.equal(c, g) for c, g in zip(*outs))

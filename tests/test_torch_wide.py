@@ -18,6 +18,7 @@ from poulpy_tpu.hal import dft as jdft
 from poulpy_tpu.hal import wide as jwide
 from poulpy_tpu.hal.module import get_module as j_get_module
 from poulpy_tpu_torch.backends import LAUNCHES
+from poulpy_tpu_torch.backends import fused as tfused
 from poulpy_tpu_torch.backends import wide as twb
 from poulpy_tpu_torch.hal import wide as twide
 from poulpy_tpu_torch.hal.module import get_module as t_get_module
@@ -214,9 +215,9 @@ def test_wide_wrappers_check_their_bounds():
         twb.fused_glwe_product_wide(tm, a[:, :1], torch.zeros(2, 1, 2, 3, 5, N, dtype=torch.int32),
                                     2, 61, 52)
     # the mul shape fits one output column per block, not two
-    assert twb.wide_cols_per_block(2, 2, 3, 5, 2048) == 1
-    assert twb.wide_cols_per_block(2, 2, 3, 5, 1024) == 2
-    assert twb.tensor_smem_bytes(2, 2, 3, 5, 2048) == 188416
+    assert tfused.cols_per_block(2, 2, 3, 5, 2048) == 1
+    assert tfused.cols_per_block(2, 2, 3, 5, 1024) == 2
+    assert twb.wide_tensor_smem_bytes(2, 2, 3, 5, 2048) == 188416
 
 
 # ---- the wide external product and keyswitch --------------------------------------
