@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven paths of the port run, each with the launch counters set to 0 just
+Eleven paths of the port run, each with the launch counters set to 0 just
 before it and read just after:
 
 - the product path, the headline operation of bench.py: a batched GLWE ×
@@ -28,9 +28,20 @@ before it and read just after:
 - the ckks_rotate path, on the same keys and ciphertexts with the
   automorphism keys of galois_element(1) and −1 (base2k 17, k 95, dnum 6):
   CKKS rotate and conjugate at batch 256, each one keyswitch through the
-  product kernel with the body add, its output columns split across blocks.
+  product kernel with the body add, its output columns split across blocks;
+- product_mxu and product_fused_mxu, on the product path's keys and batch:
+  the product through `route="mxu"` (four-step forward, VMP, four-step
+  inverse, Garner exit: four launches) and `route="fused_mxu"` (one fused
+  launch);
+- keyswitch_mxu and keyswitch_fused_mxu, on the keyswitch path's keys: the
+  keyswitch through the same two routes.
 
-Phases, each printing JSON lines:
+The seven paths before the MXU paths run as they would without them: the
+two set-ups the MXU paths reuse wait on the host meanwhile, and the MXU
+kernels' checks (3′, with their float64 plain versions and cuBLAS
+yardstick) come last.  Each set-up is freed after its last use.
+
+Phases, each printing JSON lines, in this order (3′ last):
 
   1. device      card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build       nvcc build of the kernels of csrc/ (sm_90a);
@@ -38,10 +49,16 @@ Phases, each printing JSON lines:
                  CUDA inputs at its path's shapes, tolerance 0, with its time,
                  the plain version's time and the bound (the least time the
                  card could take: bytes over 3.35 TB/s or modular products
-                 over the int32 rate, the larger; the wide kernels at the
+                 over the int32 rate or int8 multiply-adds over the tensor
+                 cores' int8 rate, the largest; the wide kernels at the
                  wide CKKS mul's shapes, the tensor kernel and the small64
                  and small products at the relinearize and ckks_rotate
                  paths' shapes, batch 256);
+  3′. kernels    the same for the MXU route's kernels, after the last path: at
+                 the product path's shapes, and the fused MXU product with
+                 the body at the keyswitch path's, batch 256, each with the
+                 time of torch._int_mm on its step-B-shaped digit product as
+                 a library yardstick of the product part alone;
   4. verify      product path: stage by stage (NTT → VMP → inverse NTT
                  kernels, plain Garner and normalize) equals the fused kernel
                  at batch 64, and the fused result decrypts to X·m exactly;
@@ -84,9 +101,20 @@ Phases, each printing JSON lines:
                  and CONJUGATE_FINGERPRINT of row 0, every row equal, the
                  decode error against np.roll(z, −1) and conj(z); then 5 timed
                  rotations on distinct batches, ending in a host checksum; then
-                 a profiled one.
+                 a profiled one;
+ 13. verify_<route>, bench_<route> (product_mxu, product_fused_mxu): bench.py's
+                 MXU A/B gate on phase 4's batch of 64 (the route equals the
+                 butterfly fused kernel bit for bit and decrypts to X·m), then
+                 phase 5's 1 + 30 chained products at B = 16384 on its keys
+                 and batch through the route (checksum 6596757198292), then a
+                 profiled product;
+ 14. keyswitch_<route> (keyswitch_mxu, keyswitch_fused_mxu): on phase 8's
+                 keys, the route equals the butterfly route at batch 8 and
+                 decrypts exactly; 1 + 10 chained keyswitches at batch 256,
+                 whose checksum equals the butterfly route's.
 
-Then one line {"kernels": [...]} (launches summed over the paths' runs)
+Only the four *_mxu paths may launch an MXU kernel.  Then one line
+{"kernels": [...]} (launches summed over the paths' runs)
 and, last, {"ok": true, "device": {...}}.  Any failure exits non-zero
 before that line.  Without a CUDA device, or without the poulpy_tpu_torch
 package beside this file, it exits non-zero and prints no result.
@@ -164,9 +192,14 @@ WIDE_OFFSET = 13
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 # int32 multiply rate of an H100 SXM: 132 SMs × 64 int32 lanes × 1.98 GHz
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int8 multiply-adds of the H100 SXM's tensor cores: 1,979 T dense int8 ops/s
+INT8_MACS_PER_S = 1979e12 / 2
+# the MXU routes of the product and keyswitch paths (core route keyword)
+ROUTES = ("mxu", "fused_mxu")
 
 _FUSED = "poulpy_tpu/backends/pallas_fused.py:951"
 _WIDE = "poulpy_tpu/backends/pallas_wide.py"
+_FUSED_MXU = "poulpy_tpu/backends/pallas_fused_mxu.py:271"
 KERNELS = {
     "ntt_forward": ("poulpy_tpu_torch/csrc/ntt.cu", "poulpy_tpu/backends/pallas_ntt.py:407"),
     "ntt_inverse": ("poulpy_tpu_torch/csrc/ntt.cu", "poulpy_tpu/backends/pallas_ntt.py:407"),
@@ -179,7 +212,14 @@ KERNELS = {
                        "poulpy_tpu/backends/pallas_fused.py:1403"),
     "wide_product": ("poulpy_tpu_torch/csrc/wide_product.cu", f"{_WIDE}:496"),
     "wide_tensor": ("poulpy_tpu_torch/csrc/wide_tensor.cu", f"{_WIDE}:718"),
+    "mxu_forward": ("poulpy_tpu_torch/csrc/mxu_ntt.cu", "poulpy_tpu/backends/pallas_mxu.py:268"),
+    "mxu_inverse": ("poulpy_tpu_torch/csrc/mxu_ntt.cu", "poulpy_tpu/backends/pallas_mxu.py:311"),
+    "garner_exit": ("poulpy_tpu_torch/csrc/garner_exit.cu", "poulpy_tpu/backends/pallas_fused.py:1030"),
+    "fused_mxu_product": ("poulpy_tpu_torch/csrc/fused_mxu.cu", _FUSED_MXU),
+    "fused_mxu_product_small": ("poulpy_tpu_torch/csrc/fused_mxu.cu", _FUSED_MXU),
 }
+MXU_KERNELS = ("mxu_forward", "mxu_inverse", "garner_exit", "fused_mxu_product",
+               "fused_mxu_product_small")
 # the kernels each path must launch
 PATHS = {
     "product": ("ntt_forward", "ntt_inverse", "vmp", "fused_product"),
@@ -189,6 +229,11 @@ PATHS = {
     "ckks": ("ntt_forward", "ntt_inverse", "vmp"),
     "relinearize": ("tensor_product", "fused_product_small64"),
     "ckks_rotate": ("ntt_forward", "fused_product_small"),
+    "product_mxu": ("fused_product", "mxu_forward", "vmp", "mxu_inverse", "garner_exit"),
+    "product_fused_mxu": ("fused_product", "fused_mxu_product"),
+    "keyswitch_mxu": ("fused_product_small", "mxu_forward", "vmp", "mxu_inverse",
+                      "garner_exit"),
+    "keyswitch_fused_mxu": ("fused_product_small", "fused_mxu_product_small"),
 }
 
 
@@ -218,13 +263,61 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def moved(obj, device):
+    """`obj` with every tensor in it (through tuples and the port's frozen
+    dataclasses) on `device`; anything else as it is."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, tuple):
+        return tuple(moved(o, device) for o in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: moved(getattr(obj, f.name), device)
+                                           for f in dataclasses.fields(obj)})
+    return obj
+
+
+def bound(nbytes: float, ops: float, macs: float = 0) -> dict:
     """The least time the card could take: bytes read once and written once
-    over the memory rate, or modular products over the int32 multiply rate
-    (each needs at least one 32-bit multiply), whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    over the memory rate, modular products over the int32 multiply rate
+    (each needs at least one 32-bit multiply), or int8 multiply-adds over the
+    tensor cores' int8 rate, whichever is largest."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(ops / INT32_OPS_PER_S, macs / INT8_MACS_PER_S) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, ops=ops)
+                bytes=nbytes, ops=ops, int8_macs=macs)
+
+
+def split(n: int) -> tuple[int, int]:
+    """The four-step split (n1, n2) of the MXU transforms."""
+    n1 = min(128, max(2, n // 8))
+    return n1, n // n1
+
+
+def mxu_macs(rows: int, P: int, n: int, nd: int = 4) -> int:
+    """int8 multiply-adds of the four-step transform of `rows` rows over P
+    primes: step A [n1, nd·n2] × [nd·n2, 4·n2] and step B [n2, 4·n1] ×
+    [4·n1, 4·n1] (the inverse: the same two shapes with nd 4)."""
+    n1, n2 = split(n)
+    return rows * P * (n1 * nd * n2 * 4 * n2 + n2 * 16 * n1 * n1)
+
+
+def int_mm_ms(rows: int, n: int, device) -> float:
+    """The library yardstick of the MXU kernels: one torch._int_mm of a
+    [rows, 4·n1] int8 operand by a [4·n1, 4·n1] int8 matrix (the step-B digit
+    product alone, without the digit planes, the epilogues or the VMP)."""
+    import torch
+
+    k = 4 * split(n)[0]
+    a = torch.randint(-128, 128, (rows, k), dtype=torch.int8, device=device)
+    w = torch.randint(-128, 128, (k, k), dtype=torch.int8, device=device)
+    ms = cuda_ms(lambda: torch._int_mm(a, w), 5)
+    del a, w
+    torch.cuda.empty_cache()
+    return ms
 
 
 def ntt_ops(rows: int, n: int, inverse: bool = False) -> int:
@@ -283,6 +376,35 @@ def tensor_ops(B: int, P: int, n: int, size_a: int, size_b: int) -> int:
     conv = size_a + size_b - 1
     return B * P * (ntt_ops(2 * (size_a + size_b), n) + 4 * size_a * size_b * n
                     + ntt_ops(3 * conv, n, True))
+
+
+def check_kernels(cases: dict) -> dict:
+    """Run each case (kernel, plain version, bound[, rows of its step-B digit
+    product]) once and compare, tolerance 0; time the kernel (5 launches),
+    the plain version (1 run) and the torch._int_mm yardstick where given;
+    emit one line per case and return their numbers."""
+    import torch
+
+    out = {}
+    for name, (kernel, plain, bnd, *gemm_rows) in cases.items():
+        have, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if isinstance(have, tuple):                 # the tensor step's (d, lin)
+            have, want = (torch.cat([x.flatten() for x in t]) for t in (have, want))
+        err = int((have.to(torch.int64) - want.to(torch.int64)).abs().max())
+        equal = bool(torch.equal(have, want))
+        shape = list(have.shape)
+        ms, plain_ms = cuda_ms(kernel, 5), cuda_ms(plain, 1)
+        library_ms = int_mm_ms(gemm_rows[0], N, torch.device("cuda")) if gemm_rows else None
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
+                         bound_by=bnd["bound_by"], library_ms=library_ms)
+        emit(phase="kernels", kernel=name, shape=shape, equal=equal, tolerance=0,
+             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bnd,
+             share_of_bound=bnd["bound_ms"] / ms)
+        if not equal:
+            raise SystemExit(f"kernel {name} disagrees with its plain version")
+        del have, want
+    return out
 
 
 def phase_kernels(m, gm, wm) -> dict:
@@ -408,34 +530,100 @@ def phase_kernels(m, gm, wm) -> dict:
             bound((rot_a.numel() + rot_body.numel() + rb * 2 * 6 * N) * i64
                   + rkey.numel() * i32, fused_ops(rb, 6, 12, kp, N))),
     }
-    out = {}
-    for name, (kernel, plain, bnd) in cases.items():
-        have, want = kernel(), plain()
-        torch.cuda.synchronize()
-        if isinstance(have, tuple):                 # the tensor step's (d, lin)
-            have, want = (torch.cat([x.flatten() for x in t]) for t in (have, want))
-        err = int((have.to(torch.int64) - want.to(torch.int64)).abs().max())
-        equal = bool(torch.equal(have, want))
-        ms, plain_ms = cuda_ms(kernel, 5), cuda_ms(plain, 1)
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
-                         bound_by=bnd["bound_by"], library_ms=None)
-        emit(phase="kernels", kernel=name, shape=list(have.shape), equal=equal, tolerance=0,
-             max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd,
-             share_of_bound=bnd["bound_ms"] / ms)
-        if not equal:
-            raise SystemExit(f"kernel {name} disagrees with its plain version")
-        del have, want
-    return out
+    return check_kernels(cases)
 
 
-def phase_verify(m) -> None:
-    """bench.py verify_on_device: stage by stage equals fused; decrypt exact."""
+def phase_kernels_mxu(m, km) -> dict:
+    """The MXU route's kernels against their plain versions: the product
+    path's shapes on `m` and the fused product with the body at the keyswitch
+    path's on `km` (inputs of their own, freed before the paths run)."""
+    import torch
+
+    from poulpy_tpu_torch.backends import fused, fused_mxu, mxu
+
+    gen = torch.Generator(device=m.device).manual_seed(6)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=m.device, dtype=torch.int64)
+
+    def residues(mod, shape):
+        primes = torch.tensor(mod.basis.primes, device=mod.device)[:, None]
+        return (ints(0, 1 << 62, shape) % primes).to(torch.int32)
+
+    t = m.tables
+    a = ints(-(2**16), 2**16, (BATCH, 2, 3, N))
+    pmat = residues(m, (DNUM, 2, 2, 4, NPRIMES, N))
+    # the MXU route of the product path (B 16384): the forward of the 6 input
+    # rows of each ciphertext with 3 digit planes (a), the inverse of its 8
+    # output rows, the exit of its [co 2, psize 4] residues, the fused MXU
+    # product; and the fused MXU product with the body at the keyswitch
+    # path's shape (30-bit basis, mask [ci 1, 3 limbs] × [3, 1, 2, psize 4],
+    # body 3 limbs, batch KS_BATCH)
+    kp = km.nprimes
+    y_mxu = residues(m, (BATCH * 8, NPRIMES, N))
+    x_exit = residues(m, (BATCH, 2, 4, NPRIMES, N))
+    ks_mask = ints(-(2**16), 2**16, (KS_BATCH, 1, 3, N))
+    ks_body3 = ints(-(2**16), 2**16, (KS_BATCH, 3, N))
+    ks_key = residues(km, (KS_DNUM, 1, 2, 4, kp, N))
+    n2 = split(N)[1]
+    garner_products = NPRIMES * (NPRIMES - 1) // 2 + NPRIMES - 1   # per limb
+    i32, i64 = 4, 8
+    return check_kernels({
+        "mxu_forward": (
+            lambda: mxu.mxu4_forward_limbs(t, a, 3),
+            lambda: chunked(lambda c: mxu.mxu4_forward_limbs_ref(t, c, 3), a),
+            bound(a.numel() * (i64 + NPRIMES * i32), a.numel() * NPRIMES,
+                  mxu_macs(BATCH * 6, NPRIMES, N, 3)),
+            BATCH * 6 * NPRIMES * n2),
+        "mxu_inverse": (
+            lambda: mxu.mxu4_inverse(t, y_mxu),
+            lambda: chunked(lambda c: mxu.mxu4_inverse_ref(t, c), y_mxu),
+            bound(2 * y_mxu.numel() * i32, y_mxu.numel(), mxu_macs(BATCH * 8, NPRIMES, N)),
+            BATCH * 8 * NPRIMES * n2),
+        "garner_exit": (
+            lambda: fused.garner_exit(m, x_exit, 4, 3, BASE2K, BASE2K),
+            lambda: chunked(lambda c: fused.garner_exit_ref(m, c, 4, 3, BASE2K, BASE2K), x_exit),
+            bound(x_exit.numel() * i32 + BATCH * 2 * 3 * N * i64, BATCH * 2 * 4 * N * garner_products)),
+        "fused_mxu_product": (
+            lambda: fused_mxu.fused_mxu_glwe_product(m, a, pmat, 3, BASE2K, BASE2K),
+            lambda: chunked(lambda c: fused_mxu.fused_mxu_glwe_product_ref(m, c, pmat, 3, BASE2K,
+                                                                           BASE2K), a),
+            bound(2 * a.numel() * i64 + pmat[:3].numel() * i32,
+                  BATCH * NPRIMES * (6 * 8 + 6 + 8) * N,
+                  mxu_macs(BATCH * 6, NPRIMES, N) + mxu_macs(BATCH * 8, NPRIMES, N)),
+            BATCH * (6 + 8) * NPRIMES * n2),
+        "fused_mxu_product_small": (
+            lambda: fused_mxu.fused_mxu_glwe_product(km, ks_mask, ks_key, 3, BASE2K, BASE2K,
+                                                     small=ks_body3),
+            lambda: fused_mxu.fused_mxu_glwe_product_ref(km, ks_mask, ks_key, 3, BASE2K, BASE2K,
+                                                         small=ks_body3),
+            bound((ks_mask.numel() + ks_body3.numel() + KS_BATCH * 2 * 3 * N) * i64
+                  + ks_key.numel() * i32, KS_BATCH * kp * (3 * 8 + 3 + 8) * N,
+                  mxu_macs(KS_BATCH * 3, kp, N) + mxu_macs(KS_BATCH * 8, kp, N)),
+            KS_BATCH * (3 + 8) * kp * n2),
+    })
+
+
+def decrypts_to_x_m(m, skp, data, out) -> bool:
+    """The product by the GGSW of X decrypts to X·m exactly."""
+    import torch
+
+    from poulpy_tpu_torch.core.decryption import glwe_decrypt
+    from poulpy_tpu_torch.core.layouts import GLWECiphertext
+    from poulpy_tpu_torch.hal import vec_znx, znx
+
+    ptd = glwe_decrypt(m, GLWECiphertext(data=out, base2k=BASE2K, k=K_CT), skp)
+    got = vec_znx.decode_vec_i64(BASE2K, K_PT, ptd.data)
+    return bool(torch.equal(got, znx.znx_rotate(1, data)))
+
+
+def phase_verify(m) -> tuple:
+    """bench.py verify_on_device: stage by stage equals fused; decrypt exact.
+    Returns the set-up (secret, data, ciphertexts, GGSW) for the MXU gates."""
     import torch
 
     from poulpy_tpu_torch.backends.fused import fused_glwe_product
-    from poulpy_tpu_torch.core.decryption import glwe_decrypt
-    from poulpy_tpu_torch.core.layouts import GLWECiphertext
-    from poulpy_tpu_torch.hal import dft, vec_znx, znx
+    from poulpy_tpu_torch.hal import dft
 
     skp, data, ct, ggswp = keys_and_ciphertexts(m, VERIFY_BATCH, seed=7)
     res_size = ct.data.shape[-2]
@@ -444,43 +632,74 @@ def phase_verify(m) -> None:
     want = dft.big_normalize(m, res_size, BASE2K, big, BASE2K)
     have = fused_glwe_product(m, ct.data, ggswp.pmat, res_size, BASE2K, BASE2K)
     exact = bool(torch.equal(have, want))
-    ptd = glwe_decrypt(m, GLWECiphertext(data=have, base2k=BASE2K, k=K_CT), skp)
-    got = vec_znx.decode_vec_i64(BASE2K, K_PT, ptd.data)
-    dec_ok = bool(torch.equal(got, znx.znx_rotate(1, data)))
+    dec_ok = decrypts_to_x_m(m, skp, data, have)
     emit(phase="verify", fused_vs_stages_bit_exact=exact, decrypt_exact=dec_ok,
          batch=VERIFY_BATCH)
     if not (exact and dec_ok):
         raise SystemExit("verify failed")
+    return skp, data, ct, ggswp
 
 
-def phase_bench(m) -> None:
-    """bench.py main(): 1 warm-up + 30 timed chained products at B = 16384."""
+def phase_route_verify(m, setup, route: str) -> None:
+    """bench.py's MXU A/B gate at VERIFY_BATCH: the route's product equals the
+    butterfly fused kernel's bit for bit and decrypts to X·m."""
+    import torch
+
+    from poulpy_tpu_torch.backends.fused import fused_glwe_product
+    from poulpy_tpu_torch.core.external_product import glwe_external_product
+
+    skp, data, ct, ggswp = setup
+    want = fused_glwe_product(m, ct.data, ggswp.pmat, ct.data.shape[-2], BASE2K, BASE2K)
+    have = glwe_external_product(m, ct, ggswp, route=route).data
+    exact = bool(torch.equal(have, want))
+    dec_ok = decrypts_to_x_m(m, skp, data, have)
+    emit(phase=f"verify_{route}", route=route, route_vs_fused_bit_exact=exact,
+         decrypt_exact=dec_ok, batch=VERIFY_BATCH)
+    if not (exact and dec_ok):
+        raise SystemExit(f"the {route} route's A/B gate failed")
+
+
+def chain_bench(m, ct, ggswp, route: str, phase: str, profile: bool) -> None:
+    """1 warm-up + ITERS timed chained products through `route`, ending in
+    the checksum; with `profile`, one more product under torch.profiler."""
     import torch
 
     from poulpy_tpu_torch.core.external_product import glwe_external_product
 
-    t0 = time.perf_counter()
-    _, _, ct, ggswp = keys_and_ciphertexts(m, BATCH, seed=0)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    emit(phase="setup", batch=BATCH, keygen_encrypt_prepare_s=setup_s)
-
     def checksum(c):
         return int((c.data.abs() % 65536).sum())
 
-    out = glwe_external_product(m, ct, ggswp)
+    out = glwe_external_product(m, ct, ggswp, route=route)
     checksum(out)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(ITERS):
-        out = glwe_external_product(m, out, ggswp)
+        out = glwe_external_product(m, out, ggswp, route=route)
     value = checksum(out)
     dt = time.perf_counter() - t0
-    emit(phase="bench", batch=BATCH, iters=ITERS, products_per_s=BATCH * ITERS / dt,
+    emit(phase=phase, route=route, batch=BATCH, iters=ITERS, products_per_s=BATCH * ITERS / dt,
          ms_per_iter=dt / ITERS * 1e3, checksum=value, checksum_expected=CHECKSUM,
          shape=list(out.data.shape), peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     if value != CHECKSUM:
-        raise SystemExit(f"checksum {value} != {CHECKSUM}")
+        raise SystemExit(f"{phase}: checksum {value} != {CHECKSUM}")
+    if profile:
+        profile_once(f"{phase}_profile", lambda: glwe_external_product(m, out, ggswp, route=route),
+                     dt / ITERS * 1e3)
+
+
+def phase_bench(m) -> tuple:
+    """bench.py main(): 1 warm-up + 30 timed chained products at B = 16384.
+    Returns the batch and the GGSW for the MXU routes' runs."""
+    import torch
+
+    t0 = time.perf_counter()
+    ct, ggswp = keys_and_ciphertexts(m, BATCH, seed=0)[2:]   # the 256 MiB of messages go
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    emit(phase="setup", batch=BATCH, keygen_encrypt_prepare_s=setup_s,
+         allocated_gib=torch.cuda.memory_allocated() / 2**30)
+    chain_bench(m, ct, ggswp, "fused", "bench", profile=False)
+    return ct, ggswp
 
 
 def gate_setup(params, batch: int, device):
@@ -599,41 +818,64 @@ def profile_once(phase: str, fn, timed_ms: float) -> None:
     kernels that take it.  The profiler's host-side tracing lengthens the
     wall time of a call made of many small launches, so the busy time is
     also given as a share of `timed_ms`, the same call's time in the
-    unprofiled timed loop."""
+    unprofiled timed loop.  The trace now and then lacks some of the step's
+    kernels; it is taken again (3 tries at most) until it holds one event
+    per csrc/ kernel launched in the step."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            prof.step()
-    device = {}                                   # kernel or copy name → [ms, count]
-    for e in prof.events():
-        # the schedule's ProfilerStep range spans the step: not device work
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.name.startswith("ProfilerStep")):
-            entry = device.setdefault(e.name, [0.0, 0])
-            entry[0] += e.time_range.elapsed_us() / 1e3
-            entry[1] += 1
+    from poulpy_tpu_torch.backends import LAUNCHES
+
+    for attempt in range(1, 4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                launched = sum(LAUNCHES.values())
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                launched = sum(LAUNCHES.values()) - launched
+                prof.step()
+        device = {}                               # kernel or copy name → [ms, count]
+        for e in prof.events():
+            # the schedule's ProfilerStep range spans the step: not device work
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.name.startswith("ProfilerStep")):
+                entry = device.setdefault(e.name, [0.0, 0])
+                entry[0] += e.time_range.elapsed_us() / 1e3
+                entry[1] += 1
+        # the kernels of csrc/ (each in an anonymous namespace) against torch's own (a
+        # template kernel's name starts with its return type: "void (anonymous namespace)::…")
+        csrc = [v for k, v in device.items() if "(anonymous namespace)::" in k]
+        if sum(c for _, c in csrc) >= launched:
+            break
     busy_ms = sum(ms for ms, _ in device.values())
-    # the kernels of csrc/ (each in an anonymous namespace) against torch's own
-    csrc_ms = sum(ms for k, (ms, _) in device.items() if k.startswith("(anonymous namespace)::"))
     top = sorted(device.items(), key=lambda kv: -kv[1][0])[:6]
     emit(phase=phase, wall_ms=wall_ms, device_busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
-         timed_ms=timed_ms, busy_share_of_timed=busy_ms / timed_ms, csrc_kernels_ms=csrc_ms,
+         timed_ms=timed_ms, busy_share_of_timed=busy_ms / timed_ms,
+         csrc_kernels_ms=sum(ms for ms, _ in csrc), csrc_launches=launched,
+         csrc_events=sum(c for _, c in csrc), tries=attempt,
          device_events=sum(c for _, c in device.values()),
          top=[dict(name=k[:90], device_ms=ms, count=c) for k, (ms, c) in top])
 
 
-def phase_keyswitch(device, n: int) -> None:
+def ks_chain(m, c, ksk, count: int, route: str = "fused") -> int:
+    """`count` chained keyswitches through `route`, then a host-materialized
+    checksum."""
+    from poulpy_tpu_torch.core.keyswitching import glwe_keyswitch
+
+    for _ in range(count):
+        c = glwe_keyswitch(m, c, ksk, route=route)
+    return int((c.data.abs() % 65536).sum())
+
+
+def phase_keyswitch(device, n: int) -> tuple:
     """bench_full.py's keyswitch at its configuration: the kernel against the
     plain keyswitch at batch 8 (and an exact decrypt), chained single
-    keyswitches, chained batched keyswitches."""
+    keyswitches, chained batched keyswitches.  Returns the set-up for the MXU
+    routes' runs."""
     import numpy as np
     import torch
 
@@ -671,9 +913,7 @@ def phase_keyswitch(device, n: int) -> None:
     dec_ok = bool(torch.equal(got.cpu(), torch.from_numpy(data)))
 
     def chain(c, count):
-        for _ in range(count):
-            c = glwe_keyswitch(m, c, ksk)
-        return int((c.data.abs() % 65536).sum())   # host-materialized
+        return ks_chain(m, c, ksk, count)
 
     single = encrypt(np.random.default_rng(0).integers(-(2**15), 2**15, n))
     chain(single, 1)
@@ -693,6 +933,34 @@ def phase_keyswitch(device, n: int) -> None:
          single_ms=lat, batch=KS_BATCH, iters=KS_ITERS, cts_per_s=KS_BATCH * KS_ITERS / dt)
     if not (exact and dec_ok):
         raise SystemExit("keyswitch verify failed")
+    return m, ksk, sk2p, data, ct, batched
+
+
+def phase_keyswitch_route(setup, route: str) -> None:
+    """The keyswitch path through `route`: equal to the butterfly route at
+    batch KS_VERIFY_BATCH (and an exact decrypt), then 1 + KS_ITERS chained
+    keyswitches at batch KS_BATCH."""
+    import torch
+
+    from poulpy_tpu_torch.core.decryption import glwe_decrypt
+    from poulpy_tpu_torch.core.keyswitching import glwe_keyswitch
+    from poulpy_tpu_torch.hal import vec_znx
+
+    m, ksk, sk2p, data, ct, batched = setup
+    have = glwe_keyswitch(m, ct, ksk, route=route)
+    exact = bool(torch.equal(have.data, glwe_keyswitch(m, ct, ksk).data))
+    got = vec_znx.decode_vec_i64(BASE2K, K_PT, glwe_decrypt(m, have, sk2p).data)
+    dec_ok = bool(torch.equal(got.cpu(), torch.from_numpy(data)))
+    ks_chain(m, batched, ksk, 1, route)
+    t0 = time.perf_counter()
+    value = ks_chain(m, batched, ksk, KS_ITERS, route)
+    dt = time.perf_counter() - t0
+    want = ks_chain(m, batched, ksk, KS_ITERS)
+    emit(phase=f"keyswitch_{route}", route=route, route_vs_fused_bit_exact=exact,
+         decrypt_exact=dec_ok, verify_batch=KS_VERIFY_BATCH, batch=KS_BATCH, iters=KS_ITERS,
+         cts_per_s=KS_BATCH * KS_ITERS / dt, checksum=value, checksum_fused=want)
+    if not (exact and dec_ok and value == want):
+        raise SystemExit(f"keyswitch through the {route} route failed")
 
 
 def ckks_setup(cfg: CkksConfig, batch: int, iters: int, device):
@@ -992,12 +1260,19 @@ def main() -> int:
     timings = phase_kernels(m, gm, wm)
     torch.cuda.empty_cache()
 
-    shared = {}                                   # the ckks path's set-up, for the two after it
+    shared = {}     # set-ups of the product, keyswitch and ckks paths, for the paths after them
+
+    def on_card(key: str):
+        shared[key] = moved(shared[key], m.device)
+        return shared[key]
+
     runs = {
-        "product": lambda: (phase_verify(m), phase_bench(m)),
+        # the verify set-up waits on the host while the bench runs
+        "product": lambda: shared.update(verify=moved(phase_verify(m), torch.device("cpu")),
+                                         bench=phase_bench(m)),
         "gate": lambda: run_gate_path(m.device, GATE_N_LWE, GATE_BATCH, GATE_VERIFY_BATCH,
                                       STD_N_LWE, GATE_ITERS, GATE_FINGERPRINT),
-        "keyswitch": lambda: phase_keyswitch(m.device, KS_N),
+        "keyswitch": lambda: shared.update(keyswitch=phase_keyswitch(m.device, KS_N)),
         "ckks_wide": lambda: run_ckks_path("ckks_wide", CKKS_WIDE, m.device, CKKS_BATCH,
                                            CKKS_ITERS, CKKS_WIDE_FINGERPRINT),
         "ckks": lambda: shared.update(ckks=run_ckks_path("ckks", CKKS, m.device, CKKS_BATCH,
@@ -1007,7 +1282,18 @@ def main() -> int:
         "ckks_rotate": lambda: run_rotate_path(shared["ckks"], CKKS_BATCH, CKKS_ITERS,
                                                {"rotate": ROTATE_FINGERPRINT,
                                                 "conjugate": CONJUGATE_FINGERPRINT}),
+        **{f"product_{route}": lambda route=route: (
+            phase_route_verify(m, on_card("verify"), route),
+            chain_bench(m, *on_card("bench"), route, f"bench_{route}", profile=True))
+           for route in ROUTES},
+        **{f"keyswitch_{route}": lambda route=route: phase_keyswitch_route(
+            on_card("keyswitch"), route) for route in ROUTES},
     }
+    # after each path: the set-ups it parks on the host until the MXU paths,
+    # and those it leaves behind for the last time
+    park = {"product": ("bench",), "keyswitch": ("keyswitch",)}
+    last_use = {f"product_{ROUTES[-1]}": ("verify", "bench"),
+                f"keyswitch_{ROUTES[-1]}": ("keyswitch",), "ckks_rotate": ("ckks",)}
     launches = dict.fromkeys(LAUNCHES, 0)
     for path, run in runs.items():
         reset_launches()
@@ -1017,9 +1303,18 @@ def main() -> int:
         missing = [k for k in PATHS[path] if counts[k] == 0]
         if missing:
             raise SystemExit(f"the {path} path never launched: {missing}")
+        stray = [k for k in MXU_KERNELS if counts[k] and not path.endswith("mxu")]
+        if stray:
+            raise SystemExit(f"the {path} path launched the MXU route's {stray}")
         for k, v in counts.items():
             launches[k] += v
+        for key in park.get(path, ()):
+            shared[key] = moved(shared[key], torch.device("cpu"))
+        for key in last_use.get(path, ()):
+            del shared[key]
         torch.cuda.empty_cache()
+    # the keyswitch path's basis (30-bit primes)
+    timings.update(phase_kernels_mxu(m, get_module(KS_N, 2, device="cuda")))
     if not all(launches.values()):
         raise SystemExit(f"kernels never launched: {[k for k, v in launches.items() if not v]}")
 

@@ -35,6 +35,10 @@ _SIGNATURES = {
     "poulpy_wide_product": [_P] * 6 + [_I] * 15 + [_P],
     "poulpy_wide_tensor": [_P] * 6 + [_I] * 12 + [_P],
     "poulpy_tensor_product": [_P] * 7 + [_I] * 10 + [_P],
+    "poulpy_mxu_forward": [_P] * 6 + [_I] * 6 + [_P],
+    "poulpy_mxu_inverse": [_P] * 6 + [_I] * 5 + [_P],
+    "poulpy_garner_exit": [_P] * 4 + [_I] * 9 + [_P],
+    "poulpy_fused_mxu_product": [_P] * 11 + [_I] * 15 + [_P],
 }
 
 build_info: dict = {}

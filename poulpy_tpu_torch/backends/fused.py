@@ -1,5 +1,6 @@
 """Fused product kernels (`csrc/fused_product.cu`, `csrc/br_block_step.cu`,
-`csrc/tensor_product.cu`) and their plain PyTorch twins.
+`csrc/tensor_product.cu`), the standalone exit (`csrc/garner_exit.cu`) and
+their plain PyTorch twins.
 
 Replace four call patterns of `poulpy_tpu/backends/pallas_fused.py`
 (`_pipe_fn` → `_kernel_pipe`, and `_tensor_fn` → `_kernel_tensor`):
@@ -17,7 +18,10 @@ Replace four call patterns of `poulpy_tpu/backends/pallas_fused.py`
   `fused_br_block_step`,
       acc ← normalize(acc + idft(Σ_i NTT(X^{a_i} − 1) · (dft(acc) ⊡ BRK_i)));
 - the rank-1 tensor product: `fused_tensor_product`, the quadratic term's
-  gadget digits and the raw 64-bit linear terms that feed `small64`.
+  gadget digits and the raw 64-bit linear terms that feed `small64`;
+
+and `_kernel_b_fn` → `_kernel_b`, the exit of the "mxu" route on its own:
+`garner_exit`, coefficient residues → Garner lift → + small → normalize.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA one.  The plain versions (`*_ref`) are built from plain
@@ -137,15 +141,24 @@ def fused_smem_bytes(kk: int, mrows: int, nprimes: int, n: int) -> int:
     return 4 * n * (kk + nprimes * mrows)
 
 
-def cols_per_block(kk: int, co: int, psize: int, nprimes: int, n: int) -> int:
+def cols_per_block(kk: int, co: int, psize: int, nprimes: int, n: int,
+                   smem_bytes=fused_smem_bytes) -> int:
     """The most output columns one block of the product kernels can hold (a
-    divisor of co), so that its rows fit in shared memory; raises if one
-    column does not fit."""
+    divisor of co), so that its rows fit in shared memory by `smem_bytes(kk,
+    mrows, nprimes, n)`; raises if one column does not fit."""
     for cpb in range(co, 0, -1):
-        if co % cpb == 0 and fused_smem_bytes(kk, cpb * psize, nprimes, n) <= SMEM_LIMIT:
+        if co % cpb == 0 and smem_bytes(kk, cpb * psize, nprimes, n) <= SMEM_LIMIT:
             return cpb
-    raise ValueError(f"one output column needs {fused_smem_bytes(kk, psize, nprimes, n)} B "
+    raise ValueError(f"one output column needs {smem_bytes(kk, psize, nprimes, n)} B "
                      f"of shared memory > {SMEM_LIMIT}")
+
+
+def fused_supported(psize: int, res_base2k: int) -> bool:
+    """The JAX package's condition for its fused (non-wide) product kernels
+    (`pallas_fused.fused_supported`): the i32 window arithmetic of their
+    exit.  The port's kernels take any such shape; the MXU routes ask it as
+    the JAX package does."""
+    return res_base2k + (psize + 1).bit_length() <= 31 and res_base2k <= 26
 
 
 def _check_bounds(P: int, psize: int, res_size: int, smem: int) -> None:
@@ -154,6 +167,19 @@ def _check_bounds(P: int, psize: int, res_size: int, smem: int) -> None:
         raise ValueError(f"kernel bounds: P ≤ {MAX_PRIMES}, psize and res_size ≤ {MAX_LIMBS}")
     if smem > SMEM_LIMIT:
         raise ValueError(f"kernel needs {smem} B of shared memory > {SMEM_LIMIT}")
+
+
+def _body(small, lead, B: int, n: int):
+    """The body `small` [*lead, s_size, N] int64 as the kernels take it:
+    (contiguous [B, s_size, N] or None, s_size, its pointer or None)."""
+    if small is None:
+        return None, 0, None
+    s_size = small.shape[-2]
+    if tuple(small.shape) != tuple(lead) + (s_size, n):
+        raise ValueError(f"small: expected {tuple(lead) + (s_size, n)}, got {tuple(small.shape)}")
+    small = small.reshape(B, s_size, n).contiguous()
+    _lib.require(small, "small", torch.int64)
+    return small, s_size, small.data_ptr()
 
 
 def product_fits(module: Module, kk: int, psize: int, res_size: int, ext: int) -> bool:
@@ -196,14 +222,8 @@ def fused_glwe_product(module: Module, a_data, pmat, res_size: int, res_base2k: 
     B = a_data.numel() // (ci * a_size * n) if a_data.numel() else 0
     a = a_data.reshape(B, ci, a_size, n).contiguous()    # the keyswitch passes a column view
     _lib.require(a, "a_data", torch.int64)
-    s_size, sm_ptr, s64_ptr = 0, None, None
-    if small is not None:
-        s_size = small.shape[-2]
-        if tuple(small.shape) != tuple(lead) + (s_size, n):
-            raise ValueError(f"small: expected {tuple(lead) + (s_size, n)}, got {tuple(small.shape)}")
-        small = small.reshape(B, s_size, n).contiguous()
-        _lib.require(small, "small", torch.int64)
-        sm_ptr = small.data_ptr()
+    small, s_size, sm_ptr = _body(small, lead, B, n)
+    s64_ptr = None
     if small64 is not None:
         if tuple(small64.shape) != tuple(lead) + (co, s64, n):
             raise ValueError(f"small64: expected {tuple(lead) + (co, s64, n)}, "
@@ -224,6 +244,52 @@ def fused_glwe_product(module: Module, a_data, pmat, res_size: int, res_base2k: 
     _lib.check(err, "poulpy_fused_product")
     LAUNCHES["fused_product_small" if small is not None
              else "fused_product_small64" if small64 is not None else "fused_product"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# The exit on its own: Garner lift → + small at column 0 → normalize
+# --------------------------------------------------------------------------
+
+def garner_exit_ref(module: Module, x, psize: int, res_size: int, res_base2k: int,
+                    pm_base2k: int, small=None):
+    """Plain version of `garner_exit`: the centred Garner lift of each limb,
+    the body added at column 0, `vec_znx_normalize_full`."""
+    del psize
+    big = garner_lift(module.tables, x)
+    if small is not None:   # garner_lift's output is fresh: add the body in place
+        big[..., 0, :, :] += _align_limbs(small, big, big.shape[-2], limb_axis=-2)[0]
+    return vec_znx_normalize_full(res_size, res_base2k, 0, big, pm_base2k)
+
+
+def garner_exit(module: Module, x, psize: int, res_size: int, res_base2k: int, pm_base2k: int,
+                small=None):
+    """`x` [..., co, psize, P, N] int32 coefficient residues (canonical, the
+    inverse transform's N^{-1} applied) → [..., co, res_size, N] normalized
+    int64 limbs of base 2^res_base2k; `small` [..., s_size, N] int64, if
+    given, is added to column 0 (limbs past psize dropped).  Plain version on
+    CPU tensors, one CUDA launch on CUDA (`csrc/garner_exit.cu`)."""
+    if x.device.type == "cpu":
+        return garner_exit_ref(module, x, psize, res_size, res_base2k, pm_base2k, small)
+    P, n = module.nprimes, module.n
+    lead, co = x.shape[:-4], x.shape[-4]
+    if tuple(x.shape[-3:]) != (psize, P, n) or module.device != x.device:
+        raise ValueError(f"x: expected [..., co, {psize}, {P}, {n}] on {module.device}, got "
+                         f"{tuple(x.shape)} on {x.device}")
+    _check_bounds(P, psize, res_size, 0)
+    B = x.numel() // (co * psize * P * n) if x.numel() else 0
+    xm = x.reshape(B, co, psize, P, n).contiguous()
+    _lib.require(xm, "x", torch.int32)
+    small, s_size, sm_ptr = _body(small, lead, B, n)
+    out = torch.empty(lead + (co, res_size, n), dtype=torch.int64, device=x.device)
+    if B == 0:
+        return out
+    _, consts = kernel_tables(module.tables)
+    err = _lib.library().poulpy_garner_exit(
+        xm.data_ptr(), sm_ptr, out.data_ptr(), consts.data_ptr(), B, co, psize, s_size, res_size,
+        res_base2k, pm_base2k, P, module.log_n, _lib.stream())
+    _lib.check(err, "poulpy_garner_exit")
+    LAUNCHES["garner_exit"] += 1
     return out
 
 

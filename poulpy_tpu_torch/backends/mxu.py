@@ -1,0 +1,259 @@
+"""Four-step digit-plane NTT kernels (`csrc/mxu_ntt.cu`) and their plain
+PyTorch twins.
+
+Replace `poulpy_tpu/backends/pallas_mxu.py` (`_fwd_fn` → `_kernel_fwd`,
+`_inv_fn` → `_kernel_inv`; entries `pallas_mxu4_forward_limbs` /
+`pallas_mxu4_inverse`).  Per row of N = n1·n2 coefficients and per prime:
+
+  forward  x ──nd_in digit planes──► [n1, nd_in·n2] × ua ──assemble, REDC²──►
+           A[n1, k2] ──⊙ tf (Montgomery)──4 planes──► [k2, 4·n1] × v0
+           ──assemble, REDC²──► y[k2, k1]                      (σ order)
+  inverse  y ──4 planes──► [k2, 4·n1] × wa ──► B[k2, n1] ──⊙ ti──4 planes──►
+           [n1, 4·n2] × w0 (N^{-1} folded in) ──► x[n2, n1]
+
+The inter-step twiddle is an elementwise Montgomery product, so each step is
+one plain product per prime.  The weights hold the reduction-folded digits
+of `mxu_ntt.py` (one product gives the NDIG partials of an output), and
+balanced digits in [−128, 127] keep every partial below 2^23 in magnitude:
+the int8 products with int32 sums of the tensor cores are exact.  The plain
+versions do the digit products in float64, exact as well.
+
+The wrappers take the plain version for a CPU tensor and launch the kernel
+for a CUDA one; counters `mxu_forward` / `mxu_inverse`.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from poulpy_tpu_torch.backends import LAUNCHES, _lib
+from poulpy_tpu_torch.backends.mxu_ntt import NDIG, _fold_digits
+from poulpy_tpu_torch.backends.mxu_ntt4 import (
+    _assemble_ax,
+    _psi_pows,
+    _split,
+    digitize_planes,
+    sigma_from_hal,
+)
+from poulpy_tpu_torch.backends.ntt import kernel_tables
+from poulpy_tpu_torch.hal.ntt import NttTables, mont_mul
+from poulpy_tpu_torch.hal.primes import R
+
+ROWS_PER_BLOCK = 4   # rows of N coefficients per block of the transform kernels
+PAD = 16             # bytes after each int8 operand row in shared memory (csrc/mxu.cuh)
+WEIGHTS = ("ua", "v0", "wa", "w0")
+
+
+def _fold_digits_2d(mat: np.ndarray, p: int) -> np.ndarray:
+    """[rows, cols] mod-p → int8 [NDIG·rows, NDIG·cols] with
+    out[i·rows + r, d·cols + c] = digit_d(centred(2^{8i}·mat[r, c]·2^60 mod p))."""
+    rows, cols = mat.shape
+    return _fold_digits(mat, p).reshape(NDIG * rows, NDIG * cols)
+
+
+@functools.lru_cache(maxsize=None)
+def _host_tables_mxu(primes: tuple[int, ...], n: int) -> dict:
+    """Numpy weight tables (int8 unless noted), per basis and N:
+
+      ua [P, NDIG·n2, NDIG·n2]  step A       ψ^{N1·n2·(1+2k2)}
+      v0 [P, NDIG·n1, NDIG·n1]  step B       ψ^{2·N2·n1·k1}
+      tf [P, n1, n2] int32      fwd twiddle  ψ^{n1(1+2k2)}·R
+      wa [P, NDIG·n1, NDIG·n1]  inv step A   ψ^{-2·N2·n1·k1}
+      w0 [P, NDIG·n2, NDIG·n2]  inv step B   N^{-1}·ψ^{-N1·n2·(1+2k2)}
+      ti [P, n1, n2] int32      inv twiddle  ψ^{-n1(1+2k2)}·R
+    """
+    n1, n2 = _split(n)
+    P = len(primes)
+    i1 = np.arange(n1, dtype=np.int64)
+    i2 = np.arange(n2, dtype=np.int64)
+    out = {
+        "ua": np.zeros((P, NDIG * n2, NDIG * n2), np.int8),
+        "v0": np.zeros((P, NDIG * n1, NDIG * n1), np.int8),
+        "wa": np.zeros((P, NDIG * n1, NDIG * n1), np.int8),
+        "w0": np.zeros((P, NDIG * n2, NDIG * n2), np.int8),
+        "tf": np.zeros((P, n1, n2), np.int32),
+        "ti": np.zeros((P, n1, n2), np.int32),
+    }
+    two_n = 2 * n
+    for pi, p in enumerate(primes):
+        pw = _psi_pows(p, two_n)
+        ninv = pow(n, -1, p)
+        out["ua"][pi] = _fold_digits_2d(pw[(n1 * i2[:, None] * (1 + 2 * i2[None, :])) % two_n], p)
+        out["v0"][pi] = _fold_digits_2d(pw[(2 * n2 * i1[:, None] * i1[None, :]) % two_n], p)
+        out["tf"][pi] = pw[(i1[:, None] * (1 + 2 * i2[None, :])) % two_n] * R % p
+        out["wa"][pi] = _fold_digits_2d(pw[(-2 * n2 * i1[:, None] * i1[None, :]) % two_n], p)
+        out["w0"][pi] = _fold_digits_2d(
+            pw[(-n1 * i2[None, :] * (1 + 2 * i2[:, None])) % two_n] * ninv % p, p)
+        out["ti"][pi] = pw[(-i1[:, None] * (1 + 2 * i2[None, :])) % two_n] * R % p
+    return out
+
+
+def fragments(w: np.ndarray) -> np.ndarray:
+    """int8 weights [..., K, C] → the operand order of the kernels' int8 MMA
+    (m16n8k32, B operand): [..., C/8, K/32, 32 lanes, 8 bytes], where lane
+    4·g + t holds column 8·ct + g, rows 32·ks + 4·t + (0..3) in bytes 0–3 and
+    rows 32·ks + 16 + 4·t + (0..3) in bytes 4–7, so that each lane loads its
+    two fragment registers as one 8-byte word."""
+    *lead, K, C = w.shape
+    x = w.reshape(*lead, K // 32, 2, 4, 4, C // 8, 8)           # [.., ks, h, t, b, ct, g]
+    nl = len(lead)
+    x = x.transpose(*range(nl), nl + 4, nl, nl + 5, nl + 2, nl + 1, nl + 3)
+    return np.ascontiguousarray(x).reshape(*lead, C // 8, K // 32, 32, 8)
+
+
+def _cached(t: NttTables, attr: str, build):
+    cached = getattr(t, attr, None)
+    if cached is None:
+        cached = build()
+        setattr(t, attr, cached)
+    return cached
+
+
+def plain_tables(t: NttTables) -> dict:
+    """The four weight tables as float64 and the twiddles as int64, on the
+    tables' device (the plain versions' operands)."""
+    def build():
+        tabs = _host_tables_mxu(t.basis.primes, t.n)
+        out = {k: torch.from_numpy(tabs[k].astype(np.float64)).to(t.device) for k in WEIGHTS}
+        out.update({k: torch.from_numpy(tabs[k].astype(np.int64)).to(t.device)
+                    for k in ("tf", "ti")})
+        return out
+    return _cached(t, "_mxu_plain_tables", build)
+
+
+def device_tables(t: NttTables) -> dict:
+    """The four weight tables in fragment order (int8) and the twiddles
+    (int32), on the tables' device (the kernels' operands)."""
+    def build():
+        tabs = _host_tables_mxu(t.basis.primes, t.n)
+        out = {k: torch.from_numpy(fragments(tabs[k])).to(t.device) for k in WEIGHTS}
+        out.update({k: torch.from_numpy(tabs[k]).to(t.device) for k in ("tf", "ti")})
+        return out
+    return _cached(t, "_mxu_device_tables", build)
+
+
+def sigma_index(t: NttTables):
+    """`sigma_from_hal` as an int64 index tensor on the tables' device: the
+    σ order of a butterfly-NTT operand is `x[..., sigma_index(t)]`."""
+    return _cached(t, "_mxu_sigma", lambda: torch.from_numpy(
+        sigma_from_hal(t.basis.primes, t.n)).to(t.device))
+
+
+def _dot(lhs, w):
+    """Exact int8 [M, K] × float64 [K, C] → int64 [M, C]."""
+    return (lhs.to(torch.float64) @ w).to(torch.int64)
+
+
+def mxu4_forward_limbs_ref(t: NttTables, x, nd_in: int = NDIG):
+    """Plain version of the forward kernel: int limbs [..., N] (wrapped to
+    int32, covered by nd_in digit planes) → σ-order residues [..., P, N]
+    int32, step by step as `_kernel_fwd`."""
+    n, P = t.n, t.basis.nprimes
+    n1, n2 = _split(n)
+    tabs = plain_tables(t)
+    lead = x.shape[:-1]
+    xm = x.reshape(-1, n2, n1).to(torch.int32).transpose(1, 2)            # [R, n1, n2]
+    rows = xm.shape[0]
+    lhs_a = digitize_planes(xm, nd_in, axis=2).reshape(rows * n1, nd_in * n2)
+    out = []
+    for pi in range(P):
+        p, qinv = t.p[pi], t.qinv[pi]
+        pa = _dot(lhs_a, tabs["ua"][pi, : nd_in * n2]).reshape(rows, n1, NDIG, n2)
+        a = mont_mul(_assemble_ax(pa, 2, p, qinv), tabs["tf"][pi], p, qinv)   # [R, n1, k2]
+        lhs_b = digitize_planes(a.transpose(1, 2), NDIG, axis=2).reshape(rows * n2, NDIG * n1)
+        pb = _dot(lhs_b, tabs["v0"][pi]).reshape(rows, n2, NDIG, n1)
+        out.append(_assemble_ax(pb, 2, p, qinv).reshape(rows, n))           # [R, k2·n1 + k1]
+    return torch.stack(out, dim=1).reshape(lead + (P, n))
+
+
+def mxu4_inverse_ref(t: NttTables, y):
+    """Plain version of the inverse kernel: σ-order residues [..., P, N] →
+    coefficient residues [..., P, N] int32 (N^{-1} included), step by step
+    as `_kernel_inv`."""
+    n, P = t.n, t.basis.nprimes
+    n1, n2 = _split(n)
+    tabs = plain_tables(t)
+    lead = y.shape[:-2]
+    ym = y.reshape(-1, P, n2, n1)
+    rows = ym.shape[0]
+    out = []
+    for pi in range(P):
+        p, qinv = t.p[pi], t.qinv[pi]
+        lhs_a = digitize_planes(ym[:, pi], NDIG, axis=2).reshape(rows * n2, NDIG * n1)
+        pa = _dot(lhs_a, tabs["wa"][pi]).reshape(rows, n2, NDIG, n1)
+        b = _assemble_ax(pa, 2, p, qinv).transpose(1, 2)                     # [R, n1, k2]
+        b = mont_mul(b, tabs["ti"][pi], p, qinv)
+        lhs_b = digitize_planes(b, NDIG, axis=2).reshape(rows * n1, NDIG * n2)
+        pb = _dot(lhs_b, tabs["w0"][pi]).reshape(rows, n1, NDIG, n2)
+        out.append(_assemble_ax(pb, 2, p, qinv).transpose(1, 2).reshape(rows, n))
+    return torch.stack(out, dim=1).reshape(lead + (P, n))
+
+
+def transform_smem_bytes(n: int, rows: int = ROWS_PER_BLOCK) -> int:
+    """Shared memory of one block of the transform kernels: the int8 operand
+    rows of both steps, [rows·n1, NDIG·n2 + PAD] and [rows·n2, NDIG·n1 + PAD]."""
+    n1, n2 = _split(n)
+    return rows * n1 * (NDIG * n2 + PAD) + rows * n2 * (NDIG * n1 + PAD)
+
+
+def _check_split(n: int) -> None:
+    n1, n2 = _split(n)
+    if n1 % 8 or n2 % 8:
+        raise ValueError(f"the transform kernels need n1, n2 multiples of 8 (N ≥ 64), got N {n}")
+
+
+def mxu4_forward_limbs(t: NttTables, x, nd_in: int = NDIG):
+    """int limbs [..., N] → σ-order residues [..., P, N] int32: plain version
+    on CPU tensors, one CUDA launch on CUDA (int64 limbs read and wrapped to
+    int32 in the kernel)."""
+    if x.device.type == "cpu":
+        return mxu4_forward_limbs_ref(t, x, nd_in)
+    n, P = t.n, t.basis.nprimes
+    _check_split(n)
+    if not 1 <= nd_in <= NDIG:
+        raise ValueError(f"nd_in must lie in [1, {NDIG}], got {nd_in}")
+    if x.shape[-1] != n or x.device != t.device:
+        raise ValueError(f"x: expected [..., {n}] on {t.device}, got {tuple(x.shape)} on {x.device}")
+    xm = x.reshape(-1, n).to(torch.int64).contiguous()
+    _lib.require(xm, "x", torch.int64)
+    rows = xm.shape[0]
+    out = torch.empty((rows, P, n), dtype=torch.int32, device=x.device)
+    if rows:
+        tabs = device_tables(t)
+        _, consts = kernel_tables(t)
+        err = _lib.library().poulpy_mxu_forward(
+            xm.data_ptr(), out.data_ptr(), tabs["ua"].data_ptr(), tabs["v0"].data_ptr(),
+            tabs["tf"].data_ptr(), consts.data_ptr(), rows, nd_in, P, t.logn, ROWS_PER_BLOCK,
+            transform_smem_bytes(n), _lib.stream())
+        _lib.check(err, "poulpy_mxu_forward")
+        LAUNCHES["mxu_forward"] += 1
+    return out.reshape(x.shape[:-1] + (P, n))
+
+
+def mxu4_inverse(t: NttTables, y):
+    """σ-order residues [..., P, N] → coefficient residues [..., P, N] int32:
+    plain version on CPU tensors, one CUDA launch on CUDA."""
+    if y.device.type == "cpu":
+        return mxu4_inverse_ref(t, y)
+    n, P = t.n, t.basis.nprimes
+    _check_split(n)
+    if y.dim() < 2 or tuple(y.shape[-2:]) != (P, n) or y.device != t.device:
+        raise ValueError(f"y: expected [..., {P}, {n}] on {t.device}, got {tuple(y.shape)} "
+                         f"on {y.device}")
+    ym = y.reshape(-1, P, n).contiguous()
+    _lib.require(ym, "y", torch.int32)
+    rows = ym.shape[0]
+    out = torch.empty_like(ym)
+    if rows:
+        tabs = device_tables(t)
+        _, consts = kernel_tables(t)
+        err = _lib.library().poulpy_mxu_inverse(
+            ym.data_ptr(), out.data_ptr(), tabs["wa"].data_ptr(), tabs["w0"].data_ptr(),
+            tabs["ti"].data_ptr(), consts.data_ptr(), rows, P, t.logn, ROWS_PER_BLOCK,
+            transform_smem_bytes(n), _lib.stream())
+        _lib.check(err, "poulpy_mxu_inverse")
+        LAUNCHES["mxu_inverse"] += 1
+    return out.reshape(y.shape)

@@ -5,12 +5,12 @@ goes through one fused wrapper: one CUDA launch for a CUDA batch, the plain
 stage chain (dft → vmp → idft → normalize) for a CPU one.  A parameter set
 whose product bound exceeds 62 bits takes the wide (i128-twin) exit,
 `backends.wide.fused_glwe_product_wide`; the others
-`backends.fused.fused_glwe_product`.
+`backends.fused.fused_glwe_product`, or the MXU route that `route` asks for.
 """
 
 from __future__ import annotations
 
-from poulpy_tpu_torch.backends.fused import fused_glwe_product
+from poulpy_tpu_torch.backends.mxu_product import glwe_product
 from poulpy_tpu_torch.backends.wide import fused_glwe_product_wide
 from poulpy_tpu_torch.core.layouts import GLWECiphertext, glwe_size
 from poulpy_tpu_torch.core.operations import glwe_add, glwe_sub
@@ -21,8 +21,14 @@ from poulpy_tpu_torch.hal.normalization import vec_znx_normalize_full
 
 
 def glwe_external_product(module: Module, a: GLWECiphertext, ggsw: GGSWPrepared,
-                          res_base2k: int | None = None,
-                          res_k: int | None = None) -> GLWECiphertext:
+                          res_base2k: int | None = None, res_k: int | None = None,
+                          route: str = "fused") -> GLWECiphertext:
+    """a ⊡ ggsw.  `route` picks the non-wide product's kernels: "fused" (the
+    butterfly fused product, the default), "mxu" (the four-step transforms,
+    VMP and exit as four launches) or "fused_mxu" (the four-step transforms
+    in one fused launch), each where the JAX package's conditions allow it
+    (`backends.mxu_product.mxu_route`); a wide product always takes the wide
+    exit."""
     res_base2k = a.base2k if res_base2k is None else res_base2k
     res_k = a.k if res_k is None else res_k
     res_size = glwe_size(res_base2k, res_k)
@@ -35,8 +41,8 @@ def glwe_external_product(module: Module, a: GLWECiphertext, ggsw: GGSWPrepared,
         res = fused_glwe_product_wide(module, a.data, ggsw.pmat, res_size, res_base2k,
                                       ggsw.base2k, dsize=ggsw.dsize)
     else:
-        res = fused_glwe_product(module, a.data, ggsw.pmat, res_size, res_base2k, ggsw.base2k,
-                                 dsize=ggsw.dsize)
+        res = glwe_product(module, route, a.data, ggsw.pmat, res_size, res_base2k, ggsw.base2k,
+                           ggsw.dsize)
     return GLWECiphertext(data=res, base2k=res_base2k, k=res_k)
 
 

@@ -3,8 +3,8 @@ port's part).
 
 The mask limbs go through one fused product with the prepared key and the
 body is added to column 0 of the big accumulator before the normalization:
-one CUDA launch for a CUDA batch (`fused_glwe_product(small=…)`), the plain
-stage chain for a CPU one.  A key whose product bound exceeds 62 bits takes
+one CUDA launch for a CUDA batch (`fused_glwe_product(small=…)`, or the MXU
+route that `route` asks for), the plain stage chain for a CPU one.  A key whose product bound exceeds 62 bits takes
 the wide (i128-twin) exit, `fused_glwe_product_wide` with the body as
 column 0 of its per-column `small`.
 """
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from poulpy_tpu_torch.backends.fused import fused_glwe_product
+from poulpy_tpu_torch.backends.mxu_product import glwe_product
 from poulpy_tpu_torch.backends.wide import fused_glwe_product_wide
 from poulpy_tpu_torch.core.layouts import GLWECiphertext, glwe_size
 from poulpy_tpu_torch.core.prepared import GGLWEPrepared
@@ -42,8 +42,10 @@ def gglwe_product_dft(module: Module, a_dft, key: GGLWEPrepared):
 
 
 def glwe_keyswitch(module: Module, a: GLWECiphertext, key: GGLWEPrepared,
-                   res_base2k: int | None = None, res_k: int | None = None) -> GLWECiphertext:
-    """res = normalize(idft(gglwe_product(dft(a[1:]), key)) + a[0] at column 0)."""
+                   res_base2k: int | None = None, res_k: int | None = None,
+                   route: str = "fused") -> GLWECiphertext:
+    """res = normalize(idft(gglwe_product(dft(a[1:]), key)) + a[0] at column 0).
+    `route` as in `external_product.glwe_external_product`."""
     res_base2k = a.base2k if res_base2k is None else res_base2k
     res_k = a.k if res_k is None else res_k
     res_size = glwe_size(res_base2k, res_k)
@@ -59,8 +61,8 @@ def glwe_keyswitch(module: Module, a: GLWECiphertext, key: GGLWEPrepared,
         res = fused_glwe_product_wide(module, a.data[..., 1:, :, :], key.pmat, res_size,
                                       res_base2k, key.base2k, small=small, dsize=key.dsize)
     else:
-        res = fused_glwe_product(module, a.data[..., 1:, :, :], key.pmat, res_size, res_base2k,
-                                 key.base2k, dsize=key.dsize, small=a.data[..., 0, :, :])
+        res = glwe_product(module, route, a.data[..., 1:, :, :], key.pmat, res_size, res_base2k,
+                           key.base2k, key.dsize, small=a.data[..., 0, :, :])
     return GLWECiphertext(data=res, base2k=res_base2k, k=res_k)
 
 
