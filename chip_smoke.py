@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eleven paths of the port run, each with the launch counters set to 0 just
+Twelve paths of the port run, each with the launch counters set to 0 just
 before it and read just after:
 
 - the product path, the headline operation of bench.py: a batched GLWE ×
@@ -34,12 +34,16 @@ before it and read just after:
   inverse, Garner exit: four launches) and `route="fused_mxu"` (one fused
   launch);
 - keyswitch_mxu and keyswitch_fused_mxu, on the keyswitch path's keys: the
-  keyswitch through the same two routes.
+  keyswitch through the same two routes;
+- gate_fused_mxu, on the gate path's keys and batch: the gate bootstrap
+  through `route="fused_mxu"` (one fused MXU block step per block of the
+  blind rotation, the keyswitch through the fused MXU product).
 
 The seven paths before the MXU paths run as they would without them: the
-two set-ups the MXU paths reuse wait on the host meanwhile, and the MXU
+three set-ups the MXU paths reuse wait on the host meanwhile, and the MXU
 kernels' checks (3′, with their float64 plain versions and cuBLAS
-yardstick) come last.  Each set-up is freed after its last use.
+yardstick) and the large-N checks come last.  Each set-up is freed after
+its last use.
 
 Phases, each printing JSON lines, in this order (3′ last):
 
@@ -55,10 +59,17 @@ Phases, each printing JSON lines, in this order (3′ last):
                  and small products at the relinearize and ckks_rotate
                  paths' shapes, batch 256);
   3′. kernels    the same for the MXU route's kernels, after the last path: at
-                 the product path's shapes, and the fused MXU product with
-                 the body at the keyswitch path's, batch 256, each with the
-                 time of torch._int_mm on its step-B-shaped digit product as
-                 a library yardstick of the product part alone;
+                 the product path's shapes, the fused MXU product with the
+                 body at the keyswitch path's, batch 256, and the block step
+                 at the gate path's, batch 1024, each with the time of
+                 torch._int_mm on its step-B-shaped digit product as a
+                 library yardstick of the product part alone;
+  3″. kernels_large_n  each product kernel at a shape whose rows do not fit
+                 in shared memory (N 8192 for bench.py's product, N 4096
+                 for the CKKS key's keyswitch and relinearization exits,
+                 the gate's block steps and the CKKS-wide pair), batch 2–4,
+                 against its plain version, tolerance 0, with the layout it
+                 takes (it must be the global one) and its time;
   4. verify      product path: stage by stage (NTT → VMP → inverse NTT
                  kernels, plain Garner and normalize) equals the fused kernel
                  at batch 64, and the fused result decrypts to X·m exactly;
@@ -111,9 +122,16 @@ Phases, each printing JSON lines, in this order (3′ last):
  14. keyswitch_<route> (keyswitch_mxu, keyswitch_fused_mxu): on phase 8's
                  keys, the route equals the butterfly route at batch 8 and
                  decrypts exactly; 1 + 10 chained keyswitches at batch 256,
-                 whose checksum equals the butterfly route's.
+                 whose checksum equals the butterfly route's;
+ 15. gate_fused_mxu  on phase 6–7's keys: at batch 64 the block path through
+                 the route equals its plain MXU block path and the butterfly
+                 block path, the standard path (n_lwe 64) through the route
+                 equals the butterfly's, NAND truth on both; at batch 1024
+                 the warm-up NAND's fingerprint equals GATE_FINGERPRINT, 5
+                 timed chained NANDs decrypt to the tracked bits (gates/s
+                 beside phase 7's), then a profiled NAND.
 
-Only the four *_mxu paths may launch an MXU kernel.  Then one line
+Only the five *_mxu paths may launch an MXU kernel.  Then one line
 {"kernels": [...]} (launches summed over the paths' runs)
 and, last, {"ok": true, "device": {...}}.  Any failure exits non-zero
 before that line.  Without a CUDA device, or without the poulpy_tpu_torch
@@ -217,9 +235,10 @@ KERNELS = {
     "garner_exit": ("poulpy_tpu_torch/csrc/garner_exit.cu", "poulpy_tpu/backends/pallas_fused.py:1030"),
     "fused_mxu_product": ("poulpy_tpu_torch/csrc/fused_mxu.cu", _FUSED_MXU),
     "fused_mxu_product_small": ("poulpy_tpu_torch/csrc/fused_mxu.cu", _FUSED_MXU),
+    "fused_mxu_br_block_step": ("poulpy_tpu_torch/csrc/fused_mxu.cu", _FUSED_MXU),
 }
 MXU_KERNELS = ("mxu_forward", "mxu_inverse", "garner_exit", "fused_mxu_product",
-               "fused_mxu_product_small")
+               "fused_mxu_product_small", "fused_mxu_br_block_step")
 # the kernels each path must launch
 PATHS = {
     "product": ("ntt_forward", "ntt_inverse", "vmp", "fused_product"),
@@ -234,6 +253,8 @@ PATHS = {
     "keyswitch_mxu": ("fused_product_small", "mxu_forward", "vmp", "mxu_inverse",
                       "garner_exit"),
     "keyswitch_fused_mxu": ("fused_product_small", "fused_mxu_product_small"),
+    "gate_fused_mxu": ("br_block_step", "fused_product", "fused_mxu_br_block_step",
+                       "fused_mxu_product", "fused_mxu_product_small"),
 }
 
 
@@ -533,10 +554,11 @@ def phase_kernels(m, gm, wm) -> dict:
     return check_kernels(cases)
 
 
-def phase_kernels_mxu(m, km) -> dict:
+def phase_kernels_mxu(m, km, gm) -> dict:
     """The MXU route's kernels against their plain versions: the product
-    path's shapes on `m` and the fused product with the body at the keyswitch
-    path's on `km` (inputs of their own, freed before the paths run)."""
+    path's shapes on `m`, the fused product with the body at the keyswitch
+    path's on `km`, and the block step at the gate path's on `gm` (inputs of
+    their own)."""
     import torch
 
     from poulpy_tpu_torch.backends import fused, fused_mxu, mxu
@@ -565,6 +587,14 @@ def phase_kernels_mxu(m, km) -> dict:
     ks_mask = ints(-(2**16), 2**16, (KS_BATCH, 1, 3, N))
     ks_body3 = ints(-(2**16), 2**16, (KS_BATCH, 3, N))
     ks_key = residues(km, (KS_DNUM, 1, 2, 4, kp, N))
+    # the block step at the gate shape (acc [2, 2 limbs] at N 1024, BRK [block
+    # 8, dnum 4, 2, 2, psize 4], P 2, batch GATE_BATCH), the key in σ order
+    gn, gp = gm.n, gm.nprimes
+    acc = ints(-(2**16), 2**16, (GATE_BATCH, 2, 2, gn))
+    brk = residues(gm, (GATE_BLOCK, 4, 2, 2, 4, gp, gn))
+    amounts = ints(-gn, gn + 1, (GATE_BATCH, GATE_BLOCK))
+    pm_k = fused.pm_kernel_layout(brk[..., mxu.sigma_index(gm.tables)], 2)
+    rows_used = int(torch.unique(amounts & (2 * gn - 1)).numel())
     n2 = split(N)[1]
     garner_products = NPRIMES * (NPRIMES - 1) // 2 + NPRIMES - 1   # per limb
     i32, i64 = 4, 8
@@ -601,7 +631,106 @@ def phase_kernels_mxu(m, km) -> dict:
                   + ks_key.numel() * i32, KS_BATCH * kp * (3 * 8 + 3 + 8) * N,
                   mxu_macs(KS_BATCH * 3, kp, N) + mxu_macs(KS_BATCH * 8, kp, N)),
             KS_BATCH * (3 + 8) * kp * n2),
+        # modular products: the block's VMP and x-power factor and the
+        # twiddles of 4 forward and 8 inverse rows (the transforms are int8
+        # multiply-adds), per prime and ciphertext
+        "fused_mxu_br_block_step": (
+            lambda: fused_mxu.fused_mxu_br_block_step(gm, acc, brk, amounts, 2, BASE2K, pm_k),
+            lambda: fused_mxu.fused_mxu_br_block_step_ref(gm, acc, brk, amounts, 2, BASE2K),
+            bound(2 * acc.numel() * i64 + amounts.numel() * i64 + pm_k.numel() * i32
+                  + rows_used * gp * gn * i32,
+                  GATE_BATCH * gp * GATE_BLOCK * (4 * 8 + 8) * gn + GATE_BATCH * gp * 12 * gn,
+                  mxu_macs(GATE_BATCH * 4, gp, gn) + mxu_macs(GATE_BATCH * 8, gp, gn)),
+            GATE_BATCH * (4 + 8) * gp * split(gn)[1]),
     })
+
+
+def phase_kernels_large_n() -> None:
+    """Each product kernel at a shape whose rows do not fit in shared memory
+    (bench.py's product at N 8192; the CKKS key's keyswitch, the gate's
+    block step and the CKKS-wide pair at N 4096), batch 2–4, against its
+    plain version, tolerance 0, with the layout its launch takes (the
+    wrappers' own formula) and its time."""
+    import torch
+
+    from poulpy_tpu_torch.backends import fused, fused_mxu, mxu, wide
+    from poulpy_tpu_torch.hal.module import get_module
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def ints(lim, shape):
+        return torch.randint(-lim, lim, shape, generator=gen, device="cuda", dtype=torch.int64)
+
+    def residues(mod, shape):
+        primes = torch.tensor(mod.basis.primes, device="cuda")[:, None]
+        return (ints(1 << 62, shape).abs() % primes).to(torch.int32)
+
+    m8, m4, w4 = (get_module(8192, 2, 28, "cuda"), get_module(4096, 2, 28, "cuda"),
+                  get_module(4096, 5, 28, "cuda"))
+    a8, pmat8 = ints(2**16, (2, 2, 3, 8192)), residues(m8, (3, 2, 2, 4, 2, 8192))
+    ks_a, ks_key, ks_body = (ints(2**16, (4, 1, 6, 4096)), residues(m4, (6, 1, 2, 6, 2, 4096)),
+                             ints(2**16, (4, 6, 4096)))
+    acc, brk = ints(2**16, (4, 2, 2, 4096)), residues(m4, (GATE_BLOCK, 4, 2, 2, 4, 2, 4096))
+    amounts = ints(3 * 4096, (4, GATE_BLOCK))
+    pm_k = fused.pm_kernel_layout(brk[..., mxu.sigma_index(m4.tables)], 2)
+    wd, wkey, wlin = (ints(2**51, (2, 1, 2, 4096)), residues(w4, (2, 1, 2, 3, 5, 4096)),
+                      ints(2**51, (2, 2, 3, 4096)))
+    wa, wb = ints(2**51, (2, 2, 2, 4096)), ints(2**51, (2, 2, 2, 4096))
+
+    def flat(fn, *args):
+        return lambda: torch.cat([x.flatten() for x in fn(*args)])
+
+    cases = {
+        "fused_product": (fused.product_layout(6, 2, 4, 2, 8192),
+                          lambda: fused.fused_glwe_product(m8, a8, pmat8, 3, BASE2K, BASE2K),
+                          lambda: fused.fused_glwe_product_ref(m8, a8, pmat8, 3, BASE2K, BASE2K)),
+        "fused_product_small": (
+            fused.product_layout(6, 2, 6, 2, 4096),
+            lambda: fused.fused_glwe_product(m4, ks_a, ks_key, 6, BASE2K, BASE2K, small=ks_body),
+            lambda: fused.fused_glwe_product_ref(m4, ks_a, ks_key, 6, BASE2K, BASE2K,
+                                                 small=ks_body)),
+        "fused_product_small64": (
+            fused.product_layout(6, 2, 6, 2, 4096),
+            lambda: fused.fused_glwe_product(m4, ks_a, ks_key, 12, BASE2K, BASE2K,
+                                             small64=ks_body[:, None].expand(4, 2, 6, 4096)),
+            lambda: fused.fused_glwe_product_ref(m4, ks_a, ks_key, 12, BASE2K, BASE2K,
+                                                 small64=ks_body[:, None].expand(4, 2, 6, 4096))),
+        "br_block_step": (fused.product_layout(4, 2, 4, 2, 4096, split=False),
+                          lambda: fused.fused_br_block_step(m4, acc, brk, amounts, 2, BASE2K),
+                          lambda: fused.fused_br_block_step_ref(m4, acc, brk, amounts, 2, BASE2K)),
+        "wide_product": (fused.product_layout(2, 2, 3, 5, 4096),
+                         lambda: wide.fused_glwe_product_wide(w4, wd, wkey, 2, 52, 52, small=wlin),
+                         lambda: wide.fused_glwe_product_wide_ref(w4, wd, wkey, 2, 52, 52,
+                                                                  small=wlin)),
+        "wide_tensor": (wide.tensor_wide_layout(2, 2, 3, 5, 4096),
+                        flat(wide.fused_tensor_product_wide, w4, wa, wb, 3, 2, 3, 52, 52,
+                             WIDE_OFFSET),
+                        flat(wide.fused_tensor_product_wide_ref, w4, wa, wb, 3, 2, 3, 52, 52,
+                             WIDE_OFFSET)),
+        "fused_mxu_product": (
+            fused_mxu.mxu_layout(6, 2, 4, 2, 8192),
+            lambda: fused_mxu.fused_mxu_glwe_product(m8, a8, pmat8, 3, BASE2K, BASE2K),
+            lambda: fused_mxu.fused_mxu_glwe_product_ref(m8, a8, pmat8, 3, BASE2K, BASE2K)),
+        "fused_mxu_product_small": (
+            fused_mxu.mxu_layout(6, 2, 6, 2, 4096),
+            lambda: fused_mxu.fused_mxu_glwe_product(m4, ks_a, ks_key, 6, BASE2K, BASE2K,
+                                                     small=ks_body),
+            lambda: fused_mxu.fused_mxu_glwe_product_ref(m4, ks_a, ks_key, 6, BASE2K, BASE2K,
+                                                         small=ks_body)),
+        "fused_mxu_br_block_step": (
+            fused_mxu.mxu_layout(4, 2, 4, 2, 4096, split=False),
+            lambda: fused_mxu.fused_mxu_br_block_step(m4, acc, brk, amounts, 2, BASE2K, pm_k),
+            lambda: fused_mxu.fused_mxu_br_block_step_ref(m4, acc, brk, amounts, 2, BASE2K)),
+    }
+    for name, (lay, kernel, plain) in cases.items():
+        have, want = kernel(), plain()
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(have, want))
+        emit(phase="kernels_large_n", kernel=name, shape=list(have.shape), layout=lay.kind,
+             smem=lay.smem, rows_per_pass=lay.chunk, cols_per_block=lay.cpb, equal=equal,
+             tolerance=0, max_abs_err=int((have - want).abs().max()), ms=cuda_ms(kernel, 3))
+        if not equal or lay.kind != "global":
+            raise SystemExit(f"large-N {name}: layout {lay.kind}, equal {equal}")
 
 
 def decrypts_to_x_m(m, skp, data, out) -> bool:
@@ -719,10 +848,10 @@ def gate_setup(params, batch: int, device):
     return keys, sk, b1, b2, c1, c2
 
 
-def plain_block_rotation(keys, lwe):
-    """The block path with the plain step in place of the kernel (the same
-    mod switch, accumulator and blocks as blind_rotation_execute_block)."""
-    from poulpy_tpu_torch.backends.fused import fused_br_block_step_ref
+def plain_block_rotation(keys, lwe, step_ref):
+    """The block path with the plain step `step_ref` (fused_br_block_step_ref
+    or fused_mxu_br_block_step_ref) in place of the kernel (the same mod
+    switch, accumulator and blocks as blind_rotation_execute_block)."""
     from poulpy_tpu_torch.binfhe.blind_rotation import _acc_init, mod_switch_2n
 
     m, brk, lut, block = keys.module, keys.brk, keys.lut, keys.params.block_size
@@ -730,44 +859,65 @@ def plain_block_rotation(keys, lwe):
     acc = _acc_init(lwe_2n[..., 0], lut, brk.rank)
     for j in range(brk.n_lwe // block):
         blk = slice(j * block, (j + 1) * block)
-        acc = fused_br_block_step_ref(m, acc, brk.pmats[blk], lwe_2n[..., 1:][..., blk],
-                                      lut.size, brk.base2k)
+        acc = step_ref(m, acc, brk.pmats[blk], lwe_2n[..., 1:][..., blk], lut.size, brk.base2k)
     return acc
 
 
-def phase_gate_verify(setup, std_params, batch: int) -> None:
-    """Block-step kernel == plain block path; NAND truth on both BR paths."""
+def phase_gate_verify(setup, std_params, batch: int, route: str = "fused") -> None:
+    """Block path through `route` == its plain block path (and, for an MXU
+    route, == the butterfly route); NAND truth on both BR paths, the
+    standard path through the route == the butterfly's."""
     import numpy as np
     import torch
 
+    from poulpy_tpu_torch.backends.fused import fused_br_block_step_ref
+    from poulpy_tpu_torch.backends.fused_mxu import fused_mxu_br_block_step_ref
     from poulpy_tpu_torch.binfhe import gates
-    from poulpy_tpu_torch.binfhe.blind_rotation import blind_rotation_execute_block
+    from poulpy_tpu_torch.binfhe.blind_rotation import (
+        blind_rotation_execute,
+        blind_rotation_execute_block,
+    )
     from poulpy_tpu_torch.core.layouts import LWECiphertext
     from poulpy_tpu_torch.hal.normalization import vec_znx_normalize
+
+    def linear(p, c1, c2):
+        return LWECiphertext(data=vec_znx_normalize(p.base2k, gates._const_lwe(p, 1, 3, c1)
+                                                    - c1.data - c2.data), base2k=p.base2k,
+                             k=p.k_ct)
 
     keys, sk, b1, b2, c1, c2 = setup
     p = keys.params
     c1, c2, b1, b2 = (c1.replace(data=c1.data[:batch]), c2.replace(data=c2.data[:batch]),
                       b1[:batch], b2[:batch])
-    lin = LWECiphertext(data=vec_znx_normalize(p.base2k, gates._const_lwe(p, 1, 3, c1)
-                                               - c1.data - c2.data), base2k=p.base2k, k=p.k_ct)
-    have = blind_rotation_execute_block(keys.module, lin, keys.lut, keys.brk, p.block_size)
-    want = plain_block_rotation(keys, lin)
-    exact = bool(torch.equal(have, want))
-    block_truth = bool(np.array_equal(gates.decrypt_bit(gates.gate_nand(keys, c1, c2), sk),
-                                      1 - (b1 & b2)))
+    lin = linear(p, c1, c2)
+    have = blind_rotation_execute_block(keys.module, lin, keys.lut, keys.brk, p.block_size, route)
+    step_ref = fused_mxu_br_block_step_ref if route == "fused_mxu" else fused_br_block_step_ref
+    checks = {"block_kernel_vs_plain_bit_exact": bool(torch.equal(
+        have, plain_block_rotation(keys, lin, step_ref)))}
+    if route != "fused":
+        checks["block_route_vs_butterfly_bit_exact"] = bool(torch.equal(
+            have, blind_rotation_execute_block(keys.module, lin, keys.lut, keys.brk,
+                                               p.block_size)))
+    checks["block_nand_truth"] = bool(np.array_equal(
+        gates.decrypt_bit(gates.gate_nand(keys, c1, c2, route=route), sk), 1 - (b1 & b2)))
     skeys, ssk, sb1, sb2, sc1, sc2 = gate_setup(std_params, batch, keys.module.device)
-    std_truth = bool(np.array_equal(gates.decrypt_bit(gates.gate_nand(skeys, sc1, sc2), ssk),
-                                    1 - (sb1 & sb2)))
-    emit(phase="gate_verify", batch=batch, block_kernel_vs_plain_bit_exact=exact,
-         block_nand_truth=block_truth, standard_n_lwe=std_params.n_lwe,
-         standard_nand_truth=std_truth)
-    if not (exact and block_truth and std_truth):
-        raise SystemExit("gate verify failed")
+    if route != "fused":
+        slin = linear(std_params, sc1, sc2)
+        checks["standard_route_vs_butterfly_bit_exact"] = bool(torch.equal(
+            blind_rotation_execute(skeys.module, slin, skeys.lut, skeys.brk, route),
+            blind_rotation_execute(skeys.module, slin, skeys.lut, skeys.brk)))
+    checks["standard_nand_truth"] = bool(np.array_equal(
+        gates.decrypt_bit(gates.gate_nand(skeys, sc1, sc2, route=route), ssk), 1 - (sb1 & sb2)))
+    emit(phase="gate_verify" if route == "fused" else f"gate_verify_{route}", batch=batch,
+         standard_n_lwe=std_params.n_lwe, **checks)
+    if not all(checks.values()):
+        raise SystemExit(f"gate verify through the {route} route failed")
 
 
-def phase_gate_bench(setup, iters: int, fingerprint: int | None) -> None:
-    """1 warm-up NAND (fingerprint, truth) + `iters` timed chained NANDs."""
+def phase_gate_bench(setup, iters: int, fingerprint: int | None, route: str = "fused",
+                     butterfly_gates_per_s: float | None = None) -> float:
+    """1 warm-up NAND (fingerprint, truth) + `iters` timed chained NANDs
+    through `route`; returns the gates/s."""
     import numpy as np
     import torch
 
@@ -777,17 +927,18 @@ def phase_gate_bench(setup, iters: int, fingerprint: int | None) -> None:
     keys, sk, b1, b2, c1, c2 = setup
     device = keys.module.device
     batch = len(b1)
+    name = "gate" if route == "fused" else f"gate_{route}"
 
     def checksum(ct):
         return int((ct.data.abs() % 65536).sum())
 
-    out = gates.gate_nand(keys, c1, c2)
+    out = gates.gate_nand(keys, c1, c2, route=route)
     value = checksum(out)
     truth = bool(np.array_equal(gates.decrypt_bit(out, sk), 1 - (b1 & b2)))
-    emit(phase="gate_warmup", fingerprint=value, fingerprint_expected=fingerprint,
+    emit(phase=f"{name}_warmup", fingerprint=value, fingerprint_expected=fingerprint,
          nand_truth=truth, shape=list(out.data.shape))
     if not truth or (fingerprint is not None and value != fingerprint):
-        raise SystemExit(f"gate warm-up failed: fingerprint {value}, truth {truth}")
+        raise SystemExit(f"{name} warm-up failed: fingerprint {value}, truth {truth}")
     expect = 1 - (b1 & b2)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -795,20 +946,24 @@ def phase_gate_bench(setup, iters: int, fingerprint: int | None) -> None:
     sync(device)
     t0 = time.perf_counter()
     for _ in range(iters):
-        out = gates.gate_nand(keys, out, c2)
+        out = gates.gate_nand(keys, out, c2, route=route)
         expect = 1 - (expect & b2)
     value = checksum(out)
     dt = time.perf_counter() - t0
     per_nand = {k: (LAUNCHES[k] - before[k]) / iters for k in LAUNCHES if LAUNCHES[k] != before[k]}
     truth = bool(np.array_equal(gates.decrypt_bit(out, sk), expect))
-    emit(phase="gate_bench", batch=batch, iters=iters, gates_per_s=batch * iters / dt,
-         ms_per_batch=dt / iters * 1e3, checksum=value, decrypt_matches_tracked_bits=truth,
-         launches_per_nand=per_nand,
+    extra = {} if butterfly_gates_per_s is None else {
+        "butterfly_gates_per_s": butterfly_gates_per_s}
+    emit(phase=f"{name}_bench", route=route, batch=batch, iters=iters,
+         gates_per_s=batch * iters / dt, **extra, ms_per_batch=dt / iters * 1e3, checksum=value,
+         decrypt_matches_tracked_bits=truth, launches_per_nand=per_nand,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else None)
     if not truth:
         raise SystemExit("chained NANDs decrypt to the wrong bits")
     if device.type == "cuda":
-        profile_once("gate_profile", lambda: gates.gate_nand(keys, out, c2), dt / iters * 1e3)
+        profile_once(f"{name}_profile", lambda: gates.gate_nand(keys, out, c2, route=route),
+                     dt / iters * 1e3)
+    return batch * iters / dt
 
 
 def profile_once(phase: str, fn, timed_ms: float) -> None:
@@ -1214,8 +1369,9 @@ def run_rotate_path(setup, batch: int, iters: int, fingerprints: dict | None) ->
 
 
 def run_gate_path(device, n_lwe: int, batch: int, verify_batch: int, std_n_lwe: int,
-                  iters: int, fingerprint: int | None) -> None:
-    """The gate path: set-up, gate_verify, gate_bench."""
+                  iters: int, fingerprint: int | None) -> tuple:
+    """The gate path: set-up, gate_verify, gate_bench.  Returns the set-up
+    and the bench's gates/s, for the MXU gate path."""
     from poulpy_tpu_torch.binfhe.gates import GateParams
 
     t0 = time.perf_counter()
@@ -1225,7 +1381,19 @@ def run_gate_path(device, n_lwe: int, batch: int, verify_batch: int, std_n_lwe: 
     emit(phase="gate_setup", batch=batch, keygen_encrypt_s=time.perf_counter() - t0,
          brk_pmats_mib=brk.pmats.numel() * brk.pmats.element_size() / 2**20)
     phase_gate_verify(setup, GateParams(n_lwe=std_n_lwe, block_size=1), verify_batch)
-    phase_gate_bench(setup, iters, fingerprint)
+    return setup, phase_gate_bench(setup, iters, fingerprint)
+
+
+def run_gate_route_path(gate, verify_batch: int, std_n_lwe: int, iters: int,
+                        fingerprint: int | None, route: str) -> None:
+    """The gate path through `route` on the gate path's set-up: verify at
+    `verify_batch`, then the warm-up (fingerprint), the timed chained NANDs
+    beside the butterfly's gates/s and a profiled NAND."""
+    from poulpy_tpu_torch.binfhe.gates import GateParams
+
+    setup, butterfly_gates_per_s = gate
+    phase_gate_verify(setup, GateParams(n_lwe=std_n_lwe, block_size=1), verify_batch, route)
+    phase_gate_bench(setup, iters, fingerprint, route, butterfly_gates_per_s)
 
 
 def main() -> int:
@@ -1270,8 +1438,9 @@ def main() -> int:
         # the verify set-up waits on the host while the bench runs
         "product": lambda: shared.update(verify=moved(phase_verify(m), torch.device("cpu")),
                                          bench=phase_bench(m)),
-        "gate": lambda: run_gate_path(m.device, GATE_N_LWE, GATE_BATCH, GATE_VERIFY_BATCH,
-                                      STD_N_LWE, GATE_ITERS, GATE_FINGERPRINT),
+        "gate": lambda: shared.update(gate=run_gate_path(
+            m.device, GATE_N_LWE, GATE_BATCH, GATE_VERIFY_BATCH, STD_N_LWE, GATE_ITERS,
+            GATE_FINGERPRINT)),
         "keyswitch": lambda: shared.update(keyswitch=phase_keyswitch(m.device, KS_N)),
         "ckks_wide": lambda: run_ckks_path("ckks_wide", CKKS_WIDE, m.device, CKKS_BATCH,
                                            CKKS_ITERS, CKKS_WIDE_FINGERPRINT),
@@ -1288,12 +1457,16 @@ def main() -> int:
            for route in ROUTES},
         **{f"keyswitch_{route}": lambda route=route: phase_keyswitch_route(
             on_card("keyswitch"), route) for route in ROUTES},
+        "gate_fused_mxu": lambda: run_gate_route_path(on_card("gate"), GATE_VERIFY_BATCH,
+                                                      STD_N_LWE, GATE_ITERS, GATE_FINGERPRINT,
+                                                      "fused_mxu"),
     }
     # after each path: the set-ups it parks on the host until the MXU paths,
     # and those it leaves behind for the last time
-    park = {"product": ("bench",), "keyswitch": ("keyswitch",)}
+    park = {"product": ("bench",), "gate": ("gate",), "keyswitch": ("keyswitch",)}
     last_use = {f"product_{ROUTES[-1]}": ("verify", "bench"),
-                f"keyswitch_{ROUTES[-1]}": ("keyswitch",), "ckks_rotate": ("ckks",)}
+                f"keyswitch_{ROUTES[-1]}": ("keyswitch",), "ckks_rotate": ("ckks",),
+                "gate_fused_mxu": ("gate",)}
     launches = dict.fromkeys(LAUNCHES, 0)
     for path, run in runs.items():
         reset_launches()
@@ -1313,8 +1486,9 @@ def main() -> int:
         for key in last_use.get(path, ()):
             del shared[key]
         torch.cuda.empty_cache()
-    # the keyswitch path's basis (30-bit primes)
-    timings.update(phase_kernels_mxu(m, get_module(KS_N, 2, device="cuda")))
+    # the keyswitch path's basis (30-bit primes), the gate path's
+    timings.update(phase_kernels_mxu(m, get_module(KS_N, 2, device="cuda"), gm))
+    phase_kernels_large_n()
     if not all(launches.values()):
         raise SystemExit(f"kernels never launched: {[k for k, v in launches.items() if not v]}")
 

@@ -30,15 +30,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "poulpy_ntt": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "poulpy_vmp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "poulpy_fused_product": [_P] * 7 + [_I] * 15 + [_P],
-    "poulpy_br_block_step": [_P] * 7 + [_I] * 11 + [_P],
-    "poulpy_wide_product": [_P] * 6 + [_I] * 15 + [_P],
-    "poulpy_wide_tensor": [_P] * 6 + [_I] * 12 + [_P],
+    "poulpy_fused_product": [_P] * 7 + [_I] * 15 + [_P, _I, _I, _P],
+    "poulpy_br_block_step": [_P] * 7 + [_I] * 11 + [_P, _I, _I, _P],
+    "poulpy_wide_product": [_P] * 6 + [_I] * 15 + [_P, _I, _I, _P],
+    "poulpy_wide_tensor": [_P] * 6 + [_I] * 12 + [_P, _I, _I, _P],
     "poulpy_tensor_product": [_P] * 7 + [_I] * 10 + [_P],
     "poulpy_mxu_forward": [_P] * 6 + [_I] * 6 + [_P],
     "poulpy_mxu_inverse": [_P] * 6 + [_I] * 5 + [_P],
     "poulpy_garner_exit": [_P] * 4 + [_I] * 9 + [_P],
-    "poulpy_fused_mxu_product": [_P] * 11 + [_I] * 15 + [_P],
+    "poulpy_fused_mxu_product": [_P] * 13 + [_I] * 16 + [_P, _I, _I, _P],
 }
 
 build_info: dict = {}
@@ -102,6 +102,11 @@ def library() -> ctypes.CDLL:
 
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def ptr(x: torch.Tensor | None) -> int | None:
+    """The data pointer of `x`, or None (a null pointer) for no tensor."""
+    return None if x is None else x.data_ptr()
 
 
 def check(err: int, what: str) -> None:

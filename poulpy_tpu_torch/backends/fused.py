@@ -25,18 +25,24 @@ and `_kernel_b_fn` → `_kernel_b`, the exit of the "mxu" route on its own:
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA one.  The plain versions (`*_ref`) are built from plain
-parts only, so on a CUDA tensor they launch no kernel of `csrc/`.
+parts only, so on a CUDA tensor they launch no kernel of `csrc/`.  The
+fused kernels' wrappers choose a layout by formula (`kernel_layout`): the
+shared one where a block's rows fit in shared memory, else the global one
+(the rows in a device workspace, the transforms staged through shared
+memory).
 """
 
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from poulpy_tpu_torch.backends import LAUNCHES, _lib
+from poulpy_tpu_torch.backends.mxu import sigma_index
 from poulpy_tpu_torch.backends.ntt import kernel_tables
 from poulpy_tpu_torch.backends.vmp import vmp_apply_ref
 from poulpy_tpu_torch.hal.dft import _align_limbs, cnv_apply, dft_add, dft_limbs, dft_sub
@@ -141,16 +147,57 @@ def fused_smem_bytes(kk: int, mrows: int, nprimes: int, n: int) -> int:
     return 4 * n * (kk + nprimes * mrows)
 
 
-def cols_per_block(kk: int, co: int, psize: int, nprimes: int, n: int,
-                   smem_bytes=fused_smem_bytes) -> int:
-    """The most output columns one block of the product kernels can hold (a
-    divisor of co), so that its rows fit in shared memory by `smem_bytes(kk,
-    mrows, nprimes, n)`; raises if one column does not fit."""
-    for cpb in range(co, 0, -1):
-        if co % cpb == 0 and smem_bytes(kk, cpb * psize, nprimes, n) <= SMEM_LIMIT:
-            return cpb
-    raise ValueError(f"one output column needs {smem_bytes(kk, psize, nprimes, n)} B "
-                     f"of shared memory > {SMEM_LIMIT}")
+@dataclass(frozen=True)
+class Layout:
+    """Where a fused kernel keeps one block's residue rows (csrc/modarith.cuh).
+
+    "shared": all of them in `smem` bytes of shared memory, `cpb` output
+    columns per block, one block per task.  "global": in a global workspace
+    slot of `ws_rows` rows of N words per block (all co columns in one task,
+    the blocks walking the tasks), each transform staged through `smem`
+    bytes of shared memory `chunk` rows at a time."""
+
+    kind: str
+    cpb: int
+    smem: int
+    chunk: int = 0
+    ws_rows: int = 0
+
+
+def kernel_layout(co: int, shared_bytes, split: bool, ws_rows: int, stage_bytes,
+                  max_chunk: int) -> Layout:
+    """The shared layout with the most output columns per block whose
+    `shared_bytes(cpb)` fit (any divisor of co if `split`, else co only);
+    where none does, the global layout with the most rows per pass (up to
+    `max_chunk`) whose `stage_bytes(chunk)` fit.  Raises if one row does not."""
+    for cpb in (range(co, 0, -1) if split else (co,)):
+        if co % cpb == 0 and shared_bytes(cpb) <= SMEM_LIMIT:
+            return Layout("shared", cpb, shared_bytes(cpb))
+    chunk = next((c for c in range(max_chunk, 0, -1) if stage_bytes(c) <= SMEM_LIMIT), 0)
+    if not chunk:
+        raise ValueError(f"one row of the global layout needs {stage_bytes(1)} B of shared "
+                         f"memory > {SMEM_LIMIT}")
+    return Layout("global", co, stage_bytes(chunk), chunk, ws_rows)
+
+
+def product_layout(kk: int, co: int, psize: int, nprimes: int, n: int,
+                   split: bool = True) -> Layout:
+    """The layout of the butterfly product kernels (`fused_product.cu`,
+    `wide_product.cu`; `br_block_step.cu` with `split` False): the global
+    workspace holds the KK input rows and the P·co·psize output rows, the
+    stage whole rows."""
+    return kernel_layout(co, lambda cpb: fused_smem_bytes(kk, cpb * psize, nprimes, n), split,
+                         kk + nprimes * co * psize, lambda c: 4 * n * c, max(kk, co * psize))
+
+
+def launch_workspace(layout: Layout, tasks: int, n: int, device):
+    """(workspace or None, grid) of a launch: the shared layout runs a block
+    per task; the global layout a grid of at most two blocks per SM, each
+    with a workspace slot of `ws_rows` rows of N words."""
+    if layout.kind == "shared":
+        return None, tasks
+    grid = min(tasks, 2 * torch.cuda.get_device_properties(device).multi_processor_count)
+    return torch.empty((grid, layout.ws_rows, n), dtype=torch.int32, device=device), grid
 
 
 def fused_supported(psize: int, res_base2k: int) -> bool:
@@ -161,12 +208,11 @@ def fused_supported(psize: int, res_base2k: int) -> bool:
     return res_base2k + (psize + 1).bit_length() <= 31 and res_base2k <= 26
 
 
-def _check_bounds(P: int, psize: int, res_size: int, smem: int) -> None:
-    """Raise on shapes past the kernels' compile-time bounds or shared memory."""
+def _check_bounds(P: int, psize: int, res_size: int) -> None:
+    """Raise on shapes past the kernels' compile-time bounds (shared memory
+    is the layouts' business)."""
     if P > MAX_PRIMES or psize > MAX_LIMBS or res_size > MAX_LIMBS:
         raise ValueError(f"kernel bounds: P ≤ {MAX_PRIMES}, psize and res_size ≤ {MAX_LIMBS}")
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"kernel needs {smem} B of shared memory > {SMEM_LIMIT}")
 
 
 def _body(small, lead, B: int, n: int):
@@ -184,9 +230,10 @@ def _body(small, lead, B: int, n: int):
 
 def product_fits(module: Module, kk: int, psize: int, res_size: int, ext: int) -> bool:
     """True when `fused_glwe_product`'s kernel takes these shapes: its
-    compile-time bounds, and one output column's rows in shared memory."""
-    return (module.nprimes <= MAX_PRIMES and max(psize, res_size, ext) <= MAX_LIMBS
-            and fused_smem_bytes(kk, psize, module.nprimes, module.n) <= SMEM_LIMIT)
+    compile-time bounds (any N: the global layout takes what shared memory
+    does not)."""
+    del kk
+    return module.nprimes <= MAX_PRIMES and max(psize, res_size, ext) <= MAX_LIMBS
 
 
 def fused_glwe_product(module: Module, a_data, pmat, res_size: int, res_base2k: int,
@@ -212,10 +259,9 @@ def fused_glwe_product(module: Module, a_data, pmat, res_size: int, res_base2k: 
     kk = ci * rmax
     if a_data.shape[-3] != ci or a_data.shape[-1] != n:
         raise ValueError(f"a_data: expected [..., {ci}, size, {n}], got {tuple(a_data.shape)}")
-    cpb = cols_per_block(kk, co, psize, P, n)
-    smem = fused_smem_bytes(kk, cpb * psize, P, n)
+    lay = product_layout(kk, co, psize, P, n)
     s64 = 0 if small64 is None else small64.shape[-2]
-    _check_bounds(P, max(psize, s64), res_size, smem)
+    _check_bounds(P, max(psize, s64), res_size)
     if pmat.device != a_data.device or module.device != a_data.device:
         raise ValueError("a_data, pmat and module must be on one device")
     pm = pm_kernel_layout(pmat, rmax) if dsize == 1 else pm_kernel_layout_dsize(pmat, rmax, dsize)
@@ -237,10 +283,12 @@ def fused_glwe_product(module: Module, a_data, pmat, res_size: int, res_base2k: 
     if rmax == 0 and small is None and small64 is None:
         return out.zero_()
     tw, consts = kernel_tables(module.tables)
+    ws, grid = launch_workspace(lay, B * (co // lay.cpb), n, a_data.device)
     err = _lib.library().poulpy_fused_product(
         a.data_ptr(), pm.data_ptr(), sm_ptr, s64_ptr, out.data_ptr(), tw.data_ptr(),
         consts.data_ptr(), B, ci, a_size, rmax, co, psize, s_size, s64, res_size, res_base2k,
-        pm_base2k, cpb, P, module.log_n, smem, _lib.stream())
+        pm_base2k, lay.cpb, P, module.log_n, lay.smem, _lib.ptr(ws), lay.chunk, grid,
+        _lib.stream())
     _lib.check(err, "poulpy_fused_product")
     LAUNCHES["fused_product_small" if small is not None
              else "fused_product_small64" if small64 is not None else "fused_product"] += 1
@@ -276,7 +324,7 @@ def garner_exit(module: Module, x, psize: int, res_size: int, res_base2k: int, p
     if tuple(x.shape[-3:]) != (psize, P, n) or module.device != x.device:
         raise ValueError(f"x: expected [..., co, {psize}, {P}, {n}] on {module.device}, got "
                          f"{tuple(x.shape)} on {x.device}")
-    _check_bounds(P, psize, res_size, 0)
+    _check_bounds(P, psize, res_size)
     B = x.numel() // (co * psize * P * n) if x.numel() else 0
     xm = x.reshape(B, co, psize, P, n).contiguous()
     _lib.require(xm, "x", torch.int32)
@@ -428,6 +476,18 @@ def xpow_tables(module: Module):
     return cached
 
 
+def xpow_minus1_sigma(module: Module):
+    """`_xpow_minus1_table` in σ order (the order of the MXU transforms'
+    NTT, `mxu.sigma_index`) as an int32 tensor on the module's device, made
+    once per table set: the x-power rows of `fused_mxu_br_block_step`."""
+    t = module.tables
+    cached = getattr(t, "_xpm1_sigma", None)
+    if cached is None:
+        cached = xpow_tables(module)[1][..., sigma_index(t)].contiguous()
+        t._xpm1_sigma = cached
+    return cached
+
+
 def fused_br_block_step_ref(module: Module, acc, pmats, a_blk, res_size: int, base2k: int):
     """Plain version of one block-binary CGGI step (the jnp `block_step` of
     `poulpy_tpu/binfhe/blind_rotation.py`): per key element i, the VMP of
@@ -472,8 +532,8 @@ def fused_br_block_step(module: Module, acc, pmats, a_blk, res_size: int, base2k
         raise ValueError(f"acc {tuple(acc.shape)} does not match the key's {cols} columns")
     if tuple(a_blk.shape) != tuple(lead) + (block,):
         raise ValueError(f"a_blk: expected {tuple(lead) + (block,)}, got {tuple(a_blk.shape)}")
-    smem = fused_smem_bytes(kk, mdim, P, n)
-    _check_bounds(P, psize, res_size, smem)
+    lay = product_layout(kk, cols, psize, P, n, split=False)
+    _check_bounds(P, psize, res_size)
     if pm_k is None:
         pm_k = pm_kernel_layout(pmats, rmax)
     if tuple(pm_k.shape) != (block, P, kk, mdim, n):
@@ -491,10 +551,11 @@ def fused_br_block_step(module: Module, acc, pmats, a_blk, res_size: int, base2k
         return out
     _, xpm1 = xpow_tables(module)
     tw, consts = kernel_tables(module.tables)
+    ws, grid = launch_workspace(lay, B, n, acc.device)
     err = _lib.library().poulpy_br_block_step(
         a.data_ptr(), pm_k.data_ptr(), xpm1.data_ptr(), amounts.data_ptr(), out.data_ptr(),
         tw.data_ptr(), consts.data_ptr(), B, cols, size, rmax, psize, res_size, base2k, block,
-        P, module.log_n, smem, _lib.stream())
+        P, module.log_n, lay.smem, _lib.ptr(ws), lay.chunk, grid, _lib.stream())
     _lib.check(err, "poulpy_br_block_step")
     LAUNCHES["br_block_step"] += 1
     return out

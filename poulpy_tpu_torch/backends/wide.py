@@ -26,12 +26,14 @@ import torch
 
 from poulpy_tpu_torch.backends import LAUNCHES, _lib
 from poulpy_tpu_torch.backends.fused import (
+    Layout,
     _check_bounds,
-    cols_per_block,
-    fused_smem_bytes,
+    kernel_layout,
+    launch_workspace,
     pm_kernel_layout,
     pm_kernel_layout_dsize,
     product_dft_ref,
+    product_layout,
 )
 from poulpy_tpu_torch.backends.ntt import kernel_tables
 from poulpy_tpu_torch.hal.dft import cnv_apply, dft_add
@@ -88,9 +90,8 @@ def fused_glwe_product_wide(module: Module, a_data, pmat, res_size: int, res_bas
     kk = ci * rmax
     if a_data.shape[-3] != ci or a_data.shape[-1] != n:
         raise ValueError(f"a_data: expected [..., {ci}, size, {n}], got {tuple(a_data.shape)}")
-    cpb = cols_per_block(kk, co, psize, P, n)
-    smem = fused_smem_bytes(kk, cpb * psize, P, n)
-    _check_bounds(P, psize, res_size, smem)
+    lay = product_layout(kk, co, psize, P, n)
+    _check_bounds(P, psize, res_size)
     if pmat.device != a_data.device or module.device != a_data.device:
         raise ValueError("a_data, pmat and module must be on one device")
     pm = pm_kernel_layout(pmat, rmax) if dsize == 1 else pm_kernel_layout_dsize(pmat, rmax, dsize)
@@ -110,10 +111,11 @@ def fused_glwe_product_wide(module: Module, a_data, pmat, res_size: int, res_bas
     if B == 0:
         return out
     tw, consts = kernel_tables(module.tables)
+    ws, grid = launch_workspace(lay, B * (co // lay.cpb), n, a_data.device)
     err = _lib.library().poulpy_wide_product(
         a.data_ptr(), pm.data_ptr(), sm_ptr, out.data_ptr(), tw.data_ptr(), consts.data_ptr(),
-        B, ci, a_size, rmax, co, psize, s_size, res_size, res_base2k, pm_base2k, res_offset, cpb,
-        P, module.log_n, smem, _lib.stream())
+        B, ci, a_size, rmax, co, psize, s_size, res_size, res_base2k, pm_base2k, res_offset,
+        lay.cpb, P, module.log_n, lay.smem, _lib.ptr(ws), lay.chunk, grid, _lib.stream())
     _lib.check(err, "poulpy_wide_product")
     LAUNCHES["wide_product"] += 1
     return out
@@ -149,6 +151,15 @@ def wide_tensor_smem_bytes(size_a: int, size_b: int, conv_size: int, nprimes: in
     return 4 * n * (2 * (size_a + size_b) + nprimes * conv_size)
 
 
+def tensor_wide_layout(size_a: int, size_b: int, conv_size: int, nprimes: int, n: int) -> Layout:
+    """The layout of `wide_tensor.cu` (one block per ciphertext and pair):
+    the global workspace holds the same rows, the stage whole rows."""
+    in_rows = 2 * (size_a + size_b)
+    return kernel_layout(1, lambda _: wide_tensor_smem_bytes(size_a, size_b, conv_size, nprimes, n),
+                         False, in_rows + nprimes * conv_size, lambda c: 4 * n * c,
+                         max(in_rows, conv_size))
+
+
 def fused_tensor_product_wide(module: Module, a_data, b_data, conv_size: int, dnum: int,
                               lin_size: int, kr: int, ka: int, offset: int = 0):
     """Rank-1 wide tensor product of `a_data` [..., 2, size_a, N] and
@@ -168,8 +179,8 @@ def fused_tensor_product_wide(module: Module, a_data, b_data, conv_size: int, dn
             2, size_b, n):
         raise ValueError(f"a_data {tuple(a_data.shape)}, b_data {tuple(b_data.shape)}: expected "
                          f"rank-1 ciphertexts [..., 2, size, {n}] with one batch shape")
-    smem = wide_tensor_smem_bytes(size_a, size_b, conv_size, P, n)
-    _check_bounds(P, conv_size, max(dnum, lin_size), smem)
+    lay = tensor_wide_layout(size_a, size_b, conv_size, P, n)
+    _check_bounds(P, conv_size, max(dnum, lin_size))
     if b_data.device != a_data.device or module.device != a_data.device:
         raise ValueError("a_data, b_data and module must be on one device")
     B = a_data.numel() // (2 * size_a * n) if a_data.numel() else 0
@@ -182,10 +193,11 @@ def fused_tensor_product_wide(module: Module, a_data, b_data, conv_size: int, dn
     if B == 0:
         return d, lin
     tw, consts = kernel_tables(module.tables)
+    ws, grid = launch_workspace(lay, B * 3, n, a_data.device)
     err = _lib.library().poulpy_wide_tensor(
         a.data_ptr(), b.data_ptr(), d.data_ptr(), lin.data_ptr(), tw.data_ptr(),
         consts.data_ptr(), B, size_a, size_b, conv_size, dnum, lin_size, kr, ka, offset, P,
-        module.log_n, smem, _lib.stream())
+        module.log_n, lay.smem, _lib.ptr(ws), lay.chunk, grid, _lib.stream())
     _lib.check(err, "poulpy_wide_tensor")
     LAUNCHES["wide_tensor"] += 1
     return d, lin

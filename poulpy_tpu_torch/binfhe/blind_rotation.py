@@ -9,9 +9,14 @@ Block-binary path:  for each block of `block_size` key elements, one fused
 
 Every ciphertext of a batch rotates by its own amounts.  On CUDA the
 standard path runs one fused product kernel per coefficient and the block
-path one block-step kernel per block (`backends/fused.py`); on the CPU both
-take the plain versions.  The extended path (a LUT over several
-polynomials) is not ported.
+path one block-step kernel per block; on the CPU both take the plain
+versions.  `route` picks the kernels: "fused" (the default) the butterfly
+ones (`backends/fused.py`), "fused_mxu" those of the four-step int8
+transforms (`backends/fused_mxu.py`, the JAX package's
+POULPY_TPU_FUSED_MXU=1) where `br_route` allows it; "mxu" takes the
+butterfly kernels, as the JAX package's POULPY_TPU_MXU=1 does not reach the
+blind rotation.  The extended path (a LUT over several polynomials) is not
+ported.
 """
 
 from __future__ import annotations
@@ -25,8 +30,16 @@ from poulpy_tpu_torch.backends.fused import (  # noqa: F401  (the x-power tables
     _xpow_table,
     fused_br_block_step,
     fused_glwe_product,
+    fused_supported,
     pm_kernel_layout,
 )
+from poulpy_tpu_torch.backends.fused_mxu import (
+    fused_mxu_br_block_step,
+    fused_mxu_glwe_product,
+    fused_mxu_supported,
+)
+from poulpy_tpu_torch.backends.mxu import sigma_index
+from poulpy_tpu_torch.backends.mxu_product import ROUTES
 from poulpy_tpu_torch.binfhe.lut import LookupTable, _single_poly
 from poulpy_tpu_torch.core.encryption import ggsw_encrypt_sk
 from poulpy_tpu_torch.core.layouts import LWECiphertext, _Replace
@@ -57,14 +70,36 @@ class BlindRotationKeyPrepared(_Replace):
         return self.pmats.shape[-4] - 1
 
 
-def brk_kernel_layout(brk: BlindRotationKeyPrepared, rmax: int) -> torch.Tensor:
-    """The key in the block-step kernel's layout, [n_lwe, P, KK, M, N] int32
-    (`pm_kernel_layout` of the first `rmax` gadget rows), made once per key
-    and row count and kept on the key."""
+def brk_kernel_layout(brk: BlindRotationKeyPrepared, rmax: int, sigma=None) -> torch.Tensor:
+    """The key in the kernels' layout, [n_lwe, P, KK, M, N] int32
+    (`pm_kernel_layout` of the first `rmax` gadget rows), its last axis
+    gathered by the index `sigma` for the MXU kernels (σ order), made once
+    per key, row count and order and kept on the key."""
     cache = brk.__dict__.setdefault("_pm_kernel", {})
-    if rmax not in cache:
-        cache[rmax] = pm_kernel_layout(brk.pmats, rmax)
-    return cache[rmax]
+    key = (rmax, sigma is not None)
+    if key not in cache:
+        pm = pm_kernel_layout(brk.pmats, rmax)
+        cache[key] = pm if sigma is None else pm[..., sigma].contiguous()
+    return cache[key]
+
+
+def br_route(module: Module, route: str, psize: int, base2k: int, dsize: int,
+             extra_bits: int) -> str:
+    """The kernels a blind rotation takes when `route` is asked for:
+    "fused_mxu" where the JAX package's `_use_fused_br` (dsize 1,
+    `fused_supported`, base2k + bitlen(extra_bits + 2) ≤ 29: the MXU kernels
+    wrap their input limbs to int32, and the standard path's accumulator,
+    extra_bits = n_lwe there and 0 on the block path, stays unnormalized)
+    and `_use_mxu_br` (`fused_mxu_supported`: N ≥ 256) both hold; "fused",
+    the butterfly kernels, which take any int64 and give the same result,
+    everywhere else."""
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if (route == "fused_mxu" and dsize == 1 and fused_supported(psize, base2k)
+            and base2k + (extra_bits + 2).bit_length() <= 29
+            and fused_mxu_supported(module, psize, base2k)):
+        return "fused_mxu"
+    return "fused"
 
 
 def blind_rotation_key_encrypt_sk(module: Module, sk_lwe, sk_glwe: GLWESecretPrepared,
@@ -108,23 +143,41 @@ def _acc_init(b, lut: LookupTable, rank: int):
     return torch.cat([body[..., None, :, :], mask], dim=-3)
 
 
+def _kernel_key(module: Module, brk: BlindRotationKeyPrepared, acc, size: int, mxu: bool):
+    """The key in its kernels' layout on CUDA (σ order for the MXU ones);
+    None on the CPU, where the plain versions read `pmats`."""
+    if acc.device.type != "cuda":
+        return None
+    return brk_kernel_layout(brk, min(brk.pmats.shape[-6], size),
+                             sigma_index(module.tables) if mxu else None)
+
+
 def blind_rotation_execute(module: Module, lwe: LWECiphertext, lut: LookupTable,
-                           brk: BlindRotationKeyPrepared):
+                           brk: BlindRotationKeyPrepared, route: str = "fused"):
     """Standard CGGI path: GLWE data `[..., rank+1, size, N]` (base2k =
     brk.base2k) encrypting X^{-dec(lwe)}·LUT.  The accumulator stays
-    unnormalized between coefficients (the product takes any int64)."""
+    unnormalized between coefficients (the butterfly product takes any
+    int64; `br_route` keeps the MXU one within int32)."""
     _single_poly(lut.extension_factor)
     base2k, size = brk.base2k, lut.size
     lwe_2n = mod_switch_2n(2 * module.n, lwe, lut.rot_dir)
     acc = _acc_init(lwe_2n[..., 0], lut, brk.rank)
+    psize = brk.pmats.shape[-3]
+    mxu = br_route(module, route, psize, base2k, brk.dsize, brk.n_lwe) == "fused_mxu"
+    pm_k = _kernel_key(module, brk, acc, size, mxu) if mxu else None
     for i in range(brk.n_lwe):
-        tmp = fused_glwe_product(module, acc, brk.pmats[i], size, base2k, base2k)
+        if mxu:
+            tmp = fused_mxu_glwe_product(module, acc, brk.pmats[i], size, base2k, base2k,
+                                         pm_k=None if pm_k is None else pm_k[i])
+        else:
+            tmp = fused_glwe_product(module, acc, brk.pmats[i], size, base2k, base2k)
         acc = acc + (vec_znx_rotate(lwe_2n[..., i + 1, None, None], tmp) - tmp)
     return vec_znx_normalize(base2k, acc)
 
 
 def blind_rotation_execute_block(module: Module, lwe: LWECiphertext, lut: LookupTable,
-                                 brk: BlindRotationKeyPrepared, block_size: int):
+                                 brk: BlindRotationKeyPrepared, block_size: int,
+                                 route: str = "fused"):
     """Block-binary CGGI path for block-binary LWE secrets (at most one set
     coefficient per block): one fused step per block of the key."""
     _single_poly(lut.extension_factor)
@@ -137,23 +190,25 @@ def blind_rotation_execute_block(module: Module, lwe: LWECiphertext, lut: Lookup
     batch = tuple(lwe_2n.shape[:-1])
     # [nblocks, ..., block]: each step's amounts contiguous
     a_blocks = lwe_2n[..., 1:].reshape(batch + (nblocks, block_size)).movedim(-2, 0).contiguous()
-    # the kernel reads the key in its own layout, made once per key; the
-    # plain version reads `pmats`
-    pm_k = brk_kernel_layout(brk, min(brk.pmats.shape[-6], size)) \
-        if acc.device.type == "cuda" else None
+    mxu = br_route(module, route, brk.pmats.shape[-3], base2k, brk.dsize, 0) == "fused_mxu"
+    step = fused_mxu_br_block_step if mxu else fused_br_block_step
+    # the kernel reads the key in its own layout, made once per key
+    pm_k = _kernel_key(module, brk, acc, size, mxu)
     for j in range(nblocks):
         blk = slice(j * block_size, (j + 1) * block_size)
-        acc = fused_br_block_step(module, acc, brk.pmats[blk], a_blocks[j], size, base2k,
-                                  None if pm_k is None else pm_k[blk])
+        acc = step(module, acc, brk.pmats[blk], a_blocks[j], size, base2k,
+                   None if pm_k is None else pm_k[blk])
     return acc
 
 
 def blind_rotation_dispatch(module: Module, lwe: LWECiphertext, lut: LookupTable,
-                            brk: BlindRotationKeyPrepared, block_size: int = 1):
-    """The block-binary path for block_size > 1 keys, else the standard one.
-    A LUT over several polynomials (the extended path) raises."""
+                            brk: BlindRotationKeyPrepared, block_size: int = 1,
+                            route: str = "fused"):
+    """The block-binary path for block_size > 1 keys, else the standard one,
+    through `route`.  A LUT over several polynomials (the extended path)
+    raises."""
     if lut.extension_factor > 1:
         raise NotImplementedError("the extended blind rotation path is not ported")
     if block_size > 1:
-        return blind_rotation_execute_block(module, lwe, lut, brk, block_size)
-    return blind_rotation_execute(module, lwe, lut, brk)
+        return blind_rotation_execute_block(module, lwe, lut, brk, block_size, route)
+    return blind_rotation_execute(module, lwe, lut, brk, route)

@@ -3,7 +3,9 @@ twin of `poulpy_tpu/binfhe/gates.py`.
 
 A gate is a linear combination of LWE ciphertexts, then the sign-LUT blind
 rotation, the GLWE → LWE keyswitch and the coefficient-0 extraction.
-Bit encoding: b ↦ (2b−1)/8 on the torus.
+Bit encoding: b ↦ (2b−1)/8 on the torus.  Every gate takes `route`
+("fused", "mxu" or "fused_mxu"), passed to the blind rotation
+(`blind_rotation_dispatch`) and to the keyswitch (`glwe_keyswitch`).
 """
 
 from __future__ import annotations
@@ -107,41 +109,47 @@ def _const_lwe(params: GateParams, num: int, den_log2: int, like: LWECiphertext)
     return data
 
 
-def _bootstrap(keys: BootstrapKeys, lin_data) -> LWECiphertext:
+def _bootstrap(keys: BootstrapKeys, lin_data, route: str = "fused") -> LWECiphertext:
     """Sign-LUT blind rotation, keyswitch to the LWE secret, extraction."""
     params = keys.params
     lin = LWECiphertext(data=vec_znx_normalize(params.base2k, lin_data), base2k=params.base2k,
                         k=params.k_ct)
-    acc = blind_rotation_dispatch(keys.module, lin, keys.lut, keys.brk, params.block_size)
+    acc = blind_rotation_dispatch(keys.module, lin, keys.lut, keys.brk, params.block_size, route)
     glwe = GLWECiphertext(data=acc, base2k=params.base2k, k=keys.lut.size * params.base2k)
-    ks = glwe_keyswitch(keys.module, glwe, keys.to_lwe, params.base2k, params.k_ct)
+    ks = glwe_keyswitch(keys.module, glwe, keys.to_lwe, params.base2k, params.k_ct, route=route)
     return lwe_sample_extract(ks, params.n_lwe, params.k_ct)
 
 
-def gate_nand(keys: BootstrapKeys, c1: LWECiphertext, c2: LWECiphertext) -> LWECiphertext:
-    return _bootstrap(keys, _const_lwe(keys.params, 1, 3, c1) - c1.data - c2.data)
+def gate_nand(keys: BootstrapKeys, c1: LWECiphertext, c2: LWECiphertext,
+              route: str = "fused") -> LWECiphertext:
+    return _bootstrap(keys, _const_lwe(keys.params, 1, 3, c1) - c1.data - c2.data, route)
 
 
-def gate_and(keys: BootstrapKeys, c1: LWECiphertext, c2: LWECiphertext) -> LWECiphertext:
-    return _bootstrap(keys, -_const_lwe(keys.params, 1, 3, c1) + c1.data + c2.data)
+def gate_and(keys: BootstrapKeys, c1: LWECiphertext, c2: LWECiphertext,
+             route: str = "fused") -> LWECiphertext:
+    return _bootstrap(keys, -_const_lwe(keys.params, 1, 3, c1) + c1.data + c2.data, route)
 
 
-def gate_or(keys: BootstrapKeys, c1: LWECiphertext, c2: LWECiphertext) -> LWECiphertext:
-    return _bootstrap(keys, _const_lwe(keys.params, 1, 3, c1) + c1.data + c2.data)
+def gate_or(keys: BootstrapKeys, c1: LWECiphertext, c2: LWECiphertext,
+            route: str = "fused") -> LWECiphertext:
+    return _bootstrap(keys, _const_lwe(keys.params, 1, 3, c1) + c1.data + c2.data, route)
 
 
-def gate_nor(keys: BootstrapKeys, c1: LWECiphertext, c2: LWECiphertext) -> LWECiphertext:
-    return _bootstrap(keys, -_const_lwe(keys.params, 1, 3, c1) - c1.data - c2.data)
+def gate_nor(keys: BootstrapKeys, c1: LWECiphertext, c2: LWECiphertext,
+             route: str = "fused") -> LWECiphertext:
+    return _bootstrap(keys, -_const_lwe(keys.params, 1, 3, c1) - c1.data - c2.data, route)
 
 
-def gate_xor(keys: BootstrapKeys, c1: LWECiphertext, c2: LWECiphertext) -> LWECiphertext:
-    return _bootstrap(keys, _const_lwe(keys.params, 1, 2, c1) + 2 * (c1.data + c2.data))
+def gate_xor(keys: BootstrapKeys, c1: LWECiphertext, c2: LWECiphertext,
+             route: str = "fused") -> LWECiphertext:
+    return _bootstrap(keys, _const_lwe(keys.params, 1, 2, c1) + 2 * (c1.data + c2.data), route)
 
 
-def gate_xnor(keys: BootstrapKeys, c1: LWECiphertext, c2: LWECiphertext) -> LWECiphertext:
-    return _bootstrap(keys, -_const_lwe(keys.params, 1, 2, c1) - 2 * (c1.data + c2.data))
+def gate_xnor(keys: BootstrapKeys, c1: LWECiphertext, c2: LWECiphertext,
+              route: str = "fused") -> LWECiphertext:
+    return _bootstrap(keys, -_const_lwe(keys.params, 1, 2, c1) - 2 * (c1.data + c2.data), route)
 
 
-def gate_not(keys: BootstrapKeys, c1: LWECiphertext) -> LWECiphertext:
-    del keys
+def gate_not(keys: BootstrapKeys, c1: LWECiphertext, route: str = "fused") -> LWECiphertext:
+    del keys, route          # no bootstrap: the negation of the phase
     return c1.replace(data=-c1.data)

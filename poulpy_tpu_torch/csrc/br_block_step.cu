@@ -29,7 +29,11 @@
 // the block's sum never leaves the thread, and no [B, block, P, N] gather is
 // materialized.  Inverse NTT of the M rows, then the Garner lift, the
 // wrapping add of the input acc limbs (column c, limb j < min(size, psize))
-// and the bit-window normalization, as in fused_product.cu.
+// and the bit-window normalization, as in fused_product.cu.  Where those
+// rows do not fit (327,680 B at the gate shape at N 4096),
+// br_block_step_staged_kernel keeps them in a global workspace and passes
+// each transform through shared memory srows rows at a time (modarith.cuh,
+// global layout).
 #include "modarith.cuh"
 
 namespace {
@@ -38,6 +42,7 @@ using namespace poulpy;
 
 constexpr int THREADS = 512;
 
+// The shared layout: the block's rows in shared memory.
 __global__ void __launch_bounds__(THREADS, 1) br_block_step_kernel(
     const int64_t* __restrict__ acc, const int32_t* __restrict__ pm,
     const int32_t* __restrict__ xpm1, const int64_t* __restrict__ amounts,
@@ -93,25 +98,107 @@ __global__ void __launch_bounds__(THREADS, 1) br_block_step_kernel(
   }
 }
 
+// The global layout (modarith.cuh): the block's rows in its workspace slot,
+// each transform staged through shared memory srows rows at a time, the
+// blocks walking the ciphertexts.  The same computation as
+// br_block_step_kernel, whose code is kept apart: written through the shared
+// helpers it ran 1 % slower on the gate path (PERF.md §6).
+__global__ void __launch_bounds__(THREADS, 1) br_block_step_staged_kernel(
+    const int64_t* __restrict__ acc, const int32_t* __restrict__ pm,
+    const int32_t* __restrict__ xpm1, const int64_t* __restrict__ amounts,
+    int64_t* __restrict__ out, const int32_t* __restrict__ tw,
+    const int64_t* __restrict__ consts, int cols, int size, int rmax, int psize, int res_size,
+    int kr, int block, int P, int logn, uint32_t* __restrict__ ws, int srows, int tasks) {
+  extern __shared__ uint32_t smem[];
+  const int n = 1 << logn;
+  const int kk = cols * rmax;
+  const int mdim = cols * psize;
+  for_each_task<true>(tasks, ws, (size_t)(kk + P * mdim) * n, [&](int task, uint32_t* xin) {
+    uint32_t* ys = xin + (size_t)kk * n;      // [P][mdim][n]
+    const int64_t b = task;
+    const int64_t* ab = acc + b * cols * size * n;
+    const int64_t* am = amounts + b * block;
+
+    for (int pi = 0; pi < P; ++pi) {
+      const int64_t* c = consts + pi * CONSTS_PER_PRIME;
+      const uint32_t p = (uint32_t)c[C_P];
+      const uint32_t qinv = (uint32_t)c[C_QINV];
+      transform_rows<true>(
+          xin, kk, smem, srows, logn,
+          [&](uint32_t* buf, int r0, int nr) {
+            load_rows_mod_p(buf, ab, size, rmax, r0, nr, logn, p);
+          },
+          [&](uint32_t* buf, int nr) { ntt_fwd_rows(buf, nr, logn, tw + (size_t)pi * n, p, qinv); });
+      transform_rows<true>(
+          ys + (size_t)pi * mdim * n, mdim, smem, srows, logn,
+          [&](uint32_t* buf, int r0, int nr) {
+            for (int idx = threadIdx.x; idx < (nr << logn); idx += blockDim.x) {
+              const int m = r0 + (idx >> logn);
+              const int coef = idx & (n - 1);
+              uint32_t sum = 0;
+              for (int i = 0; i < block; ++i) {
+                const int32_t* pmi = pm + ((size_t)i * P + pi) * kk * mdim * n;
+                uint64_t dot = 0;
+                for (int k = 0; k < kk; ++k) {
+                  dot = mac_guard(dot, xin[(k << logn) + coef],
+                                  (uint32_t)__ldg(pmi + ((size_t)k * mdim + m) * n + coef), p);
+                }
+                const int64_t row = __ldg(am + i) & (2 * n - 1);
+                const uint32_t w = (uint32_t)__ldg(xpm1 + ((size_t)row * P + pi) * n + coef);
+                sum = add_mod(sum, mont_mul(fold_redc(dot, p, qinv), w, p, qinv), p);
+              }
+              buf[idx] = sum;
+            }
+            __syncthreads();
+          },
+          [&](uint32_t* buf, int nr) {
+            ntt_inv_rows(buf, nr, logn, tw + (size_t)(P + pi) * n, p, qinv);
+          });
+    }
+
+    const int add_size = size < psize ? size : psize;
+    for (int idx = threadIdx.x; idx < (cols << logn); idx += blockDim.x) {
+      const int col = idx >> logn;
+      const int coef = idx & (n - 1);
+      lift_add_normalize(ys, P, mdim, logn, col, psize, coef, ab + (int64_t)col * size * n + coef,
+                         add_size, psize, out + ((b * cols + col) * res_size) * n + coef, res_size,
+                         kr, kr, consts);
+    }
+  });
+}
+
 }  // namespace
 
 // acc: [B, cols, size, N] int64; pm: [block, P, cols·rmax, cols·psize, N]
 // int32 Montgomery (backends/fused.py pm_kernel_layout of the block's key
 // elements); xpm1: [2N, P, N] int32 Montgomery NTT(X^j - 1); amounts: [B,
 // block] int64; out: [B, cols, res_size, N] int64 (not aliasing acc); tw,
-// consts: backends/ntt.py kernel_tables; smem: backends/fused.py
-// fused_smem_bytes.  Returns the cudaError_t of the launch.
+// consts: backends/ntt.py kernel_tables; smem: the layout's shared memory
+// (backends/fused.py block_step_layout).  ws: null for the shared layout (a
+// block per ciphertext), else the global layout's workspace of `grid` slots
+// of cols·rmax + P·cols·psize rows of N words, srows rows staged at a time.
+// Returns the cudaError_t of the launch.
 extern "C" int poulpy_br_block_step(const void* acc, const void* pm, const void* xpm1,
                                     const void* amounts, void* out, const void* tw,
                                     const void* consts, int B, int cols, int size, int rmax,
                                     int psize, int res_size, int kr, int block, int P, int logn,
-                                    int smem, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(br_block_step_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  br_block_step_kernel<<<(unsigned)B, THREADS, (size_t)smem, (cudaStream_t)stream>>>(
-      (const int64_t*)acc, (const int32_t*)pm, (const int32_t*)xpm1, (const int64_t*)amounts,
-      (int64_t*)out, (const int32_t*)tw, (const int64_t*)consts, cols, size, rmax, psize,
-      res_size, kr, block, P, logn);
+                                    int smem, void* ws, int srows, int grid, void* stream) {
+  if (ws == nullptr) {
+    cudaError_t e = cudaFuncSetAttribute(br_block_step_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    br_block_step_kernel<<<(unsigned)B, THREADS, (size_t)smem, (cudaStream_t)stream>>>(
+        (const int64_t*)acc, (const int32_t*)pm, (const int32_t*)xpm1, (const int64_t*)amounts,
+        (int64_t*)out, (const int32_t*)tw, (const int64_t*)consts, cols, size, rmax, psize,
+        res_size, kr, block, P, logn);
+  } else {
+    cudaError_t e = cudaFuncSetAttribute(br_block_step_staged_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    br_block_step_staged_kernel<<<(unsigned)grid, THREADS, (size_t)smem, (cudaStream_t)stream>>>(
+        (const int64_t*)acc, (const int32_t*)pm, (const int32_t*)xpm1, (const int64_t*)amounts,
+        (int64_t*)out, (const int32_t*)tw, (const int64_t*)consts, cols, size, rmax, psize,
+        res_size, kr, block, P, logn, (uint32_t*)ws, srows, B);
+  }
   return (int)cudaGetLastError();
 }

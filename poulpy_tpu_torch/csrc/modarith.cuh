@@ -265,20 +265,80 @@ __device__ __forceinline__ void normalize_full_wide(const __int128* a, int a_siz
 // ---- shared stages of the fused kernels (fused_product.cu, br_block_step.cu,
 // wide_product.cu, wide_tensor.cu, tensor_product.cu) ----
 
-// Entry: the first rmax limbs of each of the ci columns of one ciphertext
-// (a: [ci][size_a][n] int64, any value) reduced to [0, p) into the kk = ci·rmax
-// rows of xin (row k = column·rmax + limb).  Ends with a barrier.
+// Entry: rows r0 .. r0+nr−1 of the entry rows of one ciphertext (a: [ci][size_a][n]
+// int64, any value; row k = column·rmax + limb, limb < rmax) reduced to [0, p) into
+// xin [nr][n].  Ends with a barrier.
 __device__ __forceinline__ void load_rows_mod_p(uint32_t* xin, const int64_t* __restrict__ a,
-                                                int ci, int size_a, int rmax, int logn, uint32_t p) {
+                                                int size_a, int rmax, int r0, int nr, int logn,
+                                                uint32_t p) {
   const int n = 1 << logn;
-  for (int idx = threadIdx.x; idx < ((ci * rmax) << logn); idx += blockDim.x) {
-    const int k = idx >> logn;
+  for (int idx = threadIdx.x; idx < (nr << logn); idx += blockDim.x) {
+    const int k = r0 + (idx >> logn);
     const int col = k / rmax;
     const int l = k - col * rmax;
     const int64_t v = a[((int64_t)col * size_a + l) * n + (idx & (n - 1))] % (int64_t)p;
     xin[idx] = (uint32_t)(v < 0 ? v + p : v);
   }
   __syncthreads();
+}
+
+// All kk = ci·rmax entry rows.
+__device__ __forceinline__ void load_rows_mod_p(uint32_t* xin, const int64_t* __restrict__ a,
+                                                int ci, int size_a, int rmax, int logn, uint32_t p) {
+  load_rows_mod_p(xin, a, size_a, rmax, 0, ci * rmax, logn, p);
+}
+
+// ---- the global layout of the fused kernels ----
+//
+// A fused kernel keeps a block's residue rows in shared memory where they fit
+// (the shared layout).  Where they do not, the wrapper launches the kernel's
+// STAGED instance (the global layout): the rows live in a global workspace,
+// one slot of rows per block, the block walks its tasks grid-stride, and each
+// transform runs in shared memory on at most `srows` rows at a time.
+
+// dst[0, rows·n) ← src, then a barrier.
+__device__ __forceinline__ void copy_rows(uint32_t* dst, const uint32_t* src, int rows, int logn) {
+  for (int idx = threadIdx.x; idx < (rows << logn); idx += blockDim.x) dst[idx] = src[idx];
+  __syncthreads();
+}
+
+// Rows [0, rows) of one transform into dst: fill(buf, r0, nr) writes rows
+// r0 .. r0+nr−1 into buf, xform(buf, nr) transforms them in place (each ends
+// with a barrier).  Shared layout: buf is dst, in one pass.  STAGED: dst is
+// the global workspace and the rows pass through `stage` (shared memory)
+// `srows` at a time.
+template <bool STAGED, class Fill, class Xform>
+__device__ __forceinline__ void transform_rows(uint32_t* dst, int rows, uint32_t* stage, int srows,
+                                               int logn, Fill fill, Xform xform) {
+  if (!STAGED) {
+    fill(dst, 0, rows);
+    xform(dst, rows);
+    return;
+  }
+  for (int r0 = 0; r0 < rows; r0 += srows) {
+    const int nr = min(srows, rows - r0);
+    fill(stage, r0, nr);
+    xform(stage, nr);
+    copy_rows(dst + ((size_t)r0 << logn), stage, nr, logn);
+  }
+}
+
+// The kernel's work: body(task, slot) for each of `tasks` tasks.  Shared
+// layout: one task per block (the grid is the task count).  STAGED: the block
+// walks its tasks grid-stride with its own workspace slot of `slot_words`
+// words, a barrier between tasks.
+template <bool STAGED, class Body>
+__device__ __forceinline__ void for_each_task(int tasks, uint32_t* ws, size_t slot_words,
+                                              Body body) {
+  if (!STAGED) {
+    body((int)blockIdx.x, (uint32_t*)nullptr);
+    return;
+  }
+  uint32_t* slot = ws + (size_t)blockIdx.x * slot_words;
+  for (int task = blockIdx.x; task < tasks; task += gridDim.x) {
+    body(task, slot);
+    __syncthreads();
+  }
 }
 
 // VMP of one prime: output rows m0 .. m0+mrows−1 of the [kk][mdim][n] matrix
@@ -341,18 +401,18 @@ __device__ __forceinline__ void lift_add_normalize(const uint32_t* ys, int P, in
 // Rank-1 tensor step, one prime, one coefficient: the limb convolution of
 // column pair `pair` (0: a0·b0, 1: a0·b1 + a1·b0, 2: a1·b1) of the NTT'd
 // standard residues xa [ncols][size_a][n] and xb [ncols][size_b][n] (ncols 2
-// for pair 1, else 1), y[k·n + coef] = Σ_{l + j = k} xa_l·xb_j mod p for
-// k < conv_size ≤ MAX_LIMBS.  The sums run in u64 folded at 2^63 (mac_guard)
-// and are reduced once.  IN_PLACE: every input of the coefficient is read
-// before any output is written, so y may alias xa (a thread then works on
-// its own column of the rows); otherwise each output is written as it is
-// summed.
+// for pair 1, else 1), y[(k − k0)·n + coef] = Σ_{l + j = k} xa_l·xb_j mod p
+// for k0 ≤ k < k1 ≤ MAX_LIMBS.  The sums run in u64 folded at 2^63
+// (mac_guard) and are reduced once.  IN_PLACE (k0 = 0): every input of the
+// coefficient is read before any output is written, so y may alias xa (a
+// thread then works on its own column of the rows); otherwise each output
+// is written as it is summed.
 template <bool IN_PLACE>
 __device__ __forceinline__ void pair_conv(uint32_t* y, const uint32_t* xa, const uint32_t* xb,
-                                          int pair, int size_a, int size_b, int conv_size,
+                                          int pair, int size_a, int size_b, int k0, int k1,
                                           int logn, int coef, uint32_t p) {
   uint32_t res[IN_PLACE ? MAX_LIMBS : 1];
-  for (int k = 0; k < conv_size; ++k) {
+  for (int k = k0; k < k1; ++k) {
     uint64_t acc = 0;
     for (int l = 0; l < size_a; ++l) {
       const int j = k - l;
@@ -367,10 +427,10 @@ __device__ __forceinline__ void pair_conv(uint32_t* y, const uint32_t* xa, const
     if (IN_PLACE)
       res[k] = (uint32_t)(acc % p);
     else
-      y[(k << logn) + coef] = (uint32_t)(acc % p);
+      y[((k - k0) << logn) + coef] = (uint32_t)(acc % p);
   }
   if (IN_PLACE)
-    for (int k = 0; k < conv_size; ++k) y[(k << logn) + coef] = res[k];
+    for (int k = 0; k < k1; ++k) y[(k << logn) + coef] = res[k];
 }
 
 // The wide twin of lift_add_normalize: the Garner lift to 128 bits, + the

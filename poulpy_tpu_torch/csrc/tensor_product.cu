@@ -69,7 +69,7 @@ __global__ void __launch_bounds__(THREADS, 1) tensor_product_kernel(
     load_rows_mod_p(xb, b + ((ct * 2 + col0) * size_b) * n, ncols, size_b, size_b, logn, p);
     ntt_fwd_rows(xa, ncols * (size_a + size_b), logn, tw + (size_t)pi * n, p, qinv);
     for (int coef = threadIdx.x; coef < n; coef += blockDim.x)
-      pair_conv<true>(smem, xa, xb, pair, size_a, size_b, conv_size, logn, coef, p);
+      pair_conv<true>(smem, xa, xb, pair, size_a, size_b, 0, conv_size, logn, coef, p);
     __syncthreads();
     ntt_inv_rows(smem, conv_size, logn, tw + (size_t)(P + pi) * n, p, qinv);
     uint32_t* rp = res + (size_t)pi * conv_size * n;

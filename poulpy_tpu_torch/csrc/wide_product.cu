@@ -23,11 +23,13 @@
 // needs 4·N·(KK + P·M) bytes, 262,144 at the mul shape (N 2048, KK 2, M 6,
 // P 5): over the 232,448 a block may have.  So a block takes one ciphertext and a group of
 // `cpb` output columns (co/cpb blocks per ciphertext, cpb the largest divisor
-// of co that fits, backends/fused.py cols_per_block): 4·N·(KK + P·cpb·psize)
+// of co that fits, backends/fused.py product_layout): 4·N·(KK + P·cpb·psize)
 // bytes, 139,264 at the mul shape with cpb 1.  Each block recomputes the KK
 // forward NTT rows (cheap beside the M·P inverse rows it keeps); the entry,
 // NTT, VMP and inverse NTT are modarith.cuh's device functions, shared with
-// fused_product.cu.  Then one thread per (column, coefficient) does the N^{-1}
+// fused_product.cu.  Where one column does not fit either (the CKKS-wide key
+// at N 4096: 278,528 B), the STAGED instance takes fused_product.cu's global
+// layout.  Then one thread per (column, coefficient) does the N^{-1}
 // scale, the 128-bit Garner lift, the add of the sign-extended `small` limbs
 // and the pair-window normalization with the landing offset.
 #include "modarith.cuh"
@@ -38,43 +40,59 @@ using namespace poulpy;
 
 constexpr int THREADS = 512;
 
+// STAGED: the global layout (modarith.cuh), the block's rows in its
+// workspace slot.
+template <bool STAGED>
 __global__ void __launch_bounds__(THREADS, 1) wide_product_kernel(
     const int64_t* __restrict__ a, const int32_t* __restrict__ pm,
     const int64_t* __restrict__ small, int64_t* __restrict__ out,
     const int32_t* __restrict__ tw, const int64_t* __restrict__ consts, int ci, int size_a,
     int rmax, int co, int psize, int s_size, int res_size, int kr, int ka, int offset, int cpb,
-    int P, int logn) {
+    int P, int logn, uint32_t* __restrict__ ws, int srows, int tasks) {
   extern __shared__ uint32_t smem[];
   const int n = 1 << logn;
   const int kk = ci * rmax;
   const int mdim = co * psize;
   const int mrows = cpb * psize;
   const int groups = co / cpb;
-  const int64_t b = blockIdx.x / groups;
-  const int c0 = (blockIdx.x % groups) * cpb;
-  uint32_t* xin = smem;                      // [kk][n], one prime at a time
-  uint32_t* ys = smem + (size_t)kk * n;      // [P][mrows][n]
+  for_each_task<STAGED>(tasks, ws, (size_t)(kk + P * mrows) * n, [&](int task, uint32_t* slot) {
+    const int64_t b = task / groups;
+    const int c0 = (task % groups) * cpb;
+    uint32_t* xin = STAGED ? slot : smem;    // [kk][n], one prime at a time
+    uint32_t* ys = xin + (size_t)kk * n;      // [P][mrows][n]
+    const int64_t* ab = a + b * ci * size_a * n;
 
-  for (int pi = 0; pi < P; ++pi) {
-    const int64_t* c = consts + pi * CONSTS_PER_PRIME;
-    const uint32_t p = (uint32_t)c[C_P];
-    const uint32_t qinv = (uint32_t)c[C_QINV];
-    load_rows_mod_p(xin, a + b * ci * size_a * n, ci, size_a, rmax, logn, p);
-    ntt_fwd_rows(xin, kk, logn, tw + (size_t)pi * n, p, qinv);
-    uint32_t* y = ys + (size_t)pi * mrows * n;
-    vmp_rows(y, xin, pm + (size_t)pi * kk * mdim * n, kk, mdim, c0 * psize, mrows, logn, p, qinv);
-    ntt_inv_rows(y, mrows, logn, tw + (size_t)(P + pi) * n, p, qinv);
-  }
+    for (int pi = 0; pi < P; ++pi) {
+      const int64_t* c = consts + pi * CONSTS_PER_PRIME;
+      const uint32_t p = (uint32_t)c[C_P];
+      const uint32_t qinv = (uint32_t)c[C_QINV];
+      transform_rows<STAGED>(
+          xin, kk, smem, srows, logn,
+          [&](uint32_t* buf, int r0, int nr) {
+            load_rows_mod_p(buf, ab, size_a, rmax, r0, nr, logn, p);
+          },
+          [&](uint32_t* buf, int nr) { ntt_fwd_rows(buf, nr, logn, tw + (size_t)pi * n, p, qinv); });
+      transform_rows<STAGED>(
+          ys + (size_t)pi * mrows * n, mrows, smem, srows, logn,
+          [&](uint32_t* buf, int r0, int nr) {
+            vmp_rows(buf, xin, pm + (size_t)pi * kk * mdim * n, kk, mdim, c0 * psize + r0, nr,
+                     logn, p, qinv);
+          },
+          [&](uint32_t* buf, int nr) {
+            ntt_inv_rows(buf, nr, logn, tw + (size_t)(P + pi) * n, p, qinv);
+          });
+    }
 
-  const int add_size = small == nullptr ? 0 : (s_size < psize ? s_size : psize);
-  for (int idx = threadIdx.x; idx < (cpb << logn); idx += blockDim.x) {
-    const int col = idx >> logn;
-    const int coef = idx & (n - 1);
-    const int64_t oc = b * co + c0 + col;
-    lift_add_normalize_wide(ys, P, mrows, logn, col, psize, coef,
-                            add_size ? small + oc * s_size * n + coef : nullptr, add_size,
-                            out + oc * res_size * n + coef, res_size, kr, ka, offset, consts);
-  }
+    const int add_size = small == nullptr ? 0 : (s_size < psize ? s_size : psize);
+    for (int idx = threadIdx.x; idx < (cpb << logn); idx += blockDim.x) {
+      const int col = idx >> logn;
+      const int coef = idx & (n - 1);
+      const int64_t oc = b * co + c0 + col;
+      lift_add_normalize_wide(ys, P, mrows, logn, col, psize, coef,
+                              add_size ? small + oc * s_size * n + coef : nullptr, add_size,
+                              out + oc * res_size * n + coef, res_size, kr, ka, offset, consts);
+    }
+  });
 }
 
 }  // namespace
@@ -83,20 +101,23 @@ __global__ void __launch_bounds__(THREADS, 1) wide_product_kernel(
 // (backends/fused.py pm_kernel_layout / pm_kernel_layout_dsize); small: [B, co,
 // s_size, N] int64 or null; out: [B, co, res_size, N] int64; tw, consts:
 // backends/ntt.py kernel_tables; cpb: output columns per block (divides co);
-// smem: backends/fused.py fused_smem_bytes(kk, cpb·psize, P, n).  Returns the
-// cudaError_t of the launch.
+// smem: the layout's shared memory (backends/fused.py product_layout).  ws:
+// null for the shared layout, else the global layout's workspace of `grid`
+// slots of kk + P·cpb·psize rows of N words, srows rows staged at a time.
+// Returns the cudaError_t of the launch.
 extern "C" int poulpy_wide_product(const void* a, const void* pm, const void* small, void* out,
                                    const void* tw, const void* consts, int B, int ci, int size_a,
                                    int rmax, int co, int psize, int s_size, int res_size, int kr,
                                    int ka, int offset, int cpb, int P, int logn, int smem,
-                                   void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(wide_product_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                   void* ws, int srows, int grid, void* stream) {
+  const bool staged = ws != nullptr;
+  const auto kernel = staged ? wide_product_kernel<true> : wide_product_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  wide_product_kernel<<<(unsigned)B * (unsigned)(co / cpb), THREADS, (size_t)smem,
-                        (cudaStream_t)stream>>>(
+  const int tasks = B * (co / cpb);
+  kernel<<<(unsigned)(staged ? grid : tasks), THREADS, (size_t)smem, (cudaStream_t)stream>>>(
       (const int64_t*)a, (const int32_t*)pm, (const int64_t*)small, (int64_t*)out,
       (const int32_t*)tw, (const int64_t*)consts, ci, size_a, rmax, co, psize, s_size, res_size,
-      kr, ka, offset, cpb, P, logn);
+      kr, ka, offset, cpb, P, logn, (uint32_t*)ws, srows, tasks);
   return (int)cudaGetLastError();
 }

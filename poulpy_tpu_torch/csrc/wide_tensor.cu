@@ -29,7 +29,10 @@
 // blocks of a ciphertext are independent: the linear-pair blocks write `lin`,
 // the quadratic block writes `d`.  Convolution sums of 64-bit products of
 // standard residues are folded mod p before they can reach 2^63 (mac_guard, as
-// the VMP), so no count of terms can overflow, and reduced once.
+// the VMP), so no count of terms can overflow, and reduced once.  Where a
+// pair's rows do not fit (376,832 B at the CKKS-wide mul at N 4096), the
+// STAGED instance keeps them in a global workspace and passes each transform
+// through shared memory srows rows at a time (modarith.cuh, global layout).
 #include "modarith.cuh"
 
 namespace {
@@ -38,62 +41,91 @@ using namespace poulpy;
 
 constexpr int THREADS = 512;
 
+// STAGED: the global layout (modarith.cuh), the block's rows in its
+// workspace slot.
+template <bool STAGED>
 __global__ void __launch_bounds__(THREADS, 1) wide_tensor_kernel(
     const int64_t* __restrict__ a, const int64_t* __restrict__ b, int64_t* __restrict__ d,
     int64_t* __restrict__ lin, const int32_t* __restrict__ tw,
     const int64_t* __restrict__ consts, int size_a, int size_b, int conv_size, int dnum,
-    int lin_size, int kr, int ka, int offset, int P, int logn) {
+    int lin_size, int kr, int ka, int offset, int P, int logn, uint32_t* __restrict__ ws,
+    int srows, int tasks) {
   extern __shared__ uint32_t smem[];
   const int n = 1 << logn;
-  const int64_t ct = blockIdx.x / 3;
-  const int pair = blockIdx.x % 3;          // 0: a0·b0, 1: a0·b1 + a1·b0, 2: a1·b1
-  const int col0 = pair == 2 ? 1 : 0;       // first input column the pair reads
-  const int ncols = pair == 1 ? 2 : 1;
-  uint32_t* xa = smem;                                      // [ncols][size_a][n]
-  uint32_t* xb = xa + (size_t)ncols * size_a * n;           // [ncols][size_b][n]
-  uint32_t* ys = smem + (size_t)2 * (size_a + size_b) * n;  // [P][conv_size][n]
+  const int in_rows = 2 * (size_a + size_b);
+  for_each_task<STAGED>(tasks, ws, (size_t)(in_rows + P * conv_size) * n,
+                        [&](int task, uint32_t* slot) {
+    const int64_t ct = task / 3;
+    const int pair = task % 3;                // 0: a0·b0, 1: a0·b1 + a1·b0, 2: a1·b1
+    const int col0 = pair == 2 ? 1 : 0;       // first input column the pair reads
+    const int ncols = pair == 1 ? 2 : 1;
+    const int na = ncols * size_a;
+    uint32_t* xa = STAGED ? slot : smem;                      // [ncols][size_a][n]
+    uint32_t* xb = xa + (size_t)na * n;                       // [ncols][size_b][n]
+    uint32_t* ys = xa + (size_t)in_rows * n;                  // [P][conv_size][n]
+    const int64_t* ac = a + ((ct * 2 + col0) * size_a) * n;
+    const int64_t* bc = b + ((ct * 2 + col0) * size_b) * n;
 
-  for (int pi = 0; pi < P; ++pi) {
-    const int64_t* c = consts + pi * CONSTS_PER_PRIME;
-    const uint32_t p = (uint32_t)c[C_P];
-    const uint32_t qinv = (uint32_t)c[C_QINV];
-    load_rows_mod_p(xa, a + ((ct * 2 + col0) * size_a) * n, ncols, size_a, size_a, logn, p);
-    load_rows_mod_p(xb, b + ((ct * 2 + col0) * size_b) * n, ncols, size_b, size_b, logn, p);
-    ntt_fwd_rows(xa, ncols * (size_a + size_b), logn, tw + (size_t)pi * n, p, qinv);
-
-    uint32_t* y = ys + (size_t)pi * conv_size * n;
-    for (int coef = threadIdx.x; coef < n; coef += blockDim.x)
-      pair_conv<false>(y, xa, xb, pair, size_a, size_b, conv_size, logn, coef, p);
-    __syncthreads();
-    ntt_inv_rows(y, conv_size, logn, tw + (size_t)(P + pi) * n, p, qinv);
-  }
-
-  for (int coef = threadIdx.x; coef < n; coef += blockDim.x) {
-    if (pair == 2) {
-      lift_add_normalize_wide(ys, P, conv_size, logn, 0, conv_size, coef, nullptr, 0,
-                              d + ct * dnum * n + coef, dnum, kr, ka, offset, consts);
-    } else {
-      lift_add_normalize_wide(ys, P, conv_size, logn, 0, conv_size, coef, nullptr, 0,
-                              lin + (ct * 2 + pair) * lin_size * n + coef, lin_size, ka, ka,
-                              offset, consts);
+    for (int pi = 0; pi < P; ++pi) {
+      const int64_t* c = consts + pi * CONSTS_PER_PRIME;
+      const uint32_t p = (uint32_t)c[C_P];
+      const uint32_t qinv = (uint32_t)c[C_QINV];
+      transform_rows<STAGED>(
+          xa, na + ncols * size_b, smem, srows, logn,
+          [&](uint32_t* buf, int r0, int nr) {   // rows of a, then rows of b
+            const int ea = max(0, min(na - r0, nr));
+            if (ea) load_rows_mod_p(buf, ac, size_a, size_a, r0, ea, logn, p);
+            if (nr > ea)
+              load_rows_mod_p(buf + ((size_t)ea << logn), bc, size_b, size_b, r0 + ea - na,
+                              nr - ea, logn, p);
+          },
+          [&](uint32_t* buf, int nr) { ntt_fwd_rows(buf, nr, logn, tw + (size_t)pi * n, p, qinv); });
+      transform_rows<STAGED>(
+          ys + (size_t)pi * conv_size * n, conv_size, smem, srows, logn,
+          [&](uint32_t* buf, int r0, int nr) {
+            for (int coef = threadIdx.x; coef < n; coef += blockDim.x)
+              pair_conv<false>(buf, xa, xb, pair, size_a, size_b, r0, r0 + nr, logn, coef, p);
+            __syncthreads();
+          },
+          [&](uint32_t* buf, int nr) {
+            ntt_inv_rows(buf, nr, logn, tw + (size_t)(P + pi) * n, p, qinv);
+          });
     }
-  }
+
+    for (int coef = threadIdx.x; coef < n; coef += blockDim.x) {
+      if (pair == 2) {
+        lift_add_normalize_wide(ys, P, conv_size, logn, 0, conv_size, coef, nullptr, 0,
+                                d + ct * dnum * n + coef, dnum, kr, ka, offset, consts);
+      } else {
+        lift_add_normalize_wide(ys, P, conv_size, logn, 0, conv_size, coef, nullptr, 0,
+                                lin + (ct * 2 + pair) * lin_size * n + coef, lin_size, ka, ka,
+                                offset, consts);
+      }
+    }
+  });
 }
 
 }  // namespace
 
 // a: [B, 2, size_a, N], b: [B, 2, size_b, N] int64; d: [B, dnum, N], lin: [B, 2,
-// lin_size, N] int64; tw, consts: backends/ntt.py kernel_tables; smem:
-// backends/wide.py wide_tensor_smem_bytes.  Returns the cudaError_t of the launch.
+// lin_size, N] int64; tw, consts: backends/ntt.py kernel_tables; smem: the
+// layout's shared memory (backends/wide.py tensor_wide_layout).  ws: null for
+// the shared layout (a block per ciphertext and pair), else the global
+// layout's workspace of `grid` slots of 2·(size_a + size_b) + P·conv_size
+// rows of N words, srows rows staged at a time.  Returns the cudaError_t of
+// the launch.
 extern "C" int poulpy_wide_tensor(const void* a, const void* b, void* d, void* lin,
                                   const void* tw, const void* consts, int B, int size_a,
                                   int size_b, int conv_size, int dnum, int lin_size, int kr,
-                                  int ka, int offset, int P, int logn, int smem, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(wide_tensor_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                  int ka, int offset, int P, int logn, int smem, void* ws,
+                                  int srows, int grid, void* stream) {
+  const bool staged = ws != nullptr;
+  const auto kernel = staged ? wide_tensor_kernel<true> : wide_tensor_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  wide_tensor_kernel<<<(unsigned)B * 3u, THREADS, (size_t)smem, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)(staged ? grid : B * 3), THREADS, (size_t)smem, (cudaStream_t)stream>>>(
       (const int64_t*)a, (const int64_t*)b, (int64_t*)d, (int64_t*)lin, (const int32_t*)tw,
-      (const int64_t*)consts, size_a, size_b, conv_size, dnum, lin_size, kr, ka, offset, P, logn);
+      (const int64_t*)consts, size_a, size_b, conv_size, dnum, lin_size, kr, ka, offset, P, logn,
+      (uint32_t*)ws, srows, B * 3);
   return (int)cudaGetLastError();
 }

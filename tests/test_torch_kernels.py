@@ -21,6 +21,7 @@ from poulpy_tpu_torch.backends import LAUNCHES
 from poulpy_tpu_torch.backends import fused as tfused
 from poulpy_tpu_torch.backends import ntt as tntt
 from poulpy_tpu_torch.backends import vmp as tvmp
+from poulpy_tpu_torch.backends import wide as twide
 from poulpy_tpu_torch.hal.module import get_module as t_get_module
 
 BASES = [(2, 28), (2, 30)]
@@ -476,14 +477,15 @@ def test_column_split_and_tensor_shared_memory():
     of co does not fit (the CKKS keyswitch and relinearization: KK 6, co 2,
     psize 6, P 2, N 2048); the tensor kernel's workspace at the relinearize
     path's shape."""
-    assert tfused.cols_per_block(6, 2, 4, 2, 2048) == 2          # the headline product
-    assert tfused.cols_per_block(2, 2, 3, 2, 1024) == 2          # the gate keyswitch
+    assert tfused.product_layout(6, 2, 4, 2, 2048).cpb == 2      # the headline product
+    assert tfused.product_layout(2, 2, 3, 2, 1024).cpb == 2      # the gate keyswitch
     assert tfused.fused_smem_bytes(6, 2 * 6, 2, 2048) == 245760 > tfused.SMEM_LIMIT
-    assert tfused.cols_per_block(6, 2, 6, 2, 2048) == 1
+    assert tfused.product_layout(6, 2, 6, 2, 2048).cpb == 1
     assert tfused.fused_smem_bytes(6, 6, 2, 2048) == 147456
-    assert tfused.cols_per_block(6, 4, 3, 2, 2048) == 2
-    with pytest.raises(ValueError, match="one output column"):
-        tfused.cols_per_block(6, 2, 16, 8, 2048)
+    assert tfused.product_layout(6, 4, 3, 2, 2048).cpb == 2
+    # one output column past shared memory: the global layout, no column split
+    lay = tfused.product_layout(6, 2, 16, 8, 2048)
+    assert (lay.kind, lay.cpb) == ("global", 2)
     assert tfused.tensor_smem_bytes(6, 6, 11, 2048) == 196608
     m = t_get_module(2048, 2, 28, "cpu")
     assert tfused.tensor_fits(m, 6, 6, 11, 6) and not tfused.tensor_fits(m, 8, 8, 15, 6)
@@ -618,3 +620,75 @@ def test_cuda_relinearize_and_rotations_match_cpu(cuda):
                 assert LAUNCHES["fused_product_small"] == before + 2
         outs.append([r.cpu() for r in res])
     assert all(torch.equal(c, g) for c, g in zip(*outs))
+
+
+# --------------------------------------------------------------------------
+# The global layout: each product kernel past shared memory
+# --------------------------------------------------------------------------
+
+# (kernel, N, P, its layout) at the shapes whose rows do not fit in shared
+# memory: bench.py's product at N 8192, the CKKS key's keyswitch and
+# relinearization exits and the gate's block step at N 4096, the CKKS-wide
+# pair at N 4096
+LARGE_N = {
+    "fused_product": (8192, 2, lambda: tfused.product_layout(6, 2, 4, 2, 8192)),
+    "fused_product_small": (4096, 2, lambda: tfused.product_layout(6, 2, 6, 2, 4096)),
+    "fused_product_small64": (4096, 2, lambda: tfused.product_layout(6, 2, 6, 2, 4096)),
+    "br_block_step": (4096, 2, lambda: tfused.product_layout(4, 2, 4, 2, 4096, split=False)),
+    "wide_product": (4096, 5, lambda: tfused.product_layout(2, 2, 3, 5, 4096)),
+    "wide_tensor": (4096, 5, lambda: twide.tensor_wide_layout(2, 2, 3, 5, 4096)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", LARGE_N)
+def test_cuda_global_layout_matches_plain(cuda, kernel):
+    """Each butterfly product kernel at a shape past shared memory takes the
+    global layout, launches once and equals its plain version (batch 2–3)."""
+    n, P, layout = LARGE_N[kernel]
+    assert layout().kind == "global"
+    m = t_get_module(n, P, 28, cuda)
+    rng = np.random.default_rng(29)
+
+    def ints(lim, shape):
+        return torch.from_numpy(rng.integers(-lim, lim, size=shape)).to(cuda)
+
+    def residues(shape):
+        return torch.from_numpy(_residues(rng, m.basis.primes, shape)).to(cuda)
+
+    if kernel == "fused_product":
+        args = (m, ints(2**16, (2, 2, 3, n)), residues((3, 2, 2, 4, P, n)), 3, 17, 17)
+        run, plain = (lambda: tfused.fused_glwe_product(*args),
+                      lambda: tfused.fused_glwe_product_ref(*args))
+    elif kernel == "fused_product_small":
+        args = (m, ints(2**16, (3, 1, 6, n)), residues((6, 1, 2, 6, P, n)), 6, 17, 17)
+        body = ints(2**16, (3, 6, n))
+        run, plain = (lambda: tfused.fused_glwe_product(*args, small=body),
+                      lambda: tfused.fused_glwe_product_ref(*args, small=body))
+    elif kernel == "fused_product_small64":
+        args = (m, ints(2**16, (2, 1, 6, n)), residues((6, 1, 2, 6, P, n)), 12, 17, 17)
+        lin = ints(2**47, (2, 2, 11, n))
+        run, plain = (lambda: tfused.fused_glwe_product(*args, small64=lin),
+                      lambda: tfused.fused_glwe_product_ref(*args, small64=lin))
+    elif kernel == "br_block_step":
+        amounts = torch.from_numpy(rng.integers(-n, 3 * n, size=(2, 8))).to(cuda)
+        args = (m, ints(2**16, (2, 2, 2, n)), residues((8, 4, 2, 2, 4, P, n)), amounts, 2, 17)
+        run, plain = (lambda: tfused.fused_br_block_step(*args),
+                      lambda: tfused.fused_br_block_step_ref(*args))
+    elif kernel == "wide_product":
+        args = (m, ints(2**51, (2, 1, 2, n)), residues((2, 1, 2, 3, P, n)), 2, 52, 52)
+        lin = ints(2**51, (2, 2, 3, n))
+        run, plain = (lambda: twide.fused_glwe_product_wide(*args, small=lin),
+                      lambda: twide.fused_glwe_product_wide_ref(*args, small=lin))
+    else:
+        args = (m, ints(2**51, (2, 2, 2, n)), ints(2**51, (2, 2, 2, n)), 3, 2, 3, 52, 52, 13)
+        def flat(fn):
+            return lambda: torch.cat([x.flatten() for x in fn(*args)])
+
+        run, plain = (flat(twide.fused_tensor_product_wide),
+                      flat(twide.fused_tensor_product_wide_ref))
+    before = LAUNCHES[kernel]
+    have = run()
+    torch.cuda.synchronize()
+    assert LAUNCHES[kernel] == before + 1
+    assert torch.equal(have, plain())

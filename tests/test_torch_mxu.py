@@ -365,9 +365,9 @@ def test_fused_mxu_shared_memory_and_column_split():
     into one output column per block."""
     n, P = 2048, 2
     assert tfm.fused_mxu_smem_bytes(6, 8, P, n) == 215040 <= tfused.SMEM_LIMIT
-    assert tfused.cols_per_block(6, 2, 4, P, n, tfm.fused_mxu_smem_bytes) == 2
+    assert tfm.mxu_layout(6, 2, 4, P, n).cpb == 2
     assert tfm.fused_mxu_smem_bytes(6, 12, P, n) > tfused.SMEM_LIMIT
-    assert tfused.cols_per_block(6, 2, 6, P, n, tfm.fused_mxu_smem_bytes) == 1
+    assert tfm.mxu_layout(6, 2, 6, P, n).cpb == 1
     assert tmx.transform_smem_bytes(n) == 74752
 
 
@@ -439,3 +439,92 @@ def test_cuda_mxu_products_match_plain(cuda, n, nprimes, prime_bits, ci, co, row
     assert torch.equal(tfm.fused_mxu_glwe_product(*args, small=small), want)
     if n >= 512:
         assert torch.equal(tmp.mxu_glwe_product(*args, small=small, in_bits=23), want)
+
+
+# --------------------------------------------------------------------------
+# CUDA: the block-step pattern, the blind rotation's MXU branches and the
+# global layout
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nprimes,prime_bits,size,rows,psize,res_size,block,batch", [
+    (1024, 2, 28, 2, 4, 4, 2, 8, 8),     # the gate shape (k_ct 34, k_brk 68, dnum 4, block 8)
+    (4096, 2, 28, 2, 4, 4, 2, 8, 2),     # the same at N 4096: the global layout
+    (256, 4, 30, 3, 3, 4, 3, 4, 5),
+    (256, 2, 28, 2, 4, 4, 2, 1, 3),      # one key element
+])
+def test_cuda_fused_mxu_br_block_step_matches_plain(cuda, n, nprimes, prime_bits, size, rows,
+                                                    psize, res_size, block, batch):
+    """The block-step pattern equals its plain version and, on int32-range
+    limbs, the butterfly block step; one launch, the layout by the formula."""
+    m = t_get_module(n, nprimes, prime_bits, cuda)
+    rng = np.random.default_rng(54)
+    acc = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(batch, 2, size, n))).to(cuda)
+    pmats = torch.from_numpy(_residues(rng, m.basis.primes,
+                                       (block, rows, 2, 2, psize, nprimes, n))).to(cuda)
+    amounts = rng.integers(-n, 3 * n, size=(batch, block))
+    amounts[:2, 0] = [-n, 2 * n + 3]     # negative, and past 2N
+    amounts = torch.from_numpy(amounts).to(cuda)
+    kind = tfm.mxu_layout(2 * min(rows, size), 2, psize, nprimes, n, split=False).kind
+    assert kind == ("global" if n == 4096 else "shared")
+    args = (m, acc, pmats, amounts, res_size, 17)
+    reset_launches()
+    have = tfm.fused_mxu_br_block_step(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_mxu_br_block_step"] == 1
+    assert torch.equal(have, tfm.fused_mxu_br_block_step_ref(*args))
+    assert torch.equal(have, tfused.fused_br_block_step(*args))
+
+
+@pytest.mark.cuda
+def test_cuda_blind_rotation_route_equals_butterfly(cuda):
+    """At N 256 (n_lwe 16, block 4): the block path, the standard path and a
+    NAND through route="fused_mxu" equal the butterfly route on the card,
+    through the MXU kernels only (the NAND's keyswitch included)."""
+    from poulpy_tpu_torch.binfhe import blind_rotation as tbr
+    from poulpy_tpu_torch.binfhe import gates
+    from poulpy_tpu_torch.hal.source import Source
+
+    params = gates.GateParams(n_glwe=256, n_lwe=16, nprimes=2, prime_bits=28, block_size=4)
+    keys, sk = gates.keygen(params, device=cuda)
+    c1 = gates.encrypt_bit(params, [0, 0, 1, 1], sk, Source(b"\x05" * 32), Source(b"\x06" * 32))
+    c2 = gates.encrypt_bit(params, [0, 1, 0, 1], sk, Source(b"\x07" * 32), Source(b"\x08" * 32))
+    m, lut, brk = keys.module, keys.lut, keys.brk
+    runs = {
+        "block": lambda route: tbr.blind_rotation_execute_block(m, c1, lut, brk, 4, route),
+        "standard": lambda route: tbr.blind_rotation_execute(m, c1, lut, brk, route),
+        "nand": lambda route: gates.gate_nand(keys, c1, c2, route=route).data,
+    }
+    expect = {"block": {"fused_mxu_br_block_step": 4},
+              "standard": {"fused_mxu_product": 16},
+              "nand": {"fused_mxu_br_block_step": 4, "fused_mxu_product_small": 1}}
+    for name, run in runs.items():
+        want = run("fused")
+        reset_launches()
+        have = run("fused_mxu")
+        torch.cuda.synchronize()
+        assert {k: v for k, v in LAUNCHES.items() if v} == expect[name], name
+        assert torch.equal(have, want), name
+    out = gates.gate_nand(keys, c1, c2, route="fused_mxu")
+    assert np.array_equal(gates.decrypt_bit(out, sk), [1, 1, 1, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,ci,rows,size_a,psize,s_size", [
+    (8192, 2, 3, 3, 4, 0),       # bench.py's product at N 8192
+    (4096, 1, 6, 6, 6, 6),       # the CKKS key's keyswitch at N 4096
+])
+def test_cuda_fused_mxu_global_layout_matches_plain(cuda, n, ci, rows, size_a, psize, s_size):
+    """The fused MXU product past shared memory takes the global layout and
+    equals its plain version."""
+    m = t_get_module(n, 2, 28, cuda)
+    rng = np.random.default_rng(55)
+    a = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(2, ci, size_a, n))).to(cuda)
+    pmat = torch.from_numpy(_residues(rng, m.basis.primes, (rows, ci, 2, psize, 2, n))).to(cuda)
+    small = (torch.from_numpy(rng.integers(-(2**16), 2**16, size=(2, s_size, n))).to(cuda)
+             if s_size else None)
+    assert tfm.mxu_layout(ci * min(rows, size_a), 2, psize, 2, n).kind == "global"
+    args = (m, a, pmat, psize, 17, 17)
+    have = tfm.fused_mxu_glwe_product(*args, small=small)
+    torch.cuda.synchronize()
+    assert torch.equal(have, tfm.fused_mxu_glwe_product_ref(*args, small=small))

@@ -215,8 +215,8 @@ def test_wide_wrappers_check_their_bounds():
         twb.fused_glwe_product_wide(tm, a[:, :1], torch.zeros(2, 1, 2, 3, 5, N, dtype=torch.int32),
                                     2, 61, 52)
     # the mul shape fits one output column per block, not two
-    assert tfused.cols_per_block(2, 2, 3, 5, 2048) == 1
-    assert tfused.cols_per_block(2, 2, 3, 5, 1024) == 2
+    assert tfused.product_layout(2, 2, 3, 5, 2048).cpb == 1
+    assert tfused.product_layout(2, 2, 3, 5, 1024).cpb == 2
     assert twb.wide_tensor_smem_bytes(2, 2, 3, 5, 2048) == 188416
 
 
