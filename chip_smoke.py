@@ -45,7 +45,7 @@ kernels' checks (3′, with their float64 plain versions and cuBLAS
 yardstick) and the large-N checks come last.  Each set-up is freed after
 its last use.
 
-Phases, each printing JSON lines, in this order (3′ last):
+Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
 
   1. device      card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build       nvcc build of the kernels of csrc/ (sm_90a);
@@ -64,6 +64,14 @@ Phases, each printing JSON lines, in this order (3′ last):
                  at the gate path's, batch 1024, each with the time of
                  torch._int_mm on its step-B-shaped digit product as a
                  library yardstick of the product part alone;
+  3‴. stages     the fused MXU kernel's stage clock, after 3′: at the product,
+                 keyswitch (`small`) and gate (block step) paths' shapes, for
+                 the parent design (one ciphertext per block) and the tile
+                 design that the paths run, the kernel's time and, from one
+                 launch of its TIMED instance (whose output must equal the
+                 untimed one's), the SM cycles per block of each stage
+                 (input planes, forward steps A and B, VMP, inverse steps A
+                 and B, exit), their shares and those shares of the time;
   3″. kernels_large_n  each product kernel at a shape whose rows do not fit
                  in shared memory (N 8192 for bench.py's product, N 4096
                  for the CKKS key's keyswitch and relinearization exits,
@@ -214,6 +222,8 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 INT8_MACS_PER_S = 1979e12 / 2
 # the MXU routes of the product and keyswitch paths (core route keyword)
 ROUTES = ("mxu", "fused_mxu")
+# the fused MXU kernel's designs in the stage-clock phase (backends/fused_mxu.py)
+DESIGNS = ("parent", "tile")
 
 _FUSED = "poulpy_tpu/backends/pallas_fused.py:951"
 _WIDE = "poulpy_tpu/backends/pallas_wide.py"
@@ -643,6 +653,70 @@ def phase_kernels_mxu(m, km, gm) -> dict:
                   mxu_macs(GATE_BATCH * 4, gp, gn) + mxu_macs(GATE_BATCH * 8, gp, gn)),
             GATE_BATCH * (4 + 8) * gp * split(gn)[1]),
     })
+
+
+def fused_mxu_cases(m, km, gm) -> dict:
+    """The fused MXU kernel's three launches at their paths' shapes, on
+    inputs of their own: name → (module, arguments of `_product_launch` or
+    `_block_step_launch`, block_step)."""
+    import torch
+
+    from poulpy_tpu_torch.backends import fused, mxu
+
+    gen = torch.Generator(device=m.device).manual_seed(7)
+
+    def ints(lim, shape):
+        return torch.randint(-lim, lim, shape, generator=gen, device=m.device, dtype=torch.int64)
+
+    def residues(mod, shape):
+        primes = torch.tensor(mod.basis.primes, device=mod.device)[:, None]
+        return (ints(1 << 62, shape).abs() % primes).to(torch.int32)
+
+    gn = gm.n
+    brk = residues(gm, (GATE_BLOCK, 4, 2, 2, 4, gm.nprimes, gn))
+    return {
+        "fused_mxu_product": (m, (ints(2**16, (BATCH, 2, 3, N)),
+                                  residues(m, (DNUM, 2, 2, 4, NPRIMES, N)), 3, BASE2K, BASE2K,
+                                  None, None), False),
+        "fused_mxu_product_small": (km, (ints(2**16, (KS_BATCH, 1, 3, N)),
+                                         residues(km, (KS_DNUM, 1, 2, 4, km.nprimes, N)), 3,
+                                         BASE2K, BASE2K, ints(2**16, (KS_BATCH, 3, N)), None),
+                                    False),
+        "fused_mxu_br_block_step": (gm, (ints(2**16, (GATE_BATCH, 2, 2, gn)), brk,
+                                         ints(3 * gn, (GATE_BATCH, GATE_BLOCK)), 2, BASE2K,
+                                         fused.pm_kernel_layout(
+                                             brk[..., mxu.sigma_index(gm.tables)], 2)), True),
+    }
+
+
+def phase_stages(cases: dict, designs: tuple) -> None:
+    """The fused MXU kernel's stage clock at the paths' shapes, per design:
+    the kernel's time (CUDA events, 5 launches of the untimed instance),
+    then one launch of the timed instance, whose output must equal the
+    untimed one's; per stage the SM cycles per block (mean over blocks),
+    its share of a block's cycles, and that share of the kernel's time."""
+    import torch
+
+    from poulpy_tpu_torch.backends import fused_mxu
+
+    for name, (mod, args, block_step) in cases.items():
+        prepare = fused_mxu._block_step_launch if block_step else fused_mxu._product_launch
+        for design in designs:
+            out, launch = prepare(mod, *args, design=design)
+            ms = cuda_ms(launch, 5)
+            want = out.clone()
+            timed_out, stamps = fused_mxu.stage_cycles(mod, *args, block_step=block_step,
+                                                       design=design)
+            torch.cuda.synchronize()
+            if not torch.equal(timed_out, want):
+                raise SystemExit(f"stages: the timed {design} {name} disagrees with the untimed")
+            cycles = stamps.to(torch.float64).mean(0).tolist()
+            total = sum(cycles)
+            emit(phase="stages", kernel=name, design=design, ms=ms, blocks=stamps.shape[0],
+                 block_cycles=total,
+                 stages={st: dict(cycles=c, share=c / total, ms=ms * c / total)
+                         for st, c in zip(fused_mxu.STAGES, cycles)})
+            del out, want, timed_out
 
 
 def phase_kernels_large_n() -> None:
@@ -1486,8 +1560,9 @@ def main() -> int:
         for key in last_use.get(path, ()):
             del shared[key]
         torch.cuda.empty_cache()
-    # the keyswitch path's basis (30-bit primes), the gate path's
-    timings.update(phase_kernels_mxu(m, get_module(KS_N, 2, device="cuda"), gm))
+    km = get_module(KS_N, 2, device="cuda")       # the keyswitch path's basis (30-bit primes)
+    timings.update(phase_kernels_mxu(m, km, gm))
+    phase_stages(fused_mxu_cases(m, km, gm), DESIGNS)
     phase_kernels_large_n()
     if not all(launches.values()):
         raise SystemExit(f"kernels never launched: {[k for k, v in launches.items() if not v]}")

@@ -38,7 +38,8 @@ _SIGNATURES = {
     "poulpy_mxu_forward": [_P] * 6 + [_I] * 6 + [_P],
     "poulpy_mxu_inverse": [_P] * 6 + [_I] * 5 + [_P],
     "poulpy_garner_exit": [_P] * 4 + [_I] * 9 + [_P],
-    "poulpy_fused_mxu_product": [_P] * 13 + [_I] * 16 + [_P, _I, _I, _P],
+    "poulpy_fused_mxu_product": [_P] * 13 + [_I] * 16 + [_P, _I, _I, _P, _P],
+    "poulpy_fused_mxu_tile": [_P] * 13 + [_I] * 17 + [_P, _P],
 }
 
 build_info: dict = {}

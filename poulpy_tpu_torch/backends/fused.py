@@ -152,16 +152,18 @@ class Layout:
     """Where a fused kernel keeps one block's residue rows (csrc/modarith.cuh).
 
     "shared": all of them in `smem` bytes of shared memory, `cpb` output
-    columns per block, one block per task.  "global": in a global workspace
-    slot of `ws_rows` rows of N words per block (all co columns in one task,
-    the blocks walking the tasks), each transform staged through `smem`
-    bytes of shared memory `chunk` rows at a time."""
+    columns per block, one block per task.  "tile" (the fused MXU kernel):
+    the same for `tile` ciphertexts per block.  "global": in a global
+    workspace slot of `ws_rows` rows of N words per block (all co columns in
+    one task, the blocks walking the tasks), each transform staged through
+    `smem` bytes of shared memory `chunk` rows at a time."""
 
     kind: str
     cpb: int
     smem: int
     chunk: int = 0
     ws_rows: int = 0
+    tile: int = 1
 
 
 def kernel_layout(co: int, shared_bytes, split: bool, ws_rows: int, stage_bytes,

@@ -18,8 +18,11 @@ Replaces `poulpy_tpu/backends/pallas_fused_mxu.py` (`_pipe_mxu_fn` →
 One launch for a batch.  The results equal `fused.fused_glwe_product`'s and
 `fused.fused_br_block_step`'s for limbs in int32 range (the σ relabeling
 cancels between the forward, the permuted operands and the inverse).
-Where a block's rows do not fit in shared memory, the kernel takes its
-global layout (`mxu_layout`).
+The launch takes the tile design (`tile_layout`: T ciphertexts per block,
+a specialised instance at each shape of `TILE_SHAPES`); where one
+ciphertext's rows do not fit in shared memory, the parent design's global
+layout (`mxu_layout`).  `stage_cycles` reads either design's stage clock,
+for measurement only.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from poulpy_tpu_torch.backends import LAUNCHES, _lib
 from poulpy_tpu_torch.backends.fused import (
+    SMEM_LIMIT,
     Layout,
     _body,
     _check_bounds,
@@ -52,6 +56,10 @@ from poulpy_tpu_torch.backends.vmp import vmp_apply_ref
 from poulpy_tpu_torch.hal.module import Module
 from poulpy_tpu_torch.hal.normalization import vec_znx_normalize_full
 from poulpy_tpu_torch.hal.ntt import add_mod, garner_lift, mont_mul
+
+
+# the stages of the kernel's stage clock (csrc/fused_mxu.cu StageClock)
+STAGES = ("planes", "fwd_a", "fwd_b", "vmp", "inv_a", "inv_b", "exit")
 
 
 def fused_mxu_supported(module: Module, psize: int, res_base2k: int) -> bool:
@@ -112,24 +120,84 @@ def mxu_layout(kk: int, co: int, psize: int, nprimes: int, n: int, split: bool =
                          kk + nprimes * co * psize, stage, max(kk, co * psize))
 
 
+# The shapes with a specialised instance of the tile design (csrc/fused_mxu.cu
+# GateShape, ProductShape, SmallShape): (block step, log N, KK, cpb·psize, P,
+# block (0: the product), psize, res_size) → ciphertexts per block.
+TILE_SHAPES = {
+    (True, 10, 4, 8, 2, 8, 4, 2): 2,      # the gate's block step
+    (False, 11, 6, 8, 2, 0, 4, 3): 1,     # bench.py's product
+    (False, 11, 3, 8, 2, 0, 4, 3): 1,     # the keyswitch's product with the body
+}
+TILE_MAX = 4    # ciphertexts per block of the runtime-shaped instance
+
+
+def tile_smem_bytes(tile: int, kk: int, mrows: int, nprimes: int, n: int, block: int = 0) -> int:
+    """Shared memory of one block of the tile design: the x-power rows of
+    the block step ([tile·block] int32, 16-byte aligned), the coefficient
+    residues of primes 0..P−2 for the tile's tile·mrows rows, then the
+    staging region of tile·kk input and tile·mrows output rows."""
+    xrow = (4 * tile * block + 15) // 16 * 16
+    return (xrow + 4 * (nprimes - 1) * tile * mrows * n
+            + fused_mxu_stage_bytes(tile * kk, tile * mrows, n))
+
+
+def tile_layout(kk: int, co: int, psize: int, nprimes: int, n: int, res_size: int, batch: int,
+                block: int = 0, split: bool = True) -> Layout:
+    """The tile design's layout: `mxu_layout`'s output columns per block;
+    where that is the global layout, the global layout.  Ciphertexts per
+    block: a shape of TILE_SHAPES takes its instance's; any other the most,
+    up to TILE_MAX and the batch, that fit."""
+    lay = mxu_layout(kk, co, psize, nprimes, n, split)
+    if lay.kind == "global":
+        return lay
+    mrows = lay.cpb * psize
+
+    def fits(t):
+        return tile_smem_bytes(t, kk, mrows, nprimes, n, block) <= SMEM_LIMIT
+
+    key = (block > 0, n.bit_length() - 1, kk, mrows, nprimes, block, psize, res_size)
+    tile = TILE_SHAPES.get(key) or next(t for t in range(min(TILE_MAX, max(batch, 1)), 0, -1)
+                                        if fits(t))
+    return Layout("tile", lay.cpb, tile_smem_bytes(tile, kk, mrows, nprimes, n, block),
+                  tile=tile)
+
+
 def _launch(module: Module, a, pm, small, s_size: int, xpm1, amounts, out, ci: int, rmax: int,
-            co: int, psize: int, res_size: int, kr: int, ka: int, block: int, lay: Layout) -> None:
-    """One launch of the kernel (block 0: the product patterns)."""
+            co: int, psize: int, res_size: int, kr: int, ka: int, block: int, lay: Layout,
+            timed: bool = False):
+    """One launch of the kernel (block 0: the product patterns).  `timed`:
+    the stage clock's instance, whose stamps [blocks, len(STAGES)] int64
+    (SM cycles per stage) it returns."""
     t, n = module.tables, module.n
     B, size_a = a.shape[0], a.shape[-2]
-    kk = ci * rmax
-    s_bytes = (fused_mxu_stage_bytes(kk, lay.cpb * psize, n) if lay.kind == "shared"
+    kk, T = ci * rmax, lay.tile
+    s_bytes = (fused_mxu_stage_bytes(T * kk, T * lay.cpb * psize, n) if lay.kind != "global"
                else lay.smem)
     tabs = device_tables(t)
     _, consts = kernel_tables(t)
-    ws, grid = launch_workspace(lay, B * (co // lay.cpb), n, a.device)
+    tasks = -(-B // T) * (co // lay.cpb)
+    stamps = (torch.zeros((tasks, len(STAGES)), dtype=torch.int64, device=a.device) if timed
+              else None)
+    if lay.kind == "tile":
+        err = _lib.library().poulpy_fused_mxu_tile(
+            a.data_ptr(), pm.data_ptr(), _lib.ptr(small), _lib.ptr(xpm1), _lib.ptr(amounts),
+            out.data_ptr(), tabs["ua"].data_ptr(), tabs["v0"].data_ptr(), tabs["tf"].data_ptr(),
+            tabs["wa"].data_ptr(), tabs["w0"].data_ptr(), tabs["ti"].data_ptr(),
+            consts.data_ptr(), B, ci, size_a, rmax, co, psize, s_size, res_size, kr, ka, lay.cpb,
+            block, module.nprimes, module.log_n, T, s_bytes, lay.smem, _lib.ptr(stamps),
+            _lib.stream())
+        _lib.check(err, "poulpy_fused_mxu_tile")
+        return stamps
+    ws, grid = launch_workspace(lay, tasks, n, a.device)
     err = _lib.library().poulpy_fused_mxu_product(
         a.data_ptr(), pm.data_ptr(), _lib.ptr(small), _lib.ptr(xpm1), _lib.ptr(amounts),
         out.data_ptr(), tabs["ua"].data_ptr(), tabs["v0"].data_ptr(), tabs["tf"].data_ptr(),
         tabs["wa"].data_ptr(), tabs["w0"].data_ptr(), tabs["ti"].data_ptr(), consts.data_ptr(), B,
         ci, size_a, rmax, co, psize, s_size, res_size, kr, ka, lay.cpb, block, module.nprimes,
-        module.log_n, s_bytes, lay.smem, _lib.ptr(ws), lay.chunk, grid, _lib.stream())
+        module.log_n, s_bytes, lay.smem, _lib.ptr(ws), lay.chunk, grid, _lib.ptr(stamps),
+        _lib.stream())
     _lib.check(err, "poulpy_fused_mxu_product")
+    return stamps
 
 
 def fused_mxu_glwe_product(module: Module, a_data, pmat, res_size: int, res_base2k: int,
@@ -148,13 +216,26 @@ def fused_mxu_glwe_product(module: Module, a_data, pmat, res_size: int, res_base
     if a_data.device.type == "cpu":
         return fused_mxu_glwe_product_ref(module, a_data, pmat, res_size, res_base2k,
                                           pm_base2k, small)
+    out, launch = _product_launch(module, a_data, pmat, res_size, res_base2k, pm_base2k, small,
+                                  pm_k)
+    if launch is not None:
+        launch()
+        LAUNCHES["fused_mxu_product_small" if small is not None else "fused_mxu_product"] += 1
+    return out
+
+
+def _product_launch(module: Module, a_data, pmat, res_size: int, res_base2k: int,
+                    pm_base2k: int, small, pm_k, design: str = "tile"):
+    """The checked arguments of one product launch: (out, launch) with
+    launch(timed=False) → the stage clock's stamps or None (launch None for
+    an empty batch); `design` "tile" or "parent"."""
+    rows, ci, co, psize = pmat.shape[:4]
     t, P, n = module.tables, module.nprimes, module.n
     lead, a_size = a_data.shape[:-3], a_data.shape[-2]
     rmax = min(rows, a_size)
     kk = ci * rmax
     if a_data.shape[-3] != ci or a_data.shape[-1] != n:
         raise ValueError(f"a_data: expected [..., {ci}, size, {n}], got {tuple(a_data.shape)}")
-    lay = mxu_layout(kk, co, psize, P, n)
     _check_bounds(P, psize, res_size)
     if pmat.device != a_data.device or module.device != a_data.device:
         raise ValueError("a_data, pmat and module must be on one device")
@@ -169,11 +250,12 @@ def fused_mxu_glwe_product(module: Module, a_data, pmat, res_size: int, res_base
     small, s_size, _ = _body(small, lead, B, n)
     out = torch.empty(lead + (co, res_size, n), dtype=torch.int64, device=a_data.device)
     if B == 0:
-        return out
-    _launch(module, a, pm_k, small, s_size, None, None, out, ci, rmax, co, psize, res_size,
-            res_base2k, pm_base2k, 0, lay)
-    LAUNCHES["fused_mxu_product_small" if small is not None else "fused_mxu_product"] += 1
-    return out
+        return out, None
+    lay = (mxu_layout(kk, co, psize, P, n) if design == "parent"
+           else tile_layout(kk, co, psize, P, n, res_size, B))
+    return out, lambda timed=False: _launch(
+        module, a, pm_k, small, s_size, None, None, out, ci, rmax, co, psize, res_size,
+        res_base2k, pm_base2k, 0, lay, timed)
 
 
 # --------------------------------------------------------------------------
@@ -221,12 +303,23 @@ def fused_mxu_br_block_step(module: Module, acc, pmats, a_blk, res_size: int, ba
     → [..., cols, res_size, N] normalized limbs.  Plain version on CPU
     tensors, one CUDA launch on CUDA (the x-power factor gathered in the
     kernel from the σ-order `xpow_minus1_sigma` table by `a & (2N − 1)`)."""
-    block, rows, cols, co, psize = pmats.shape[:5]
+    psize = pmats.shape[4]
     if not fused_mxu_supported(module, psize, base2k):
         raise ValueError(f"fused_mxu: psize {psize}, base2k {base2k}, N {module.n} outside the "
                          "route's conditions")
     if acc.device.type == "cpu":
         return fused_mxu_br_block_step_ref(module, acc, pmats, a_blk, res_size, base2k)
+    out, launch = _block_step_launch(module, acc, pmats, a_blk, res_size, base2k, pm_k)
+    if launch is not None:
+        launch()
+        LAUNCHES["fused_mxu_br_block_step"] += 1
+    return out
+
+
+def _block_step_launch(module: Module, acc, pmats, a_blk, res_size: int, base2k: int, pm_k,
+                       design: str = "tile"):
+    """The checked arguments of one block-step launch, as `_product_launch`'s."""
+    block, rows, cols, co, psize = pmats.shape[:5]
     t, P, n = module.tables, module.nprimes, module.n
     lead, size = acc.shape[:-3], acc.shape[-2]
     rmax = min(rows, size)
@@ -235,7 +328,6 @@ def fused_mxu_br_block_step(module: Module, acc, pmats, a_blk, res_size: int, ba
         raise ValueError(f"acc {tuple(acc.shape)} does not match the key's {cols} columns")
     if tuple(a_blk.shape) != tuple(lead) + (block,):
         raise ValueError(f"a_blk: expected {tuple(lead) + (block,)}, got {tuple(a_blk.shape)}")
-    lay = mxu_layout(kk, cols, psize, P, n, split=False)
     _check_bounds(P, psize, res_size)
     if pm_k is None:
         pm_k = pm_kernel_layout(pmats[..., sigma_index(t)], rmax)
@@ -251,8 +343,20 @@ def fused_mxu_br_block_step(module: Module, acc, pmats, a_blk, res_size: int, ba
         raise ValueError("acc, pm_k and module must be on one device")
     out = torch.empty(lead + (cols, res_size, n), dtype=torch.int64, device=acc.device)
     if B == 0:
-        return out
-    _launch(module, a, pm_k, None, 0, xpow_minus1_sigma(module), amounts, out, cols, rmax, cols,
-            psize, res_size, base2k, base2k, block, lay)
-    LAUNCHES["fused_mxu_br_block_step"] += 1
-    return out
+        return out, None
+    lay = (mxu_layout(kk, cols, psize, P, n, split=False) if design == "parent"
+           else tile_layout(kk, cols, psize, P, n, res_size, B, block, split=False))
+    return out, lambda timed=False: _launch(
+        module, a, pm_k, None, 0, xpow_minus1_sigma(module), amounts, out, cols, rmax, cols,
+        psize, res_size, base2k, base2k, block, lay, timed)
+
+
+def stage_cycles(module: Module, *args, block_step: bool = False, design: str = "tile"):
+    """(out, stamps) of one launch of the stage clock's instance on the
+    product's arguments (`block_step`: the block step's): stamps [blocks,
+    len(STAGES)] int64, the SM cycles each block spent in each stage, from
+    thread 0 at the barriers that close them.  For measurement only: no
+    path calls it, and it counts no launch."""
+    prepare = _block_step_launch if block_step else _product_launch
+    out, launch = prepare(module, *args, design=design)
+    return out, launch(timed=True)
