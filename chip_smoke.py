@@ -57,21 +57,28 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  cores' int8 rate, the largest; the wide kernels at the
                  wide CKKS mul's shapes, the tensor kernel and the small64
                  and small products at the relinearize and ckks_rotate
-                 paths' shapes, batch 256);
+                 paths' shapes, batch 256); the butterfly product and block
+                 step (the lazy design, which the paths run) also against
+                 their parent design, equal and timed in the same way;
   3′. kernels    the same for the MXU route's kernels, after the last path: at
                  the product path's shapes, the fused MXU product with the
                  body at the keyswitch path's, batch 256, and the block step
                  at the gate path's, batch 1024, each with the time of
                  torch._int_mm on its step-B-shaped digit product as a
                  library yardstick of the product part alone;
-  3‴. stages     the fused MXU kernel's stage clock, after 3′: at the product,
-                 keyswitch (`small`) and gate (block step) paths' shapes, for
-                 the parent design (one ciphertext per block) and the tile
-                 design that the paths run, the kernel's time and, from one
-                 launch of its TIMED instance (whose output must equal the
-                 untimed one's), the SM cycles per block of each stage
-                 (input planes, forward steps A and B, VMP, inverse steps A
-                 and B, exit), their shares and those shares of the time;
+  3‴. stages     the fused kernels' stage clocks, after 3′: the fused MXU
+                 kernel's at the product, keyswitch (`small`) and gate (block
+                 step) paths' shapes, for the parent design (one ciphertext
+                 per block) and the tile design that the paths run; then the
+                 butterfly kernels' (fused_product.cu, br_block_step.cu) at
+                 the product, keyswitch `small`, rotation `small`, small64
+                 and gate block-step shapes, for the parent and the lazy
+                 design; each with the kernel's time and, from one launch of
+                 its TIMED instance (whose output must equal the untimed
+                 one's), the SM cycles per block of each stage (MXU: input
+                 planes, forward steps A and B, VMP, inverse steps A and B,
+                 exit; butterfly: entry, forward NTT, VMP, inverse NTT,
+                 exit), their shares and those shares of the time;
   3″. kernels_large_n  each product kernel at a shape whose rows do not fit
                  in shared memory (N 8192 for bench.py's product, N 4096
                  for the CKKS key's keyswitch and relinearization exits,
@@ -224,6 +231,8 @@ INT8_MACS_PER_S = 1979e12 / 2
 ROUTES = ("mxu", "fused_mxu")
 # the fused MXU kernel's designs in the stage-clock phase (backends/fused_mxu.py)
 DESIGNS = ("parent", "tile")
+# the butterfly kernels' designs there (backends/fused.py)
+BUTTERFLY_DESIGNS = ("parent", "lazy")
 
 _FUSED = "poulpy_tpu/backends/pallas_fused.py:951"
 _WIDE = "poulpy_tpu/backends/pallas_wide.py"
@@ -409,14 +418,28 @@ def tensor_ops(B: int, P: int, n: int, size_a: int, size_b: int) -> int:
                     + ntt_ops(3 * conv, n, True))
 
 
-def check_kernels(cases: dict) -> dict:
+def parent_run(prepare, mod, *args):
+    """A callable that launches the parent design of a butterfly kernel
+    (`fused._product_launch` or `_block_step_launch` and their arguments)
+    and returns its output; it counts no launch."""
+    def run():
+        out, launch = prepare(mod, *args, design="parent")
+        launch()
+        return out
+    return run
+
+
+def check_kernels(cases: dict, parents: dict | None = None) -> dict:
     """Run each case (kernel, plain version, bound[, rows of its step-B digit
     product]) once and compare, tolerance 0; time the kernel (5 launches),
     the plain version (1 run) and the torch._int_mm yardstick where given;
-    emit one line per case and return their numbers."""
+    where `parents` has the case, the kernel's parent design too (equal,
+    tolerance 0, and timed in the same way right after the kernel); emit one
+    line per case and return their numbers."""
     import torch
 
     out = {}
+    parents = parents or {}
     for name, (kernel, plain, bnd, *gemm_rows) in cases.items():
         have, want = kernel(), plain()
         torch.cuda.synchronize()
@@ -425,15 +448,22 @@ def check_kernels(cases: dict) -> dict:
         err = int((have.to(torch.int64) - want.to(torch.int64)).abs().max())
         equal = bool(torch.equal(have, want))
         shape = list(have.shape)
-        ms, plain_ms = cuda_ms(kernel, 5), cuda_ms(plain, 1)
+        ms = cuda_ms(kernel, 5)
+        parent = {}
+        if name in parents:
+            parent_equal = bool(torch.equal(parents[name](), want))
+            parent = dict(parent_ms=cuda_ms(parents[name], 5), parent_equal=parent_equal)
+            equal = equal and parent_equal
+        plain_ms = cuda_ms(plain, 1)
         library_ms = int_mm_ms(gemm_rows[0], N, torch.device("cuda")) if gemm_rows else None
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
                          bound_by=bnd["bound_by"], library_ms=library_ms)
         emit(phase="kernels", kernel=name, shape=shape, equal=equal, tolerance=0,
-             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bnd,
+             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **parent, **bnd,
              share_of_bound=bnd["bound_ms"] / ms)
         if not equal:
-            raise SystemExit(f"kernel {name} disagrees with its plain version")
+            raise SystemExit(f"kernel {name} (or its parent design) disagrees with its plain "
+                             "version")
         del have, want
     return out
 
@@ -561,7 +591,19 @@ def phase_kernels(m, gm, wm) -> dict:
             bound((rot_a.numel() + rot_body.numel() + rb * 2 * 6 * N) * i64
                   + rkey.numel() * i32, fused_ops(rb, 6, 12, kp, N))),
     }
-    return check_kernels(cases)
+    # the butterfly kernels' parent designs (rows 3a, 3b, 3b′, 3c, 4), in the same call
+    product, step = fused._product_launch, fused._block_step_launch
+    parents = {
+        "fused_product": parent_run(product, m, a, pmat, 3, BASE2K, BASE2K),
+        "fused_product_small": parent_run(product, gm, ks_a, ks_pmat, 2, BASE2K, BASE2K, 1,
+                                          ks_body),
+        "br_block_step": parent_run(step, gm, acc, brk, amounts, 2, BASE2K, pm_k),
+        "fused_product_small64": parent_run(product, m, rdig, rkey, 12, k.base2k, k.base2k, 1,
+                                            None, rlin),
+        "fused_product_small@ckks_rotate": parent_run(product, m, rot_a, rkey, 6, k.base2k,
+                                                      k.base2k, 1, rot_body),
+    }
+    return check_kernels(cases, parents)
 
 
 def phase_kernels_mxu(m, km, gm) -> dict:
@@ -689,24 +731,63 @@ def fused_mxu_cases(m, km, gm) -> dict:
     }
 
 
-def phase_stages(cases: dict, designs: tuple) -> None:
-    """The fused MXU kernel's stage clock at the paths' shapes, per design:
-    the kernel's time (CUDA events, 5 launches of the untimed instance),
-    then one launch of the timed instance, whose output must equal the
-    untimed one's; per stage the SM cycles per block (mean over blocks),
-    its share of a block's cycles, and that share of the kernel's time."""
+def butterfly_cases(m, km, gm) -> dict:
+    """The butterfly kernels' five launches at their paths' shapes, on inputs
+    of their own: name → (module, arguments of `fused._product_launch` or
+    `fused._block_step_launch`, block_step).  The product path's (3a), the
+    keyswitch path's body add (30-bit basis, 3b), the rotation's column-split
+    body add (3b′) and the relinearization's small64 add (3c) at batch 256,
+    the gate's block step at batch GATE_BATCH (4)."""
     import torch
 
-    from poulpy_tpu_torch.backends import fused_mxu
+    from poulpy_tpu_torch.backends import fused
+
+    gen = torch.Generator(device=m.device).manual_seed(9)
+
+    def ints(lim, shape):
+        return torch.randint(-lim, lim, shape, generator=gen, device=m.device, dtype=torch.int64)
+
+    def residues(mod, shape):
+        primes = torch.tensor(mod.basis.primes, device=mod.device)[:, None]
+        return (ints(1 << 62, shape).abs() % primes).to(torch.int32)
+
+    gn, kb, rb = gm.n, CKKS.base2k, CKKS_BATCH
+    brk = residues(gm, (GATE_BLOCK, 4, 2, 2, 4, gm.nprimes, gn))
+    rkey = residues(m, (CKKS.dnum, 1, 2, 6, CKKS.nprimes, N))
+    return {
+        "fused_product": (m, (ints(2**16, (BATCH, 2, 3, N)),
+                              residues(m, (DNUM, 2, 2, 4, NPRIMES, N)), 3, BASE2K, BASE2K),
+                          False),
+        "fused_product_small": (km, (ints(2**16, (KS_BATCH, 1, 3, N)),
+                                     residues(km, (KS_DNUM, 1, 2, 4, km.nprimes, N)), 3, BASE2K,
+                                     BASE2K, 1, ints(2**16, (KS_BATCH, 3, N))), False),
+        "fused_product_small@ckks_rotate": (m, (ints(2**16, (rb, 1, 6, N)), rkey, 6, kb, kb, 1,
+                                                ints(2**16, (rb, 6, N))), False),
+        "fused_product_small64": (m, (ints(2**16, (rb, 1, CKKS.dnum, N)), rkey, 12, kb, kb, 1,
+                                      None, ints(2**47, (rb, 2, 11, N))), False),
+        "br_block_step": (gm, (ints(2**16, (GATE_BATCH, 2, 2, gn)), brk,
+                               ints(3 * gn, (GATE_BATCH, GATE_BLOCK)), 2, BASE2K,
+                               fused.pm_kernel_layout(brk, 2)), True),
+    }
+
+
+def phase_stages(backend, cases: dict, designs: tuple) -> None:
+    """A fused kernel's stage clock at the paths' shapes, per design
+    (`backend`: `fused_mxu`, or `fused` for the butterfly kernels): the
+    kernel's time (CUDA events, 5 launches of the untimed instance), then
+    one launch of the timed instance, whose output must equal the untimed
+    one's; per stage the SM cycles per block (mean over blocks), its share
+    of a block's cycles, and that share of the kernel's time."""
+    import torch
 
     for name, (mod, args, block_step) in cases.items():
-        prepare = fused_mxu._block_step_launch if block_step else fused_mxu._product_launch
+        prepare = backend._block_step_launch if block_step else backend._product_launch
         for design in designs:
             out, launch = prepare(mod, *args, design=design)
             ms = cuda_ms(launch, 5)
             want = out.clone()
-            timed_out, stamps = fused_mxu.stage_cycles(mod, *args, block_step=block_step,
-                                                       design=design)
+            timed_out, stamps = backend.stage_cycles(mod, *args, block_step=block_step,
+                                                     design=design)
             torch.cuda.synchronize()
             if not torch.equal(timed_out, want):
                 raise SystemExit(f"stages: the timed {design} {name} disagrees with the untimed")
@@ -715,7 +796,7 @@ def phase_stages(cases: dict, designs: tuple) -> None:
             emit(phase="stages", kernel=name, design=design, ms=ms, blocks=stamps.shape[0],
                  block_cycles=total,
                  stages={st: dict(cycles=c, share=c / total, ms=ms * c / total)
-                         for st, c in zip(fused_mxu.STAGES, cycles)})
+                         for st, c in zip(backend.STAGES, cycles)})
             del out, want, timed_out
 
 
@@ -755,21 +836,21 @@ def phase_kernels_large_n() -> None:
         return lambda: torch.cat([x.flatten() for x in fn(*args)])
 
     cases = {
-        "fused_product": (fused.product_layout(6, 2, 4, 2, 8192),
+        "fused_product": (fused.butterfly_layout(6, 2, 4, 2, 8192, 3),
                           lambda: fused.fused_glwe_product(m8, a8, pmat8, 3, BASE2K, BASE2K),
                           lambda: fused.fused_glwe_product_ref(m8, a8, pmat8, 3, BASE2K, BASE2K)),
         "fused_product_small": (
-            fused.product_layout(6, 2, 6, 2, 4096),
+            fused.butterfly_layout(6, 2, 6, 2, 4096, 6),
             lambda: fused.fused_glwe_product(m4, ks_a, ks_key, 6, BASE2K, BASE2K, small=ks_body),
             lambda: fused.fused_glwe_product_ref(m4, ks_a, ks_key, 6, BASE2K, BASE2K,
                                                  small=ks_body)),
         "fused_product_small64": (
-            fused.product_layout(6, 2, 6, 2, 4096),
+            fused.butterfly_layout(6, 2, 6, 2, 4096, 12),
             lambda: fused.fused_glwe_product(m4, ks_a, ks_key, 12, BASE2K, BASE2K,
                                              small64=ks_body[:, None].expand(4, 2, 6, 4096)),
             lambda: fused.fused_glwe_product_ref(m4, ks_a, ks_key, 12, BASE2K, BASE2K,
                                                  small64=ks_body[:, None].expand(4, 2, 6, 4096))),
-        "br_block_step": (fused.product_layout(4, 2, 4, 2, 4096, split=False),
+        "br_block_step": (fused.butterfly_layout(4, 2, 4, 2, 4096, 2, GATE_BLOCK, split=False),
                           lambda: fused.fused_br_block_step(m4, acc, brk, amounts, 2, BASE2K),
                           lambda: fused.fused_br_block_step_ref(m4, acc, brk, amounts, 2, BASE2K)),
         "wide_product": (fused.product_layout(2, 2, 3, 5, 4096),
@@ -1481,7 +1562,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from poulpy_tpu_torch.backends import LAUNCHES, _lib, reset_launches
+    from poulpy_tpu_torch.backends import LAUNCHES, _lib, fused, fused_mxu, reset_launches
     from poulpy_tpu_torch.hal.module import get_module
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1562,7 +1643,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     km = get_module(KS_N, 2, device="cuda")       # the keyswitch path's basis (30-bit primes)
     timings.update(phase_kernels_mxu(m, km, gm))
-    phase_stages(fused_mxu_cases(m, km, gm), DESIGNS)
+    phase_stages(fused_mxu, fused_mxu_cases(m, km, gm), DESIGNS)
+    phase_stages(fused, butterfly_cases(m, km, gm), BUTTERFLY_DESIGNS)
     phase_kernels_large_n()
     if not all(launches.values()):
         raise SystemExit(f"kernels never launched: {[k for k, v in launches.items() if not v]}")

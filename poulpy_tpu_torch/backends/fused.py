@@ -29,7 +29,11 @@ parts only, so on a CUDA tensor they launch no kernel of `csrc/`.  The
 fused kernels' wrappers choose a layout by formula (`kernel_layout`): the
 shared one where a block's rows fit in shared memory, else the global one
 (the rows in a device workspace, the transforms staged through shared
-memory).
+memory).  `fused_product.cu` and `br_block_step.cu` have two designs: the
+lazy design (`lazy_layout`: every shape whose rows fit, 256 ≤ N ≤ 2048)
+and the parent design, which takes the other shapes (its global layout
+past shared memory) and is the stage clock's reference.  `stage_cycles`
+reads either design's stage clock, for measurement only.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ import torch.nn.functional as F
 
 from poulpy_tpu_torch.backends import LAUNCHES, _lib
 from poulpy_tpu_torch.backends.mxu import sigma_index
-from poulpy_tpu_torch.backends.ntt import kernel_tables
+from poulpy_tpu_torch.backends.ntt import kernel_tables, shoup_tables
 from poulpy_tpu_torch.backends.vmp import vmp_apply_ref
 from poulpy_tpu_torch.hal.dft import _align_limbs, cnv_apply, dft_add, dft_limbs, dft_sub
 from poulpy_tpu_torch.hal.module import Module
@@ -63,6 +67,21 @@ from poulpy_tpu_torch.hal.primes import R
 SMEM_LIMIT = 232448     # bytes of shared memory one block may use on sm_90
 MAX_PRIMES = 8          # compile-time bounds of the kernel's per-thread arrays
 MAX_LIMBS = 16
+
+# the stages of the butterfly kernels' stage clock (csrc/modarith.cuh BF_*)
+STAGES = ("entry", "fwd", "vmp", "inv", "exit")
+# The shapes with a specialised instance of the lazy design (csrc/fused_product.cu
+# ProductShape, SmallShape, GateKsShape, RotateShape; csrc/br_block_step.cu
+# GateShape): (block step, log N, KK, cpb·psize, P, psize, res_size) →
+# ciphertexts per block.  Any other shape takes the runtime-shaped instance,
+# one ciphertext per block.
+LAZY_SHAPES = {
+    (True, 10, 4, 8, 2, 4, 2): 2,      # the gate's block step
+    (False, 11, 6, 8, 2, 4, 3): 1,     # bench.py's product
+    (False, 11, 3, 8, 2, 4, 3): 1,     # the keyswitch path's product with the body
+    (False, 10, 2, 6, 2, 3, 2): 1,     # the gate's keyswitch
+    (False, 11, 6, 12, 2, 6, 6): 1,    # the CKKS rotation's keyswitch
+}
 
 
 def pm_kernel_layout(pmat, rmax: int):
@@ -202,6 +221,46 @@ def launch_workspace(layout: Layout, tasks: int, n: int, device):
     return torch.empty((grid, layout.ws_rows, n), dtype=torch.int32, device=device), grid
 
 
+def lazy_smem_bytes(tile: int, kk: int, mrows: int, nprimes: int, n: int, block: int = 0) -> int:
+    """Shared memory of one block of the lazy design: `tile`·P regions of
+    max(KK, mrows) rows (the VMP writes its output rows over its input
+    rows), then the block step's x-power rows [tile·block] int32."""
+    return 4 * tile * nprimes * max(kk, mrows) * n + 4 * tile * block
+
+
+def lazy_layout(kk: int, co: int, psize: int, nprimes: int, n: int, res_size: int,
+                block: int = 0, split: bool = True) -> Layout | None:
+    """The lazy design's layout, or None where it does not take the shape
+    (N outside 256..2048, more than MAX_LIMBS input or output rows, or no
+    column group that fits): the most output columns per block (all co for
+    the block step, `split` False) whose rows fit; ciphertexts per block
+    from LAZY_SHAPES, else 1."""
+    logn = n.bit_length() - 1
+    if not 8 <= logn <= 11 or not 0 < kk <= MAX_LIMBS:
+        return None
+    for cpb in (range(co, 0, -1) if split else (co,)):
+        mrows = cpb * psize
+        if co % cpb or mrows > MAX_LIMBS:
+            continue
+        tile = LAZY_SHAPES.get((block > 0, logn, kk, mrows, nprimes, psize, res_size), 1)
+        smem = lazy_smem_bytes(tile, kk, mrows, nprimes, n, block)
+        if smem <= SMEM_LIMIT:
+            return Layout("lazy", cpb, smem, tile=tile)
+    return None
+
+
+def butterfly_layout(kk: int, co: int, psize: int, nprimes: int, n: int, res_size: int,
+                     block: int = 0, split: bool = True, design: str = "lazy") -> Layout:
+    """The layout a launch of `fused_product.cu` or `br_block_step.cu`
+    takes: the lazy design's where it takes the shape (`design` "lazy"),
+    else the parent design's `product_layout`."""
+    if design not in ("lazy", "parent"):
+        raise ValueError(f"design: 'lazy' or 'parent', got {design!r}")
+    lay = lazy_layout(kk, co, psize, nprimes, n, res_size, block, split) if design == "lazy" \
+        else None
+    return lay or product_layout(kk, co, psize, nprimes, n, split)
+
+
 def fused_supported(psize: int, res_base2k: int) -> bool:
     """The JAX package's condition for its fused (non-wide) product kernels
     (`pallas_fused.fused_supported`): the i32 window arithmetic of their
@@ -253,6 +312,26 @@ def fused_glwe_product(module: Module, a_data, pmat, res_size: int, res_base2k: 
     if a_data.device.type == "cpu":
         return fused_glwe_product_ref(module, a_data, pmat, res_size, res_base2k,
                                       pm_base2k, dsize, small, small64)
+    out, launch = _product_launch(module, a_data, pmat, res_size, res_base2k, pm_base2k, dsize,
+                                  small, small64)
+    if launch is not None:
+        launch()
+        LAUNCHES["fused_product_small" if small is not None
+                 else "fused_product_small64" if small64 is not None else "fused_product"] += 1
+    return out
+
+
+def _stamps(timed: bool, blocks: int, device):
+    return torch.zeros((blocks, len(STAGES)), dtype=torch.int64, device=device) if timed else None
+
+
+def _product_launch(module: Module, a_data, pmat, res_size: int, res_base2k: int,
+                    pm_base2k: int, dsize: int = 1, small=None, small64=None,
+                    design: str = "lazy"):
+    """The checked arguments of one `fused_glwe_product` launch: (out,
+    launch) with launch(timed=False) → the stage clock's stamps or None
+    (launch None where there is nothing to launch); `design` "lazy" or
+    "parent" (`butterfly_layout`)."""
     P, n = module.nprimes, module.n
     rows, ci, co, psize = pmat.shape[:4]
     lead = a_data.shape[:-3]
@@ -261,7 +340,7 @@ def fused_glwe_product(module: Module, a_data, pmat, res_size: int, res_base2k: 
     kk = ci * rmax
     if a_data.shape[-3] != ci or a_data.shape[-1] != n:
         raise ValueError(f"a_data: expected [..., {ci}, size, {n}], got {tuple(a_data.shape)}")
-    lay = product_layout(kk, co, psize, P, n)
+    lay = butterfly_layout(kk, co, psize, P, n, res_size, design=design)
     s64 = 0 if small64 is None else small64.shape[-2]
     _check_bounds(P, max(psize, s64), res_size)
     if pmat.device != a_data.device or module.device != a_data.device:
@@ -270,31 +349,42 @@ def fused_glwe_product(module: Module, a_data, pmat, res_size: int, res_base2k: 
     B = a_data.numel() // (ci * a_size * n) if a_data.numel() else 0
     a = a_data.reshape(B, ci, a_size, n).contiguous()    # the keyswitch passes a column view
     _lib.require(a, "a_data", torch.int64)
-    small, s_size, sm_ptr = _body(small, lead, B, n)
-    s64_ptr = None
+    small, s_size, _ = _body(small, lead, B, n)
     if small64 is not None:
         if tuple(small64.shape) != tuple(lead) + (co, s64, n):
             raise ValueError(f"small64: expected {tuple(lead) + (co, s64, n)}, "
                              f"got {tuple(small64.shape)}")
         small64 = small64.reshape(B, co, s64, n).contiguous()
         _lib.require(small64, "small64", torch.int64)
-        s64_ptr = small64.data_ptr()
     out = torch.empty(lead + (co, res_size, n), dtype=torch.int64, device=a_data.device)
     if B == 0:
-        return out
+        return out, None
     if rmax == 0 and small is None and small64 is None:
-        return out.zero_()
+        return out.zero_(), None
     tw, consts = kernel_tables(module.tables)
-    ws, grid = launch_workspace(lay, B * (co // lay.cpb), n, a_data.device)
-    err = _lib.library().poulpy_fused_product(
-        a.data_ptr(), pm.data_ptr(), sm_ptr, s64_ptr, out.data_ptr(), tw.data_ptr(),
-        consts.data_ptr(), B, ci, a_size, rmax, co, psize, s_size, s64, res_size, res_base2k,
-        pm_base2k, lay.cpb, P, module.log_n, lay.smem, _lib.ptr(ws), lay.chunk, grid,
-        _lib.stream())
-    _lib.check(err, "poulpy_fused_product")
-    LAUNCHES["fused_product_small" if small is not None
-             else "fused_product_small64" if small64 is not None else "fused_product"] += 1
-    return out
+    tasks = B * (co // lay.cpb)
+
+    def launch(timed: bool = False):
+        stamps = _stamps(timed, tasks, a_data.device)
+        # the closure holds every tensor whose pointer it passes
+        args = (a.data_ptr(), pm.data_ptr(), _lib.ptr(small), _lib.ptr(small64), out.data_ptr())
+        sizes = (B, ci, a_size, rmax, co, psize, s_size, s64, res_size, res_base2k, pm_base2k,
+                 lay.cpb, P, module.log_n, lay.smem)
+        if lay.kind == "lazy":
+            err = _lib.library().poulpy_fused_product_lazy(
+                *args, shoup_tables(module.tables).data_ptr(), consts.data_ptr(), *sizes,
+                _lib.ptr(stamps), _lib.stream())
+        else:
+            if timed and lay.kind == "global":
+                raise ValueError("the stage clock runs the shared layout only")
+            ws, grid = launch_workspace(lay, tasks, n, a_data.device)
+            err = _lib.library().poulpy_fused_product(
+                *args, tw.data_ptr(), consts.data_ptr(), *sizes, _lib.ptr(ws), lay.chunk, grid,
+                _lib.ptr(stamps), _lib.stream())
+        _lib.check(err, "poulpy_fused_product")
+        return stamps
+
+    return out, launch
 
 
 # --------------------------------------------------------------------------
@@ -525,6 +615,17 @@ def fused_br_block_step(module: Module, acc, pmats, a_blk, res_size: int, base2k
     kernel from the device `_xpow_minus1_table` by `a & (2N − 1)`)."""
     if acc.device.type == "cpu":
         return fused_br_block_step_ref(module, acc, pmats, a_blk, res_size, base2k)
+    out, launch = _block_step_launch(module, acc, pmats, a_blk, res_size, base2k, pm_k)
+    if launch is not None:
+        launch()
+        LAUNCHES["br_block_step"] += 1
+    return out
+
+
+def _block_step_launch(module: Module, acc, pmats, a_blk, res_size: int, base2k: int,
+                       pm_k=None, design: str = "lazy"):
+    """The checked arguments of one `fused_br_block_step` launch, as
+    `_product_launch`'s."""
     P, n = module.nprimes, module.n
     block, rows, cols, co, psize = pmats.shape[:5]
     lead, size = acc.shape[:-3], acc.shape[-2]
@@ -534,7 +635,7 @@ def fused_br_block_step(module: Module, acc, pmats, a_blk, res_size: int, base2k
         raise ValueError(f"acc {tuple(acc.shape)} does not match the key's {cols} columns")
     if tuple(a_blk.shape) != tuple(lead) + (block,):
         raise ValueError(f"a_blk: expected {tuple(lead) + (block,)}, got {tuple(a_blk.shape)}")
-    lay = product_layout(kk, cols, psize, P, n, split=False)
+    lay = butterfly_layout(kk, cols, psize, P, n, res_size, block, split=False, design=design)
     _check_bounds(P, psize, res_size)
     if pm_k is None:
         pm_k = pm_kernel_layout(pmats, rmax)
@@ -550,14 +651,39 @@ def fused_br_block_step(module: Module, acc, pmats, a_blk, res_size: int, base2k
         raise ValueError("acc, pm_k and module must be on one device")
     out = torch.empty(lead + (cols, res_size, n), dtype=torch.int64, device=acc.device)
     if B == 0:
-        return out
+        return out, None
     _, xpm1 = xpow_tables(module)
     tw, consts = kernel_tables(module.tables)
-    ws, grid = launch_workspace(lay, B, n, acc.device)
-    err = _lib.library().poulpy_br_block_step(
-        a.data_ptr(), pm_k.data_ptr(), xpm1.data_ptr(), amounts.data_ptr(), out.data_ptr(),
-        tw.data_ptr(), consts.data_ptr(), B, cols, size, rmax, psize, res_size, base2k, block,
-        P, module.log_n, lay.smem, _lib.ptr(ws), lay.chunk, grid, _lib.stream())
-    _lib.check(err, "poulpy_br_block_step")
-    LAUNCHES["br_block_step"] += 1
-    return out
+
+    def launch(timed: bool = False):
+        args = (a.data_ptr(), pm_k.data_ptr(), xpm1.data_ptr(), amounts.data_ptr(),
+                out.data_ptr())
+        sizes = (B, cols, size, rmax, psize, res_size, base2k, block, P, module.log_n)
+        if lay.kind == "lazy":
+            stamps = _stamps(timed, -(-B // lay.tile), acc.device)
+            err = _lib.library().poulpy_br_block_step_lazy(
+                *args, shoup_tables(module.tables).data_ptr(), consts.data_ptr(), *sizes,
+                lay.tile, lay.smem, _lib.ptr(stamps), _lib.stream())
+        else:
+            if timed and lay.kind == "global":
+                raise ValueError("the stage clock runs the shared layout only")
+            stamps = _stamps(timed, B, acc.device)
+            ws, grid = launch_workspace(lay, B, n, acc.device)
+            err = _lib.library().poulpy_br_block_step(
+                *args, tw.data_ptr(), consts.data_ptr(), *sizes, lay.smem, _lib.ptr(ws),
+                lay.chunk, grid, _lib.ptr(stamps), _lib.stream())
+        _lib.check(err, "poulpy_br_block_step")
+        return stamps
+
+    return out, launch
+
+
+def stage_cycles(module: Module, *args, block_step: bool = False, design: str = "lazy"):
+    """(out, stamps) of one launch of the stage clock's instance on
+    `fused_glwe_product`'s arguments (`block_step`: `fused_br_block_step`'s):
+    stamps [blocks, len(STAGES)] int64, the SM cycles each block spent in
+    each stage, from thread 0 at the barriers that close them.  For
+    measurement only: no path calls it, and it counts no launch."""
+    prepare = _block_step_launch if block_step else _product_launch
+    out, launch = prepare(module, *args, design=design)
+    return out, launch(timed=True)

@@ -17,6 +17,7 @@ from poulpy_tpu_torch.backends import LAUNCHES, _lib
 from poulpy_tpu_torch.hal.ntt import NttTables
 from poulpy_tpu_torch.hal.ntt import ntt_forward as ntt_forward_ref
 from poulpy_tpu_torch.hal.ntt import ntt_inverse as ntt_inverse_ref
+from poulpy_tpu_torch.hal.primes import R
 from poulpy_tpu_torch.hal.wide import i64c
 
 CONSTS_PER_PRIME = 10
@@ -50,6 +51,27 @@ def kernel_tables(t: NttTables):
         consts = torch.cat([per.reshape(-1), t.garner_pprod_mont.reshape(-1)]).contiguous()
         cached = (tw, consts)
         t._kernel_tables = cached
+    return cached
+
+
+def shoup_tables(t: NttTables):
+    """The twiddles of `kernel_tables` in standard form with Shoup's
+    quotients, as the lazy design of the butterfly kernels reads them (made
+    once per table set): int32 [2, P, N, 2], forward / inverse, each entry
+    (w, ⌊w·2^32/p⌋) with w = the Montgomery twiddle · R^{-1} mod p; the
+    quotient is a u32 bit pattern."""
+    cached = getattr(t, "_shoup_tables", None)
+    if cached is None:
+        tw, _ = kernel_tables(t)
+        primes = t.basis.primes
+        rinv = torch.tensor([pow(R, -1, p) for p in primes], dtype=torch.int64,
+                            device=t.device)[:, None]
+        p = torch.tensor(primes, dtype=torch.int64, device=t.device)[:, None]
+        w = tw.to(torch.int64) * rinv % p                  # < 2^60: exact in int64
+        wq = (w << 32) // p                                # < 2^32
+        wq = torch.where(wq >= 2**31, wq - 2**32, wq)
+        cached = torch.stack([w, wq], dim=-1).to(torch.int32).contiguous()
+        t._shoup_tables = cached
     return cached
 
 

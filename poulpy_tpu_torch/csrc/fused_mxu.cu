@@ -82,29 +82,10 @@ using namespace poulpy;
 
 constexpr int THREADS = 512;
 
-// The stage clock of the TIMED instances: thread 0 adds the SM cycles since
-// its last mark to the stage that a barrier has just closed, and each block
-// writes its sums to stamps[block][NSTAGES] at the end.
+// The stage clock of the TIMED instances (modarith.cuh StageClock): thread 0
+// adds the SM cycles since its last mark to the stage that a barrier has
+// just closed, and each block writes its sums to stamps[block][NSTAGES].
 enum { ST_PLANES, ST_FWD_A, ST_FWD_B, ST_VMP, ST_INV_A, ST_INV_B, ST_EXIT, NSTAGES };
-
-template <bool ON>
-struct StageClock {
-  long long last = 0, acc[NSTAGES] = {};
-  __device__ StageClock() {
-    if (ON && threadIdx.x == 0) last = clock64();
-  }
-  __device__ void mark(int stage) {
-    if (ON && threadIdx.x == 0) {
-      const long long now = clock64();
-      acc[stage] += now - last;
-      last = now;
-    }
-  }
-  __device__ void store(long long* stamps) const {
-    if (ON && threadIdx.x == 0)
-      for (int i = 0; i < NSTAGES; ++i) stamps[(size_t)blockIdx.x * NSTAGES + i] = acc[i];
-  }
-};
 
 // BSTEP: the block-step pattern (rotate, add_acc; pm holds `block` key
 // elements, xpm1 and amounts are read).  STAGED: the global layout.  TIMED:
@@ -120,7 +101,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mxu_kernel(
     int s_size, int res_size, int kr, int ka, int cpb, int block, int P, int logn, int s_bytes,
     uint32_t* __restrict__ ws, int crows, int tasks, long long* __restrict__ stamps) {
   extern __shared__ __align__(16) uint8_t smem[];
-  StageClock<TIMED> clk;
+  StageClock<TIMED, NSTAGES> clk;
   const Split s(logn);
   const int n = s.n;
   const int kk = ci * rmax, mdim = co * psize, mrows = cpb * psize;
@@ -244,38 +225,6 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mxu_kernel(
 }
 
 // ---- the tile design (the shared layout) ----
-
-// The lazy reduction's constants of one prime: 2^32 mod p and R² mod p.
-struct PrimeK {
-  uint32_t p, qinv, c32, r2;
-  __device__ PrimeK(const int64_t* __restrict__ consts, int pi) {
-    p = (uint32_t)consts[pi * CONSTS_PER_PRIME + C_P];
-    qinv = (uint32_t)consts[pi * CONSTS_PER_PRIME + C_QINV];
-    c32 = (uint32_t)((1ull << 32) % p);
-    r2 = (uint32_t)((1ull << 60) % p);
-  }
-};
-
-// x mod p kept below 2^62 + 2^32 (any x < 2^64): high word · (2^32 mod p) + low word.
-// A sum of products of canonical residues (each < 2^60) folded every 8 terms
-// never wraps.
-__device__ __forceinline__ uint64_t fold32(uint64_t x, uint32_t c32) {
-  return (uint64_t)(uint32_t)(x >> 32) * c32 + (uint32_t)x;
-}
-
-// One Montgomery step of x < 2^63: (x + m·p)/2^30 ≡ x·2^{-30}, below x/2^30 + p.
-__device__ __forceinline__ uint64_t redc_step(uint64_t x, uint32_t p, uint32_t qinv) {
-  const uint32_t m = ((uint32_t)x * qinv) & MASK30;
-  return (x + (uint64_t)m * p) >> 30;
-}
-
-// Canonical x·2^{-30} mod p for any x < 2^64: fold_redc's value without its
-// 64-bit `%` (two Montgomery steps give x·2^{-60} below p + 5, then · R²).
-__device__ __forceinline__ uint32_t reduce_redc(uint64_t x, const PrimeK& k) {
-  const uint64_t u = redc_step(redc_step(fold32(x, k.c32), k.p, k.qinv), k.p, k.qinv);
-  const uint32_t v = (uint32_t)(u >= k.p ? u - k.p : u);
-  return mont_mul(v, k.r2, k.p, k.qinv);
-}
 
 // The 4 digit planes of v into the inverse's operand at row `row`, position pos.
 __device__ __forceinline__ void put_digits(int8_t* lo, const Split& s, int row, int pos,
@@ -577,7 +526,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mxu_tile_kernel(const TileAr
   constexpr int FL = FIX ? S::LOGN : 10, FK = FIX ? (S::T * S::KK + 1) & ~1 : 2,
                 FM = FIX ? (S::T * S::MR + 1) & ~1 : 2;
   extern __shared__ __align__(16) uint8_t smem[];
-  StageClock<TIMED> clk;
+  StageClock<TIMED, NSTAGES> clk;
   const int T = dim<S::T>(g.T), logn = dim<S::LOGN>(g.logn), kk = dim<S::KK>(g.ci * g.rmax);
   const int mrows = dim<S::MR>(g.cpb * g.psize), P = dim<S::P>(g.P);
   const int block = dim<S::BLOCK>(g.block), psize = dim<S::PS>(g.psize);

@@ -56,6 +56,41 @@ __device__ __forceinline__ uint32_t fold_redc(uint64_t acc, uint32_t p, uint32_t
   return mont_mul((uint32_t)(acc % p), 1u, p, qinv);
 }
 
+// ---- lazy reduction (fused_mxu.cu's tile design, the butterfly kernels' lazy design) ----
+
+// The lazy reduction's constants of one prime: 2^32 mod p and R² mod p.
+struct PrimeK {
+  uint32_t p, qinv, c32, r2;
+  PrimeK() = default;
+  __device__ PrimeK(const int64_t* __restrict__ consts, int pi) {
+    p = (uint32_t)consts[pi * CONSTS_PER_PRIME + C_P];
+    qinv = (uint32_t)consts[pi * CONSTS_PER_PRIME + C_QINV];
+    c32 = (uint32_t)((1ull << 32) % p);
+    r2 = (uint32_t)((1ull << 60) % p);
+  }
+};
+
+// x mod p kept below 2^62 + 2^32 (any x < 2^64): high word · (2^32 mod p) + low word.
+// A sum of products of canonical residues (each < 2^60) folded every 8 terms
+// never wraps.
+__device__ __forceinline__ uint64_t fold32(uint64_t x, uint32_t c32) {
+  return (uint64_t)(uint32_t)(x >> 32) * c32 + (uint32_t)x;
+}
+
+// One Montgomery step of x < 2^63: (x + m·p)/2^30 ≡ x·2^{-30}, below x/2^30 + p.
+__device__ __forceinline__ uint64_t redc_step(uint64_t x, uint32_t p, uint32_t qinv) {
+  const uint32_t m = ((uint32_t)x * qinv) & MASK30;
+  return (x + (uint64_t)m * p) >> 30;
+}
+
+// Canonical x·2^{-30} mod p for any x < 2^64: fold_redc's value without its
+// 64-bit `%` (two Montgomery steps give x·2^{-60} below p + 5, then · R²).
+__device__ __forceinline__ uint32_t reduce_redc(uint64_t x, const PrimeK& k) {
+  const uint64_t u = redc_step(redc_step(fold32(x, k.c32), k.p, k.qinv), k.p, k.qinv);
+  const uint32_t v = (uint32_t)(u >= k.p ? u - k.p : u);
+  return mont_mul(v, k.r2, k.p, k.qinv);
+}
+
 // Forward negacyclic Cooley–Tukey NTT, in place, of `rows` rows of n = 2^logn
 // words in shared memory.  Stage s has 2^s blocks of half-length 2^(logn-1-s);
 // block i uses tw[2^s + i] (bit-reversed psi powers, Montgomery form).  The
@@ -459,6 +494,474 @@ __device__ __forceinline__ void lift_add_normalize_wide(const uint32_t* ys, int 
   int64_t res[MAX_LIMBS];
   normalize_full_wide(big, psize, res, res_size, kr, ka, offset);
   for (int i = 0; i < res_size; ++i) out[(int64_t)i * n] = res[i];
+}
+
+// ---- the stage clock of the TIMED instances (fused_mxu.cu, fused_product.cu,
+// br_block_step.cu) ----
+
+// Thread 0 adds the SM cycles since its last mark to the stage that a
+// barrier has just closed; each block writes its NST sums to
+// stamps[block][NST] at the end.  With ON false every call is empty.
+template <bool ON, int NST>
+struct StageClock {
+  long long last = 0, acc[NST] = {};
+  __device__ StageClock() {
+    if (ON && threadIdx.x == 0) last = clock64();
+  }
+  __device__ void mark(int stage) {
+    if (ON && threadIdx.x == 0) {
+      const long long now = clock64();
+      acc[stage] += now - last;
+      last = now;
+    }
+  }
+  __device__ void store(long long* stamps) const {
+    if (ON && threadIdx.x == 0)
+      for (int i = 0; i < NST; ++i) stamps[(size_t)blockIdx.x * NST + i] = acc[i];
+  }
+};
+
+// The stages of the butterfly kernels (fused_product.cu, br_block_step.cu),
+// both designs: limbs to residues, forward NTT, VMP (with the block step's
+// x-power products), inverse NTT, exit (N^{-1}, Garner, add, normalize).
+enum { BF_ENTRY, BF_FWD, BF_VMP, BF_INV, BF_EXIT, BF_NSTAGES };
+
+// ---- the lazy design of the butterfly kernels (fused_product.cu,
+// br_block_step.cu) ----
+//
+// A block keeps T ciphertexts' residue rows in shared memory as T·P regions
+// of R = max(KK, mrows) rows of N words, region t·P + pi for ciphertext t and
+// prime pi.  The entry reads each limb once and, for every prime, reduces
+// it, runs the forward's first stages on it in registers and writes it into
+// row k of the region; the rest of the forward NTT transforms the KK rows of
+// every region at once; the VMP overwrites them in place with the mrows
+// output rows (a thread reads all KK inputs of its coefficient before it
+// writes that coefficient's outputs); the inverse NTT transforms those; the
+// exit lifts them (lift_add_normalize, rows stride R).  The NTT keeps values
+// lazily in [0, 4p) (forward) or [0, 2p) (inverse), p < 2^30, with Shoup
+// twiddles (w, ⌊w·2^32/p⌋) and 32-bit products, in two passes with a
+// barrier after each: the stages of bits log N − 1 .. 8 in registers, eight
+// points per thread, then those of bits 7 .. 0 inside one warp, 256 points
+// per warp in three register passes of eight points per lane, the chunk
+// transposed through its own words between them.  So a transform takes 2
+// barriers instead of log N, and every butterfly runs in registers.
+// Residues are canonical wherever another stage reads them.  8 ≤ log N ≤ 11.
+
+// The compile-time shape of an instance; 0 leaves a dimension to the runtime.
+template <int LOGN_, int KK_, int MR_, int P_, int PS_, int RS_>
+struct BfShape {
+  static constexpr int LOGN = LOGN_, KK = KK_, MR = MR_, P = P_, PS = PS_, RS = RS_;
+};
+
+template <int V>
+__device__ __forceinline__ int pick(int rt) {
+  return V ? V : rt;
+}
+
+// The lazy design's constants of one prime: PrimeK's, p − 2^64 mod p,
+// Shoup's quotients ⌊c32·2^32/p⌋ and ⌊2^32/p⌋, and the terms a lazy u64 sum
+// of products of canonical residues may take between two folds:
+// F·(p − 1)² ≤ 2^63, so that a folded sum (< 2^62 + 2^32) plus F terms stays
+// below 2^64 (8 for p near 2^30, 128 for p < 2^28).
+struct PrimeL : PrimeK {
+  uint32_t cneg, c32q, oneq, fold;
+  PrimeL() = default;
+  __device__ PrimeL(const int64_t* __restrict__ consts, int pi) : PrimeK(consts, pi) {
+    cneg = p - (uint32_t)((uint64_t)c32 * c32 % p);
+    c32q = (uint32_t)(((uint64_t)c32 << 32) / p);
+    oneq = (uint32_t)((1ull << 32) / p);
+    const uint64_t f = (1ull << 63) / ((uint64_t)(p - 1) * (p - 1));
+    fold = (uint32_t)(f < (1u << 20) ? f : (1u << 20));
+  }
+};
+
+// Canonical x mod p (hal/ntt.py's floor `%`) of any int64 x, INT64_MIN
+// included, in 32-bit products: x = hi·2^32 + lo (hi = x >> 32) ≡
+// (hi mod 2^32)·(2^32 mod p) + lo − [x < 0]·(2^64 mod p); both products by
+// Shoup (each brought to [0, p)), the sign by + (p − 2^64 mod p), the sum
+// below 3p.
+__device__ __forceinline__ uint32_t mod_p_i64(int64_t x, const PrimeL& k) {
+  const uint32_t hi = (uint32_t)((uint64_t)x >> 32), lo = (uint32_t)x;
+  uint32_t a = hi * k.c32 - __umulhi(hi, k.c32q) * k.p;     // [0, 2p)
+  uint32_t b = lo - __umulhi(lo, k.oneq) * k.p;             // [0, 2p)
+  a = min(a, a - k.p);
+  b = min(b, b - k.p);
+  uint32_t v = a + b + (x < 0 ? k.cneg : 0u);
+  v = min(v, v - 2 * k.p);
+  return min(v, v - k.p);
+}
+
+// Shoup's product a·w mod p in [0, 2p) for any a < 2^32, w = (w, ⌊w·2^32/p⌋), w < p.
+__device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint2 w, uint32_t p) {
+  return a * w.x - __umulhi(a, w.y) * p;
+}
+
+// Lazy Cooley–Tukey butterfly, X, Y in [0, 4p) → [0, 4p): X ← x + w·Y,
+// Y ← x − w·Y + 2p, x = X reduced to [0, 2p), w·Y in [0, 2p).
+__device__ __forceinline__ void fwd_bfly(uint32_t& X, uint32_t& Y, uint2 w, uint32_t p) {
+  const uint32_t p2 = 2 * p;
+  const uint32_t x = X >= p2 ? X - p2 : X;
+  const uint32_t t = shoup_mul(Y, w, p);
+  X = x + t;
+  Y = x - t + p2;
+}
+
+// Lazy Gentleman–Sande butterfly, X, Y in [0, 2p) → [0, 2p): X ← X + Y,
+// Y ← (X − Y)·w.
+__device__ __forceinline__ void inv_bfly(uint32_t& X, uint32_t& Y, uint2 w, uint32_t p) {
+  const uint32_t p2 = 2 * p;
+  const uint32_t s = X + Y;
+  Y = shoup_mul(X - Y + p2, w, p);
+  X = s >= p2 ? s - p2 : s;
+}
+
+// Row rr of a transform over T·P regions of `rows` rows each: its words and prime.
+__device__ __forceinline__ uint32_t* lazy_row(uint32_t* buf, int rr, int rows, int R, int P,
+                                              int logn, int& pi) {
+  const int region = rr / rows;
+  pi = region % P;
+  return buf + ((size_t)(region * R + rr - region * rows) << logn);
+}
+
+// The inverse's stages of bits 8 .. log N − 1 (K = log N − 8 of them; its
+// last pass) of every row, one thread per (row, low byte l), the 2^K points
+// m·256 + l in registers, ending canonical; the twiddles are the same for
+// every thread of a row (the forward's run in lazy_entry_fwd_hi).  Ends
+// with a barrier.
+template <int K>
+__device__ __forceinline__ void ntt_inv_hi(uint32_t* buf, int nrows, int rows, int R, int P,
+                                           int logn, const uint2* __restrict__ tw,
+                                           const PrimeL* lk) {
+  constexpr int M = 1 << K;
+  const int n = 1 << logn;
+  for (int g = threadIdx.x; g < (nrows << 8); g += blockDim.x) {
+    int pi;
+    uint32_t* x = lazy_row(buf, g >> 8, rows, R, P, logn, pi) + (g & 255);
+    const uint2* twp = tw + (size_t)pi * n;
+    const uint32_t p = lk[pi].p;
+    uint32_t v[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) v[m] = x[m << 8];
+#pragma unroll
+    for (int s = K - 1; s >= 0; --s) {
+      const int kb = K - 1 - s;
+#pragma unroll
+      for (int j = 0; j < M; ++j)
+        if (!(j >> kb & 1))
+          inv_bfly(v[j], v[j | 1 << kb], __ldg(twp + (1 << s) + (j >> (kb + 1))), p);
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) x[m << 8] = v[m] >= p ? v[m] - p : v[m];
+  }
+  __syncthreads();
+}
+
+// Word e of a 256-point chunk in the swizzled order of ntt_pass_lo's
+// transposes: bits 4..2 XOR bits 7..5.
+__device__ __forceinline__ int chunk_sw(int e) { return e ^ ((e >> 5 & 7) << 2); }
+
+// The stages of bits 7 .. 0 of every row, one warp per 256-point chunk c,
+// in three register passes with the chunk transposed between them through
+// its own words (swizzled, chunk_sw, so that no two lanes of a load or store
+// meet in a bank):
+//   A: lane = bits 4..0, registers j = bits 7..5 (points 32·j + lane);
+//   B: lane = (bits 7..5, bits 1..0), registers m = bits 4..2;
+//   C: lane = bits 6..2, registers (bit 7, bits 1..0): two 16-byte groups.
+// Forward: A, B, C, canonical at the end.  INV: C, B, A (the inverse's first
+// pass), canonical where `last`.  Ends with a barrier.
+template <bool INV>
+__device__ __forceinline__ void ntt_pass_lo(uint32_t* buf, int nrows, int rows, int R, int P,
+                                            int logn, const uint2* __restrict__ tw,
+                                            const PrimeL* lk, bool last) {
+  const int n = 1 << logn, lane = threadIdx.x & 31, hb = logn - 8;
+  const int h3 = lane >> 2, l2 = lane & 3;           // pass B's lane bits
+  for (int q = threadIdx.x >> 5; q < (nrows << hb); q += blockDim.x >> 5) {
+    const int c = q & ((1 << hb) - 1);
+    int pi;
+    uint32_t* x = lazy_row(buf, q >> hb, rows, R, P, logn, pi) + (c << 8);
+    const uint2* twp = tw + (size_t)pi * n;
+    const uint32_t p = lk[pi].p, p2 = 2 * p;
+    uint32_t v[8];
+    // pass A: bits 7, 6, 5 (stages hb .. hb + 2)
+    auto pass_a = [&] {
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        const int st = INV ? 2 - t : t, kb = 2 - st;    // stage hb + st, bit 7 − st
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (j >> kb & 1) continue;
+          const uint2 w = __ldg(twp + (1 << (hb + st)) + (c << st) + (j >> (kb + 1)));
+          if (INV) inv_bfly(v[j], v[j | 1 << kb], w, p);
+          else fwd_bfly(v[j], v[j | 1 << kb], w, p);
+        }
+      }
+    };
+    // pass B: bits 4, 3, 2 (stages hb + 3 .. hb + 5)
+    auto pass_b = [&] {
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        const int u = INV ? 2 - t : t, kb = 2 - u;      // stage hb + 3 + u, bit 4 − u
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          if (m >> kb & 1) continue;
+          const uint2 w = __ldg(twp + (1 << (hb + 3 + u)) + (c << (3 + u)) + (h3 << u) +
+                                (m >> (kb + 1)));
+          if (INV) inv_bfly(v[m], v[m | 1 << kb], w, p);
+          else fwd_bfly(v[m], v[m | 1 << kb], w, p);
+        }
+      }
+    };
+    // pass C: bits 1, 0 (stages log N − 2, log N − 1) in each group g = bit 7
+    auto pass_c = [&] {
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int b = INV ? t : 1 - t;                  // bit b: stage log N − 1 − b
+#pragma unroll
+        for (int g = 0; g < 2; ++g)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            if (r >> b & 1) continue;
+            const int e = g << 7 | lane << 2 | r;
+            const uint2 w = __ldg(twp + (1 << (logn - 1 - b)) + (c << (7 - b)) + (e >> (b + 1)));
+            uint32_t& lo = v[g * 4 + r];
+            uint32_t& hi = v[g * 4 + (r | 1 << b)];
+            if (INV) inv_bfly(lo, hi, w, p);
+            else fwd_bfly(lo, hi, w, p);
+          }
+      }
+    };
+    // the words of pass A's point j, pass B's m, pass C's group g: natural
+    // order, or swizzled where `sw` (pass B's always)
+    auto at = [&](int e, bool sw) { return x + (sw ? chunk_sw(e) : e); };
+    auto a_load = [&](bool sw) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = *at(j << 5 | lane, sw);
+    };
+    auto a_store = [&](bool sw) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) *at(j << 5 | lane, sw) = v[j];
+    };
+    auto b_addr = [&](int m) { return at(h3 << 5 | m << 2 | l2, true); };
+    auto c_load = [&](bool sw) {
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        const uint4 w4 = *reinterpret_cast<const uint4*>(at(g << 7 | lane << 2, sw));
+        v[4 * g] = w4.x, v[4 * g + 1] = w4.y, v[4 * g + 2] = w4.z, v[4 * g + 3] = w4.w;
+      }
+    };
+    auto c_store = [&](bool sw) {
+#pragma unroll
+      for (int g = 0; g < 2; ++g)
+        *reinterpret_cast<uint4*>(at(g << 7 | lane << 2, sw)) =
+            uint4{v[4 * g], v[4 * g + 1], v[4 * g + 2], v[4 * g + 3]};
+    };
+    if (!INV) {
+      a_load(false);
+      pass_a();
+      __syncwarp();
+      a_store(true);
+      __syncwarp();
+#pragma unroll
+      for (int m = 0; m < 8; ++m) v[m] = *b_addr(m);
+      pass_b();
+#pragma unroll
+      for (int m = 0; m < 8; ++m) *b_addr(m) = v[m];
+      __syncwarp();
+      c_load(true);
+      pass_c();
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        v[j] = v[j] >= p2 ? v[j] - p2 : v[j];
+        v[j] = v[j] >= p ? v[j] - p : v[j];
+      }
+      __syncwarp();
+      c_store(false);
+    } else {
+      c_load(false);
+      pass_c();
+      __syncwarp();
+      c_store(true);
+      __syncwarp();
+#pragma unroll
+      for (int m = 0; m < 8; ++m) v[m] = *b_addr(m);
+      pass_b();
+#pragma unroll
+      for (int m = 0; m < 8; ++m) *b_addr(m) = v[m];
+      __syncwarp();
+      a_load(true);
+      pass_a();
+      if (last) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = v[j] >= p ? v[j] - p : v[j];
+      }
+      __syncwarp();
+      a_store(false);
+    }
+  }
+  __syncthreads();
+}
+
+// Inverse NTT without the N^{-1} scale (ntt_inv_rows) of rows 0..rows−1 of
+// each of the `regions` regions, canonical in and out; tw: the inverse Shoup
+// twiddles [P][N] (uint2).  Ends with a barrier.
+__device__ __forceinline__ void lazy_ntt_inv(uint32_t* buf, int regions, int rows, int R, int P,
+                                             int logn, const uint2* __restrict__ tw,
+                                             const PrimeL* lk) {
+  const int nrows = regions * rows;
+  ntt_pass_lo<true>(buf, nrows, rows, R, P, logn, tw, lk, logn == 8);
+  switch (logn - 8) {
+    case 1: ntt_inv_hi<1>(buf, nrows, rows, R, P, logn, tw, lk); break;
+    case 2: ntt_inv_hi<2>(buf, nrows, rows, R, P, logn, tw, lk); break;
+    case 3: ntt_inv_hi<3>(buf, nrows, rows, R, P, logn, tw, lk); break;
+    default: break;
+  }
+}
+
+// Entry and the forward's stages of bits log N − 1 .. 8 (K = log N − 8 of
+// them): one thread per (ciphertext t < T, input row k < kk, low byte l)
+// reads the 2^K limbs m·256 + l of row k (a: T consecutive [ci][size_a][n]
+// int64 ciphertexts, row k = column·rmax + limb at word rowoff[k]; those at
+// t ≥ nt read as 0) once, and for every prime reduces them (mod_p_i64),
+// runs the K stages in registers (the inverse of ntt_inv_hi) and writes row k of
+// region (t, pi).  Ends with a barrier.
+template <int K>
+__device__ __forceinline__ void lazy_entry_fwd_hi(uint32_t* buf, const int64_t* __restrict__ a,
+                                                  const int* rowoff, int T, int nt, int ci,
+                                                  int size_a, int kk, int P, int R, int logn,
+                                                  const uint2* __restrict__ tw,
+                                                  const PrimeL* lk) {
+  constexpr int M = 1 << K;
+  const int n = 1 << logn;
+  for (int g = threadIdx.x; g < ((T * kk) << 8); g += blockDim.x) {
+    const int tk = g >> 8, l = g & 255, t = tk / kk, k = tk - t * kk;
+    const int64_t* src = a + (int64_t)t * ci * size_a * n + rowoff[k] + l;
+    int64_t x[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) x[m] = t < nt ? src[m << 8] : 0;
+    for (int pi = 0; pi < P; ++pi) {
+      const PrimeL& kp = lk[pi];
+      const uint2* twp = tw + (size_t)pi * n;
+      uint32_t v[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m) v[m] = mod_p_i64(x[m], kp);
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        const int kb = K - 1 - s;
+#pragma unroll
+        for (int j = 0; j < M; ++j)
+          if (!(j >> kb & 1))
+            fwd_bfly(v[j], v[j | 1 << kb], __ldg(twp + (1 << s) + (j >> (kb + 1))), kp.p);
+      }
+      uint32_t* dst = buf + ((size_t)((t * P + pi) * R + k) << logn) + l;
+#pragma unroll
+      for (int m = 0; m < M; ++m) dst[m << 8] = v[m];
+    }
+  }
+  __syncthreads();
+}
+
+// lazy_entry_fwd_hi for K = log N − 8.
+__device__ __forceinline__ void lazy_entry_fwd(uint32_t* buf, const int64_t* __restrict__ a,
+                                               const int* rowoff, int T, int nt, int ci,
+                                               int size_a, int kk, int P, int R, int logn,
+                                               const uint2* __restrict__ tw, const PrimeL* lk) {
+  switch (logn - 8) {
+    case 0: lazy_entry_fwd_hi<0>(buf, a, rowoff, T, nt, ci, size_a, kk, P, R, logn, tw, lk); break;
+    case 1: lazy_entry_fwd_hi<1>(buf, a, rowoff, T, nt, ci, size_a, kk, P, R, logn, tw, lk); break;
+    case 2: lazy_entry_fwd_hi<2>(buf, a, rowoff, T, nt, ci, size_a, kk, P, R, logn, tw, lk); break;
+    default: lazy_entry_fwd_hi<3>(buf, a, rowoff, T, nt, ci, size_a, kk, P, R, logn, tw, lk); break;
+  }
+}
+
+// rowoff[k] for k < kk: the word offset of input row k = column·rmax + limb
+// in one [ci][size_a][n] ciphertext.  Written by the first kk threads; the
+// caller synchronises before its first use.
+__device__ __forceinline__ void lazy_row_offsets(int* rowoff, int kk, int rmax, int size_a,
+                                                 int logn) {
+  if (threadIdx.x < kk) {
+    const int col = threadIdx.x / rmax;
+    rowoff[threadIdx.x] = (col * size_a + threadIdx.x - col * rmax) << logn;
+  }
+}
+
+// The VMP of every prime, in place: for each ciphertext t < T, output row m
+// < mrows of region (t, pi) ← Σ_i Σ_k x'_{t,i,k}·pm_i[k][m0 + m]·R^{-1},
+// x'_{t,i,k} = x_{t,k}·X_{t,i}·R^{-1} (BSTEP: X_{t,i} the Montgomery
+// NTT(X^a − 1) row xrow[t·block + i] of xpm1 [2N][P][N], block key elements
+// pm [block][P][kk][mdim][N]) or x_{t,k} (the product: pm [P][kk][mdim][N]),
+// which is fused_product.cu's / br_block_step.cu's canonical value, so the
+// same bits.  One thread per (prime, coefficient) holds its T·kk inputs
+// (MK ≥ kk) and, for MC output rows at a time, T·MC sums in registers, so
+// each key word is read once per block and each x-power product made once
+// per (t, i, k) and group of MC rows; the sums run lazily in u64 (folded
+// every PrimeL::fold terms) and are reduced once (reduce_redc).  The caller
+// ends it with a barrier.
+template <int T, int MK, int MC, bool BSTEP>
+__device__ __forceinline__ void lazy_vmp(uint32_t* buf, const int32_t* __restrict__ pm,
+                                         const int32_t* __restrict__ xpm1, const int* xrow,
+                                         int block, int kk, int mdim, int m0, int mrows, int P,
+                                         int R, int logn, const PrimeL* lk) {
+  constexpr bool FOLDS = BSTEP || MK > 8;   // PrimeL::fold ≥ 8: 8 terms never need one
+  const int n = 1 << logn;
+  for (int it = threadIdx.x; it < (P << logn); it += blockDim.x) {
+    const int pi = it >> logn, coef = it & (n - 1);
+    const PrimeL k = lk[pi];
+    uint32_t x[T][MK];
+#pragma unroll
+    for (int t = 0; t < T; ++t)
+#pragma unroll
+      for (int q = 0; q < MK; ++q)
+        if (q < kk) x[t][q] = buf[((size_t)((t * P + pi) * R + q) << logn) + coef];
+#pragma unroll 1
+    for (int mc = 0; mc < mrows; mc += MC) {
+      uint64_t acc[T][MC];
+#pragma unroll
+      for (int t = 0; t < T; ++t)
+#pragma unroll
+        for (int m = 0; m < MC; ++m) acc[t][m] = 0;
+      uint32_t terms = 0;
+#pragma unroll 1
+      for (int i = 0; i < (BSTEP ? block : 1); ++i) {
+        const int32_t* pmi =
+            pm + ((size_t)(BSTEP ? i * P + pi : pi) * kk * mdim + m0 + mc) * n + coef;
+        uint32_t xw[T];
+        if (BSTEP) {
+#pragma unroll
+          for (int t = 0; t < T; ++t)
+            xw[t] = (uint32_t)__ldg(xpm1 + ((size_t)xrow[t * block + i] * P + pi) * n + coef);
+        }
+#pragma unroll
+        for (int q = 0; q < MK; ++q) {
+          if (q >= kk) break;
+          uint32_t xv[T];
+#pragma unroll
+          for (int t = 0; t < T; ++t)
+            xv[t] = BSTEP ? mont_mul(x[t][q], xw[t], k.p, k.qinv) : x[t][q];
+#pragma unroll
+          for (int m = 0; m < MC; ++m) {
+            if (mc + m < mrows) {
+              const uint64_t w = (uint32_t)__ldg(pmi + (size_t)(q * mdim + m) * n);
+#pragma unroll
+              for (int t = 0; t < T; ++t) acc[t][m] += xv[t] * w;
+            }
+          }
+          if (FOLDS && ++terms == k.fold) {
+            terms = 0;
+#pragma unroll
+            for (int t = 0; t < T; ++t)
+#pragma unroll
+              for (int m = 0; m < MC; ++m) acc[t][m] = fold32(acc[t][m], k.c32);
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < T; ++t)
+#pragma unroll
+        for (int m = 0; m < MC; ++m)
+          if (mc + m < mrows)
+            buf[((size_t)((t * P + pi) * R + mc + m) << logn) + coef] = reduce_redc(acc[t][m], k);
+    }
+  }
 }
 
 }  // namespace poulpy

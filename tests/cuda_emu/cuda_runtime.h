@@ -1,10 +1,12 @@
 // The CUDA execution model on the CPU, for running a kernel's source without
 // a card (tests/test_torch_cuda_emu.py): one std::thread per CUDA thread, the
 // blocks of a launch one after another, __syncthreads a barrier of the
-// block's threads, dynamic shared memory a buffer per block filled with
-// garbage, and mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 computed from
-// the fragments of the warp's 32 lanes (PTX ISA's fragment layouts) between
-// two barriers of the warp.  The test's build step rewrites the source first:
+// block's threads and __syncwarp one of the warp's, dynamic shared memory a
+// buffer per block filled with garbage, a static __shared__ variable one per
+// kernel instance (the blocks run one after another), and
+// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 computed from the
+// fragments of the warp's 32 lanes (PTX ISA's fragment layouts) between two
+// barriers of the warp.  The test's build step rewrites the source first:
 // `kernel<<<grid, threads, smem, stream>>>(args)` into
 // `emu_launch(kernel, grid, threads, smem, stream, args)`, each inline mma asm
 // into emu_mma_s8(c, a, b), and `extern __shared__ … smem[]` into a pointer to
@@ -26,6 +28,7 @@
 #define __restrict__
 #define __launch_bounds__(...)
 #define __align__(n)
+#define __shared__ static
 
 struct uint3s {
   unsigned x, y, z;
@@ -34,6 +37,12 @@ inline thread_local uint3s threadIdx, blockIdx;
 inline uint3s blockDim, gridDim;
 struct int2 {
   int x, y;
+};
+struct uint2 {
+  unsigned x, y;
+};
+struct uint4 {
+  unsigned x, y, z, w;
 };
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -86,6 +95,9 @@ template <class T>
 T __ldg(const T* p) {
   return *p;
 }
+inline unsigned __umulhi(unsigned a, unsigned b) { return (unsigned)((uint64_t)a * b >> 32); }
+
+inline void __syncwarp() { emu_warp_bar[threadIdx.x >> 5].wait(); }
 
 // c += A·B for the warp's m16n8k32 s8 tile: lane 4g + t holds A rows g and
 // g + 8, columns 4t..4t+3 and 16 + 4t..; B column g, rows 4t.. and 16 + 4t..;
