@@ -57,15 +57,20 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  cores' int8 rate, the largest; the wide kernels at the
                  wide CKKS mul's shapes, the tensor kernel and the small64
                  and small products at the relinearize and ckks_rotate
-                 paths' shapes, batch 256); the butterfly product and block
-                 step (the lazy design, which the paths run) also against
-                 their parent design, equal and timed in the same way;
+                 paths' shapes, batch 256; the VMP also at the non-wide
+                 CKKS mul's shape and on the 30-bit basis of the "mxu"
+                 keyswitch, batch 256); the butterfly product and block
+                 step (the lazy design, which the paths run) and the VMP
+                 (the tile design) also against their parent design, equal
+                 and timed in the same way;
   3′. kernels    the same for the MXU route's kernels, after the last path: at
                  the product path's shapes, the fused MXU product with the
                  body at the keyswitch path's, batch 256, and the block step
                  at the gate path's, batch 1024, each with the time of
                  torch._int_mm on its step-B-shaped digit product as a
-                 library yardstick of the product part alone;
+                 library yardstick of the product part alone; the inverse
+                 (the wg design) also on the keyswitch path's 30-bit basis,
+                 and against its parent design, equal and timed;
   3‴. stages     the fused kernels' stage clocks, after 3′: the fused MXU
                  kernel's at the product, keyswitch (`small`) and gate (block
                  step) paths' shapes, for the parent design (one ciphertext
@@ -78,7 +83,11 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  one's), the SM cycles per block of each stage (MXU: input
                  planes, forward steps A and B, VMP, inverse steps A and B,
                  exit; butterfly: entry, forward NTT, VMP, inverse NTT,
-                 exit), their shares and those shares of the time;
+                 exit), their shares and those shares of the time; then the
+                 MXU inverse's (mxu_ntt.cu) at the product and keyswitch
+                 paths' shapes, for the parent and the wg design (planes,
+                 step A — the wg design's split into its products and its
+                 epilogues —, step B);
   3″. kernels_large_n  each product kernel at a shape whose rows do not fit
                  in shared memory (N 8192 for bench.py's product, N 4096
                  for the CKKS key's keyswitch and relinearization exits,
@@ -233,6 +242,8 @@ ROUTES = ("mxu", "fused_mxu")
 DESIGNS = ("parent", "tile")
 # the butterfly kernels' designs there (backends/fused.py)
 BUTTERFLY_DESIGNS = ("parent", "lazy")
+# the MXU inverse's designs (csrc/mxu_ntt.cu), timed by its stage clock in 3‴
+INVERSE_DESIGNS = ("parent", "wg")
 
 _FUSED = "poulpy_tpu/backends/pallas_fused.py:951"
 _WIDE = "poulpy_tpu/backends/pallas_wide.py"
@@ -473,10 +484,16 @@ def phase_kernels(m, gm, wm) -> dict:
     product path's on `m`, the gate path's on `gm` at batch GATE_BATCH, the
     wide CKKS mul's on `wm` at batch CKKS_BATCH, the relinearize and
     ckks_rotate paths' on `m` (the ckks configuration's basis) at batch
-    CKKS_BATCH."""
+    CKKS_BATCH; the VMP also at the non-wide CKKS mul's shape on `m` and at
+    the "mxu" keyswitch's on a module of its own (the keyswitch path's
+    30-bit basis, freed after the phase, so that the paths run as they did
+    before these cases)."""
     import torch
 
     from poulpy_tpu_torch.backends import fused, ntt, vmp, wide
+    from poulpy_tpu_torch.hal.module import Module
+
+    km = Module(KS_N, 2, 30, m.device)
 
     gen = torch.Generator(device=m.device).manual_seed(5)
 
@@ -532,6 +549,14 @@ def phase_kernels(m, gm, wm) -> dict:
     rkey = residues(m, (k.dnum, 1, 2, 6, kp, N))
     rot_a = ints(-(2**16), 2**16, (rb, 1, 6, N))
     rot_body = ints(-(2**16), 2**16, (rb, 6, N))
+    # the VMP of the non-wide CKKS mul ([ci 1, 6 digits] × [6, 1, co 2, 6
+    # limbs], batch 256) and of the "mxu" keyswitch (30-bit basis, [ci 1, 3
+    # limbs] × [3, 1, 2, psize 4], batch KS_BATCH, residues p − 1 in row 0)
+    ck_dft = residues(m, (rb, 1, 6, kp, N))
+    ck_pmat = residues(m, (k.dnum, 1, 2, 6, kp, N))
+    ks_dft = residues(km, (KS_BATCH, 1, 3, km.nprimes, N))
+    ks_dft[0] = (torch.tensor(km.basis.primes, device=km.device) - 1).to(torch.int32)[:, None]
+    ks_vpmat = residues(km, (KS_DNUM, 1, 2, 4, km.nprimes, N))
     i32, i64 = 4, 8
     cases = {
         "ntt_forward": (lambda: ntt.ntt_forward(t, x), lambda: ntt.ntt_forward_ref(t, x),
@@ -542,6 +567,15 @@ def phase_kernels(m, gm, wm) -> dict:
                 lambda: chunked(lambda c: vmp.vmp_apply_ref(m, c, pmat), a_dft),
                 bound((a_dft.numel() + pmat.numel() + BATCH * 2 * 4 * NPRIMES * N) * i32,
                       BATCH * 6 * 8 * NPRIMES * N)),
+        "vmp@ckks": (lambda: vmp.vmp_apply(m, ck_dft, ck_pmat),
+                     lambda: vmp.vmp_apply_ref(m, ck_dft, ck_pmat),
+                     bound((ck_dft.numel() + ck_pmat.numel() + rb * 2 * 6 * kp * N) * i32,
+                           rb * 6 * 12 * kp * N)),
+        "vmp@keyswitch": (lambda: vmp.vmp_apply(km, ks_dft, ks_vpmat),
+                          lambda: vmp.vmp_apply_ref(km, ks_dft, ks_vpmat),
+                          bound((ks_dft.numel() + ks_vpmat.numel()
+                                 + KS_BATCH * 2 * 4 * km.nprimes * N) * i32,
+                                KS_BATCH * 3 * 8 * km.nprimes * N)),
         "fused_product": (
             lambda: fused.fused_glwe_product(m, a, pmat, 3, BASE2K, BASE2K),
             lambda: chunked(lambda c: fused.fused_glwe_product_ref(m, c, pmat, 3, BASE2K, BASE2K), a),
@@ -591,9 +625,13 @@ def phase_kernels(m, gm, wm) -> dict:
             bound((rot_a.numel() + rot_body.numel() + rb * 2 * 6 * N) * i64
                   + rkey.numel() * i32, fused_ops(rb, 6, 12, kp, N))),
     }
-    # the butterfly kernels' parent designs (rows 3a, 3b, 3b′, 3c, 4), in the same call
+    # the parent designs of the butterfly kernels (rows 3a, 3b, 3b′, 3c, 4)
+    # and of the VMP (row 2), in the same call
     product, step = fused._product_launch, fused._block_step_launch
     parents = {
+        "vmp": lambda: vmp.vmp_apply(m, a_dft, pmat, design="parent"),
+        "vmp@ckks": lambda: vmp.vmp_apply(m, ck_dft, ck_pmat, design="parent"),
+        "vmp@keyswitch": lambda: vmp.vmp_apply(km, ks_dft, ks_vpmat, design="parent"),
         "fused_product": parent_run(product, m, a, pmat, 3, BASE2K, BASE2K),
         "fused_product_small": parent_run(product, gm, ks_a, ks_pmat, 2, BASE2K, BASE2K, 1,
                                           ks_body),
@@ -650,6 +688,20 @@ def phase_kernels_mxu(m, km, gm) -> dict:
     n2 = split(N)[1]
     garner_products = NPRIMES * (NPRIMES - 1) // 2 + NPRIMES - 1   # per limb
     i32, i64 = 4, 8
+    # the inverse of the "mxu" keyswitch (30-bit basis, its 8 output rows at
+    # batch KS_BATCH, residues p − 1 in row 0)
+    y_ks = residues(km, (KS_BATCH * 8, kp, N))
+    y_ks[0] = (torch.tensor(km.basis.primes, device=km.device) - 1).to(torch.int32)[:, None]
+
+    def inverse_parent(tables, y):
+        def run():
+            out, launch = mxu._inverse_launch(tables, y, "parent")
+            launch()
+            return out
+        return run
+
+    parents = {"mxu_inverse": inverse_parent(t, y_mxu),
+               "mxu_inverse@keyswitch": inverse_parent(km.tables, y_ks)}
     return check_kernels({
         "mxu_forward": (
             lambda: mxu.mxu4_forward_limbs(t, a, 3),
@@ -662,6 +714,11 @@ def phase_kernels_mxu(m, km, gm) -> dict:
             lambda: chunked(lambda c: mxu.mxu4_inverse_ref(t, c), y_mxu),
             bound(2 * y_mxu.numel() * i32, y_mxu.numel(), mxu_macs(BATCH * 8, NPRIMES, N)),
             BATCH * 8 * NPRIMES * n2),
+        "mxu_inverse@keyswitch": (
+            lambda: mxu.mxu4_inverse(km.tables, y_ks),
+            lambda: mxu.mxu4_inverse_ref(km.tables, y_ks),
+            bound(2 * y_ks.numel() * i32, y_ks.numel(), mxu_macs(KS_BATCH * 8, kp, N)),
+            KS_BATCH * 8 * kp * n2),
         "garner_exit": (
             lambda: fused.garner_exit(m, x_exit, 4, 3, BASE2K, BASE2K),
             lambda: chunked(lambda c: fused.garner_exit_ref(m, c, 4, 3, BASE2K, BASE2K), x_exit),
@@ -694,7 +751,7 @@ def phase_kernels_mxu(m, km, gm) -> dict:
                   GATE_BATCH * gp * GATE_BLOCK * (4 * 8 + 8) * gn + GATE_BATCH * gp * 12 * gn,
                   mxu_macs(GATE_BATCH * 4, gp, gn) + mxu_macs(GATE_BATCH * 8, gp, gn)),
             GATE_BATCH * (4 + 8) * gp * split(gn)[1]),
-    })
+    }, parents)
 
 
 def fused_mxu_cases(m, km, gm) -> dict:
@@ -798,6 +855,57 @@ def phase_stages(backend, cases: dict, designs: tuple) -> None:
                  stages={st: dict(cycles=c, share=c / total, ms=ms * c / total)
                          for st, c in zip(backend.STAGES, cycles)})
             del out, want, timed_out
+
+
+def inverse_cases(m, km) -> dict:
+    """The MXU inverse at the "mxu" route's shapes, on inputs of its own:
+    name → (tables, residues y).  The product path's [B·8 rows, P 2, N 2048]
+    on the 28-bit basis, and the keyswitch path's [KS_BATCH·8, P 2, N 2048]
+    on the 30-bit basis (its residues at p − 1 in the first row)."""
+    import torch
+
+    gen = torch.Generator(device=m.device).manual_seed(10)
+
+    def residues(mod, shape):
+        primes = torch.tensor(mod.basis.primes, device=mod.device)[:, None]
+        x = torch.randint(0, 1 << 62, shape, generator=gen, device=mod.device, dtype=torch.int64)
+        return (x % primes).to(torch.int32)
+
+    y_ks = residues(km, (KS_BATCH * 8, km.nprimes, N))
+    y_ks[0] = (torch.tensor(km.basis.primes, device=km.device) - 1).to(torch.int32)[:, None]
+    return {"mxu_inverse": (m.tables, residues(m, (BATCH * 8, NPRIMES, N))),
+            "mxu_inverse@keyswitch": (km.tables, y_ks)}
+
+
+def phase_inverse_stages(cases: dict, designs: tuple) -> None:
+    """The MXU inverse's stage clock, per design: the kernel's time (CUDA
+    events, 5 launches), then one launch of its TIMED instance, whose output
+    must equal the untimed one's and the plain version's; per stage the SM
+    cycles per block (mean over blocks; the wg design's block walks many
+    tasks) and per row (summed over blocks), its share, and that share of
+    the time."""
+    import torch
+
+    from poulpy_tpu_torch.backends import mxu
+
+    for name, (t, y) in cases.items():
+        want = chunked(lambda c: mxu.mxu4_inverse_ref(t, c), y)
+        for design in designs:
+            out, launch = mxu._inverse_launch(t, y, design)
+            ms = cuda_ms(launch, 5)
+            timed_out, stamps = mxu.stage_cycles(t, y, design)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, want) and torch.equal(timed_out, want)):
+                raise SystemExit(f"stages: the {design} {name} disagrees with its plain version")
+            cycles = stamps.to(torch.float64).mean(0).tolist()
+            total = sum(cycles)
+            rows = y.shape[0]
+            emit(phase="stages", kernel=name, design=design, ms=ms, blocks=stamps.shape[0],
+                 rows=rows, block_cycles=total,
+                 stages={st: dict(cycles=c, per_row=c * stamps.shape[0] / rows, share=c / total,
+                                  ms=ms * c / total)
+                         for st, c in zip(mxu.STAGES[design], cycles)})
+            del out, timed_out
 
 
 def phase_kernels_large_n() -> None:
@@ -1645,6 +1753,7 @@ def main() -> int:
     timings.update(phase_kernels_mxu(m, km, gm))
     phase_stages(fused_mxu, fused_mxu_cases(m, km, gm), DESIGNS)
     phase_stages(fused, butterfly_cases(m, km, gm), BUTTERFLY_DESIGNS)
+    phase_inverse_stages(inverse_cases(m, km), INVERSE_DESIGNS)
     phase_kernels_large_n()
     if not all(launches.values()):
         raise SystemExit(f"kernels never launched: {[k for k, v in launches.items() if not v]}")

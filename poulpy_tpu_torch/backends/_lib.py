@@ -30,6 +30,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "poulpy_ntt": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "poulpy_vmp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "poulpy_vmp_tile": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "poulpy_fused_product": [_P] * 7 + [_I] * 15 + [_P, _I, _I, _P, _P],
     "poulpy_fused_product_lazy": [_P] * 7 + [_I] * 15 + [_P, _P],
     "poulpy_br_block_step": [_P] * 7 + [_I] * 11 + [_P, _I, _I, _P, _P],
@@ -38,7 +39,8 @@ _SIGNATURES = {
     "poulpy_wide_tensor": [_P] * 6 + [_I] * 12 + [_P, _I, _I, _P],
     "poulpy_tensor_product": [_P] * 7 + [_I] * 10 + [_P],
     "poulpy_mxu_forward": [_P] * 6 + [_I] * 6 + [_P],
-    "poulpy_mxu_inverse": [_P] * 6 + [_I] * 5 + [_P],
+    "poulpy_mxu_inverse": [_P] * 6 + [_I] * 5 + [_P, _P],
+    "poulpy_mxu_inverse_wg": [_P] * 7 + [_I] * 4 + [_P, _P],
     "poulpy_garner_exit": [_P] * 4 + [_I] * 9 + [_P],
     "poulpy_fused_mxu_product": [_P] * 13 + [_I] * 16 + [_P, _I, _I, _P, _P],
     "poulpy_fused_mxu_tile": [_P] * 13 + [_I] * 17 + [_P, _P],
@@ -105,6 +107,11 @@ def library() -> ctypes.CDLL:
 
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of the card (the persistent grids' size)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ptr(x: torch.Tensor | None) -> int | None:

@@ -19,7 +19,11 @@ the int8 products with int32 sums of the tensor cores are exact.  The plain
 versions do the digit products in float64, exact as well.
 
 The wrappers take the plain version for a CPU tensor and launch the kernel
-for a CUDA one; counters `mxu_forward` / `mxu_inverse`.
+for a CUDA one; counters `mxu_forward` / `mxu_inverse`.  The inverse has two
+designs: "wg" (wgmma, a persistent block per SM, `wg_layout` / `wg_tables`)
+for the N of `WG_LOGN`, and "parent" (mma.sync, 4 rows per block) for the
+other N; the private `_inverse_launch(design=)` and `stage_cycles` reach
+either, for the comparisons and the stage clock of `chip_smoke.py`.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from poulpy_tpu_torch.backends.ntt import kernel_tables
 from poulpy_tpu_torch.hal.ntt import NttTables, mont_mul
 from poulpy_tpu_torch.hal.primes import R
 
-ROWS_PER_BLOCK = 4   # rows of N coefficients per block of the transform kernels
+ROWS_PER_BLOCK = 4   # rows of N coefficients per block of the forward and the parent inverse
 PAD = 16             # bytes after each int8 operand row in shared memory (csrc/mxu.cuh)
 WEIGHTS = ("ua", "v0", "wa", "w0")
 
@@ -199,6 +203,105 @@ def transform_smem_bytes(n: int, rows: int = ROWS_PER_BLOCK) -> int:
     return rows * n1 * (NDIG * n2 + PAD) + rows * n2 * (NDIG * n1 + PAD)
 
 
+# ---- the inverse's wg design (csrc/mxu_ntt.cu mxu_inverse_wg_kernel) ----
+
+WG_MB = 128              # rows·n2 of one task: the N of step A's wgmma
+WG_LOGN = range(9, 14)   # the N of its instances (WgShape<LOGN>)
+
+
+def wg_layout(n: int, rows: int, P: int, sms: int) -> tuple[int, int, int, int]:
+    """(rows per task, tasks, grid, shared bytes) of the wg design: a task is
+    one prime of WG_MB / n2 rows, one block per SM walks them."""
+    n1, n2 = _split(n)
+    per_task = WG_MB // n2
+    tasks = -(-rows // per_task) * P
+    smem = WG_MB * NDIG * n1 + per_task * n * 4 + per_task * n1 * NDIG * n2
+    return per_task, tasks, max(1, min(tasks, sms)), smem
+
+
+def wg_supported(n: int) -> bool:
+    return n.bit_length() - 1 in WG_LOGN
+
+
+# the split fold where the weights allow it; tests set False to run the int64 fold
+WG_SPLIT = True
+
+
+@functools.lru_cache(maxsize=None)
+def _host_wg_tables(primes: tuple[int, ...], n: int, split: bool = True) -> dict:
+    """Numpy tables of the wg design, per basis and N:
+
+      wa    [P, pairs, ksteps, 2, 128, 4] int32  step A's weights as the A
+            operand of wgmma: thread 32w + 4g + t of tile h of pair q,
+            k-step s, register e + 2·kh holds bytes b = 0..3 of
+            wa[32s + 16kh + 4t + b, (2h + e)·n1 + 32q + 8w + g]
+      w0    [P, 16·n2²] int8  step B's weights w0 [4·n2 (k), 4·n2 (d·n2 + n2i)]
+            as wgmma's B operand in shared memory: column ν = 8·(4·cg + d) + c8
+            for output n2i = 8·cg + c8, element (ν, k) at byte (ν // 8)·32·n2
+            + (k // 16)·128 + (ν % 8)·16 + k % 16
+      tw    [P, n1, n2, 4] int32 (as u32)  step A's output constants: c =
+            ψ^{-n1(1+2k2)}·2^{-60} and c·2^s mod p (s of the prime's step-A
+            fold), each with its Shoup quotient ⌊·2^32/p⌋
+      primes [P, 12] int32 (as u32)  per prime the folds of steps A and B
+            (split, K low and high word, 0) and step B's constants (2^{-60},
+            its quotient, 2^{s - 60}, its quotient)
+
+    A step's fold is "split" where its weights bound both halves of the
+    partials' sum, |P_0 + 2^8·P_1| ≤ A = 257·128·max_col Σ_k |w|, with 2A + p
+    ≤ 2^32: the halves + K = p·⌈A/p⌉ are the two words, s = 16; else the
+    int64 sum + p·⌈2^48/p⌉ split into words, s = 32 (csrc/mxu_ntt.cu
+    fold_words).
+    """
+    n1, n2 = _split(n)
+    P = len(primes)
+    host = _host_tables_mxu(primes, n)
+    wa = host["wa"]                                               # [P, 4·n1 (k), 4·n1 (col)]
+    pairs, ksteps = n1 // 32, NDIG * n1 // 32
+    q, s, h, w, g, t, kh, e, b = np.ix_(*(np.arange(k) for k in
+                                         (pairs, ksteps, 2, 4, 8, 4, 2, 2, 4)))
+    k = 32 * s + 16 * kh + 4 * t + b
+    col = (2 * h + e) * n1 + 32 * q + 8 * w + g
+    frag = wa[:, k, col]                                          # [P, q, s, h, w, g, t, kh, e, b]
+    frag = np.ascontiguousarray(frag).reshape(P, pairs, ksteps, 2, 128, 4, 4)
+    nb = NDIG * n2
+    nu, kk = np.ix_(np.arange(nb), np.arange(nb))
+    cols = (nu // 8 % 4) * n2 + 8 * (nu // 32) + nu % 8
+    w0 = np.zeros((P, nb * nb), np.int8)
+    at = (nu // 8) * 32 * n2 + (kk // 16) * 128 + (nu % 8) * 16 + kk % 16
+    w0[:, at] = host["w0"][:, kk, cols]
+    tw = np.zeros((P, n1, n2, 4), np.uint32)
+    consts = np.zeros((P, 12), np.uint32)
+
+    def fold(p, weights):
+        bound = 257 * 128 * int(np.abs(weights.astype(np.int64)).sum(axis=0).max())
+        if split and 2 * bound + p <= 2**32:
+            return (1, p * -(-bound // p)), 16
+        return (0, p * -(-2**48 // p)), 32
+
+    def shoup(c, p):
+        return c, c * 2**32 // p
+
+    for pi, p in enumerate(primes):
+        (split_a, k_a), s_a = fold(p, wa[pi])
+        (split_b, k_b), s_b = fold(p, host["w0"][pi])
+        c = host["ti"][pi].astype(object) * pow(2, -90, p) % p    # ti = ψ^{...}·R, R = 2^30
+        c_hi = c * 2**s_a % p
+        for i, v in enumerate((c, c * 2**32 // p, c_hi, c_hi * 2**32 // p)):
+            tw[pi, ..., i] = v.astype(np.uint64)
+        consts[pi] = (split_a, k_a & 0xFFFFFFFF, k_a >> 32, 0, split_b, k_b & 0xFFFFFFFF,
+                      k_b >> 32, 0, *shoup(pow(2, -60, p), p), *shoup(pow(2, s_b - 60, p), p))
+    return {"wa": frag.view(np.int32)[..., 0], "w0": w0, "tw": tw.view(np.int32),
+            "primes": consts.view(np.int32)}
+
+
+def wg_tables(t: NttTables) -> dict:
+    """The wg design's tables on the tables' device (the folds as WG_SPLIT allows)."""
+    def build():
+        tabs = _host_wg_tables(t.basis.primes, t.n, WG_SPLIT)
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(t.device) for k, v in tabs.items()}
+    return _cached(t, f"_mxu_wg_tables_{WG_SPLIT}", build)
+
+
 def _check_split(n: int) -> None:
     n1, n2 = _split(n)
     if n1 % 8 or n2 % 8:
@@ -233,27 +336,77 @@ def mxu4_forward_limbs(t: NttTables, x, nd_in: int = NDIG):
     return out.reshape(x.shape[:-1] + (P, n))
 
 
-def mxu4_inverse(t: NttTables, y):
-    """σ-order residues [..., P, N] → coefficient residues [..., P, N] int32:
-    plain version on CPU tensors, one CUDA launch on CUDA."""
-    if y.device.type == "cpu":
-        return mxu4_inverse_ref(t, y)
+# the stages of the inverse kernels' stage clock per design (csrc/mxu_ntt.cu
+# INV_* and WG_*): the wg design splits step A into its products and its
+# epilogues (thread 0's warpgroup)
+STAGES = {"parent": ("planes", "step_a", "step_b"),
+          "wg": ("planes", "step_a_products", "step_a_epilogue", "step_b")}
+
+
+def _inverse_launch(t: NttTables, y, design: str | None = None):
+    """(out, launch) for the inverse kernel on CUDA residues y [..., P, N]:
+    launch(timed=False) runs the kernel of `design` ("wg" where
+    `wg_supported`, the default there; "parent" elsewhere) into out
+    [..., P, N] and returns the stage clock's stamps [blocks,
+    len(STAGES[design])] (timed) or None.  Counts no launch."""
     n, P = t.n, t.basis.nprimes
     _check_split(n)
     if y.dim() < 2 or tuple(y.shape[-2:]) != (P, n) or y.device != t.device:
         raise ValueError(f"y: expected [..., {P}, {n}] on {t.device}, got {tuple(y.shape)} "
                          f"on {y.device}")
+    design = design or ("wg" if wg_supported(n) else "parent")
+    if design not in ("wg", "parent") or (design == "wg" and not wg_supported(n)):
+        raise ValueError(f"design {design!r} does not take N {n}, P {P}")
     ym = y.reshape(-1, P, n).contiguous()
     _lib.require(ym, "y", torch.int32)
     rows = ym.shape[0]
     out = torch.empty_like(ym)
-    if rows:
-        tabs = device_tables(t)
+
+    def launch(timed: bool = False):
+        if design == "wg":
+            grid = wg_layout(n, rows, P, _lib.sm_count(y.device))[2]
+        else:
+            grid = -(-rows // ROWS_PER_BLOCK)
+        stamps = (torch.zeros((grid, len(STAGES[design])), dtype=torch.int64, device=y.device)
+                  if timed else None)
+        if not rows:
+            return stamps
         _, consts = kernel_tables(t)
-        err = _lib.library().poulpy_mxu_inverse(
-            ym.data_ptr(), out.data_ptr(), tabs["wa"].data_ptr(), tabs["w0"].data_ptr(),
-            tabs["ti"].data_ptr(), consts.data_ptr(), rows, P, t.logn, ROWS_PER_BLOCK,
-            transform_smem_bytes(n), _lib.stream())
-        _lib.check(err, "poulpy_mxu_inverse")
+        if design == "wg":
+            wg = wg_tables(t)
+            err = _lib.library().poulpy_mxu_inverse_wg(
+                ym.data_ptr(), out.data_ptr(), wg["wa"].data_ptr(), wg["w0"].data_ptr(),
+                wg["tw"].data_ptr(), wg["primes"].data_ptr(), consts.data_ptr(), rows, P, t.logn,
+                grid, _lib.ptr(stamps), _lib.stream())
+            _lib.check(err, "poulpy_mxu_inverse_wg")
+        else:
+            tabs = device_tables(t)
+            err = _lib.library().poulpy_mxu_inverse(
+                ym.data_ptr(), out.data_ptr(), tabs["wa"].data_ptr(), tabs["w0"].data_ptr(),
+                tabs["ti"].data_ptr(), consts.data_ptr(), rows, P, t.logn, ROWS_PER_BLOCK,
+                transform_smem_bytes(n), _lib.ptr(stamps), _lib.stream())
+            _lib.check(err, "poulpy_mxu_inverse")
+        return stamps
+
+    return out.reshape(y.shape), launch
+
+
+def stage_cycles(t: NttTables, y, design: str | None = None):
+    """(out, stamps) of one launch of the inverse kernel's stage clock
+    instance: stamps [blocks, len(STAGES[design])] int64, the SM cycles each
+    block spent in each stage, from thread 0 at the barriers that close
+    them.  For measurement only: no path calls it, and it counts no launch."""
+    out, launch = _inverse_launch(t, y, design)
+    return out, launch(timed=True)
+
+
+def mxu4_inverse(t: NttTables, y):
+    """σ-order residues [..., P, N] → coefficient residues [..., P, N] int32:
+    plain version on CPU tensors, one CUDA launch on CUDA."""
+    if y.device.type == "cpu":
+        return mxu4_inverse_ref(t, y)
+    out, launch = _inverse_launch(t, y)
+    if out.numel():
+        launch()
         LAUNCHES["mxu_inverse"] += 1
-    return out.reshape(y.shape)
+    return out

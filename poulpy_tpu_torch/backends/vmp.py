@@ -7,6 +7,12 @@ entry `pallas_vmp_apply`).  Both compute, per prime,
     res[..., co, j, p, n] = Σ_{ci, r} a[..., ci, r, p, n] · pmat[r, ci, co, j + limb_offset, p, n] · R^{-1} mod p
 
 on int32 residues, with `pmat` in Montgomery form.
+
+The kernel has two designs (`csrc/vmp.cu`): the tile design, which the
+paths run (one thread per column, its pm words in registers, a chunk of
+batch rows per block, `tile_layout`), and the parent design (one thread per
+output word), kept as the reference and reached only through the
+keyword-only `design="parent"` of `vmp_kernel` / `vmp_apply`.
 """
 
 from __future__ import annotations
@@ -63,9 +69,29 @@ def vmp_apply_ref(module: Module, a_dft, pmat, limb_offset: int = 0, res_size: i
     return _pad_limbs(res, out_cols, res_size)
 
 
-def vmp_kernel(module: Module, a, pm):
+# (K, M) of the tile design's specialised instances (csrc/vmp.cu VmpShape):
+# the "mxu" route's product and keyswitch, the non-wide CKKS mul
+VMP_SHAPES = ((6, 8), (3, 8), (6, 12))
+TILE_COLS = 128          # columns (threads) per block of the tile design
+TILE_ROWS_MAX = 64       # batch rows per block at most
+TILE_MIN_BLOCKS = 528    # four blocks per SM of the H100 where the batch allows
+GRID_Y_MAX = 65535
+
+
+def tile_layout(B: int, P: int, n: int) -> tuple[int, int, int]:
+    """(rows per block, column blocks, row blocks) of the tile design: the
+    most rows up to TILE_ROWS_MAX that still give TILE_MIN_BLOCKS blocks, at
+    least one, and few enough row blocks for the grid's y limit."""
+    col_blocks = -(-(P * n) // TILE_COLS)
+    rows = max(1, min(TILE_ROWS_MAX, B * col_blocks // TILE_MIN_BLOCKS), -(-B // GRID_Y_MAX))
+    return rows, col_blocks, -(-B // rows)
+
+
+def vmp_kernel(module: Module, a, pm, *, design: str = "tile"):
     """Launch the CUDA VMP: a [B, K, P, N] × pm [K, M, P, N] → [B, M, P, N],
-    all int32, pm in Montgomery form."""
+    all int32, pm in Montgomery form; `design` "tile" (the paths) or
+    "parent" (the reference, for the comparisons of chip_smoke.py and the
+    tests).  Counts a launch of the tile design only."""
     P, n = module.nprimes, module.n
     _lib.require(a, "a", torch.int32)
     _lib.require(pm, "pm", torch.int32)
@@ -79,15 +105,25 @@ def vmp_kernel(module: Module, a, pm):
     if out.numel() == 0:
         return out
     _, consts = kernel_tables(module.tables)
-    err = _lib.library().poulpy_vmp(a.data_ptr(), pm.data_ptr(), out.data_ptr(),
-                                    consts.data_ptr(), B, K, M, P, n, _lib.stream())
-    _lib.check(err, "poulpy_vmp")
+    if design == "parent":
+        err = _lib.library().poulpy_vmp(a.data_ptr(), pm.data_ptr(), out.data_ptr(),
+                                        consts.data_ptr(), B, K, M, P, n, _lib.stream())
+        _lib.check(err, "poulpy_vmp")
+        return out
+    if design != "tile":
+        raise ValueError(f"unknown design {design!r}")
+    rows = tile_layout(B, P, n)[0]
+    err = _lib.library().poulpy_vmp_tile(a.data_ptr(), pm.data_ptr(), out.data_ptr(),
+                                         consts.data_ptr(), B, K, M, P, n, rows, _lib.stream())
+    _lib.check(err, "poulpy_vmp_tile")
     LAUNCHES["vmp"] += 1
     return out
 
 
-def vmp_apply(module: Module, a_dft, pmat, limb_offset: int = 0, res_size: int | None = None):
-    """hal-layout VMP: plain version on CPU tensors, the CUDA kernel on CUDA."""
+def vmp_apply(module: Module, a_dft, pmat, limb_offset: int = 0, res_size: int | None = None,
+              *, design: str = "tile"):
+    """hal-layout VMP: plain version on CPU tensors, the CUDA kernel on CUDA
+    (`design` as `vmp_kernel`'s)."""
     if a_dft.device.type == "cpu":
         return vmp_apply_ref(module, a_dft, pmat, limb_offset, res_size)
     P, n = module.nprimes, module.n
@@ -101,5 +137,5 @@ def vmp_apply(module: Module, a_dft, pmat, limb_offset: int = 0, res_size: int |
     a = a_dft[..., :rmax, :, :].reshape(-1, kdim, P, n).contiguous()
     pm = pmat[:rmax, :, :, limb_offset : limb_offset + out_cols].transpose(0, 1)
     pm = pm.reshape(kdim, mdim, P, n).contiguous()
-    res = vmp_kernel(module, a, pm).reshape(lead + (cols_out, out_cols, P, n))
+    res = vmp_kernel(module, a, pm, design=design).reshape(lead + (cols_out, out_cols, P, n))
     return _pad_limbs(res, out_cols, res_size)

@@ -1,19 +1,24 @@
-"""The fused kernels' CUDA sources (`csrc/fused_mxu.cu`, `csrc/fused_product.cu`,
-`csrc/br_block_step.cu`), run on the CPU through an emulation of the CUDA
-execution model, against the plain versions, bit for bit.
+"""The CUDA sources of the fused kernels (`csrc/fused_mxu.cu`,
+`csrc/fused_product.cu`, `csrc/br_block_step.cu`), of the MXU inverse
+(`csrc/mxu_ntt.cu`) and of the VMP (`csrc/vmp.cu`), run on the CPU through
+an emulation of the CUDA execution model, against the plain versions, bit
+for bit.
 
 Each source is compiled with the host's g++ against `tests/cuda_emu/
 cuda_runtime.h` (one thread per CUDA thread, block and warp barriers,
 shared memory per block, the int8 `mma.sync` tile from its lanes'
-fragments), after three textual rewrites: launches, the inline mma asm, the
+fragments, the warpgroup product `wgmma` from its operands' documented
+layouts), after three textual rewrites: launches, the inline asm, the
 dynamic shared-memory declaration.  The launches go through the port's own
 wrappers (`_product_launch`, `_block_step_launch` of `fused_mxu` and of
 `fused`), so their layout formula, tile and arguments are the ones the card
-gets; only `_lib`'s loader, stream and device check are replaced.  Small
+gets; only `_lib`'s loader, stream, device check and SM count (3 here, so
+the persistent grid walks several tasks per block) are replaced.  Small
 shapes: the specialised instances of the gate, keyswitch and bench shapes,
 the runtime-shaped instances at N 256 / 512, and the parent designs.  It
-says nothing of speed, and the `cuda` tests of tests/test_torch_mxu_tiles.py
-and tests/test_torch_fused_tiles.py remain the check on the card.
+says nothing of speed, and the `cuda` tests of tests/test_torch_mxu_tiles.py,
+tests/test_torch_fused_tiles.py and tests/test_torch_transform_tiles.py
+remain the check on the card.
 """
 
 import ctypes
@@ -29,17 +34,32 @@ import torch
 from poulpy_tpu_torch.backends import _lib
 from poulpy_tpu_torch.backends import fused as tfused
 from poulpy_tpu_torch.backends import fused_mxu as tfm
+from poulpy_tpu_torch.backends import mxu as tmxu
+from poulpy_tpu_torch.backends import vmp as tvmp
 from poulpy_tpu_torch.hal.module import get_module as t_get_module
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
 CSRC = Path(__file__).resolve().parents[1] / "poulpy_tpu_torch" / "csrc"
 
 
+# each inline asm by its instruction: the emulated call, or nothing for a
+# fence, commit or wait (the emulation runs every copy and product to its end)
+_ASM = {"mma.sync": "emu_mma_s8(c, a, b);",
+        "wgmma.mma_async": "emu_wgmma_m64n128k32(d, a, desc, scale);",
+        "cp.async.cg": "emu_cp_async16(dst, src);"}
+
+
+def _emu_asm(m: re.Match) -> str:
+    if "wgmma.mma_async" in m.group(0) and "desc_a" in m.group(0):
+        return "emu_wgmma_ss(d, desc_a, desc_b, scale);"
+    return next((call for op, call in _ASM.items() if op in m.group(0)), "")
+
+
 def _rewrite(src: str) -> str:
     src = re.sub(r"(\w+(?:<[^<>]*>)?)<<<([^>]*)>>>\(",
                  lambda m: f"emu_launch({m.group(1)}, {m.group(2)}, ", src)
-    src = re.sub(r"asm volatile\(.*?\);", "emu_mma_s8(c, a, b);", src, flags=re.S)
-    return re.sub(r"extern __shared__ (?:__align__\(16\) )?(\w+) smem\[\];",
+    src = re.sub(r"asm volatile\(.*?\);", _emu_asm, src, flags=re.S)
+    return re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) smem\[\];",
                   r"\1* const smem = (\1*)emu_dyn_smem;", src)
 
 
@@ -48,6 +68,8 @@ SOURCES = {
     "fused_mxu": ("poulpy_fused_mxu_product", "poulpy_fused_mxu_tile"),
     "fused_product": ("poulpy_fused_product", "poulpy_fused_product_lazy"),
     "br_block_step": ("poulpy_br_block_step", "poulpy_br_block_step_lazy"),
+    "mxu_ntt": ("poulpy_mxu_inverse", "poulpy_mxu_inverse_wg"),
+    "vmp": ("poulpy_vmp", "poulpy_vmp_tile"),
 }
 
 
@@ -87,6 +109,7 @@ def emulated(emu_lib, monkeypatch):
     monkeypatch.setattr(_lib, "library", lambda: emu_lib)
     monkeypatch.setattr(_lib, "stream", lambda: 0)
     monkeypatch.setattr(_lib, "require", lambda x, name, dtype: None)
+    monkeypatch.setattr(_lib, "sm_count", lambda device: 3)
 
 
 def _residues(rng, primes, shape):
@@ -240,3 +263,62 @@ def test_emulated_butterfly_stage_clock(emulated, design):
                                       design=design)
     assert torch.equal(out, tfused.fused_br_block_step_ref(m, acc, pmats, amounts, 2, 17))
     assert stamps.shape == (3, len(tfused.STAGES)) and bool((stamps > 0).all())
+
+
+# --------------------------------------------------------------------------
+# The MXU inverse (mxu_ntt.cu, both designs) and the VMP (vmp.cu, both designs)
+# --------------------------------------------------------------------------
+
+def _edge_residues(rng, primes, shape):
+    """Canonical residues [..., P, N], the first row p − 1 everywhere."""
+    x = _residues(rng, primes, shape)
+    x[0] = torch.tensor(primes, dtype=torch.int32)[:, None] - 1
+    return x
+
+
+@pytest.mark.parametrize("n,nprimes,prime_bits,rows,design,split", [
+    (512, 2, 28, 19, "wg", True),       # 16 rows per task: a ragged second task, 4 tasks on 3 blocks
+    (1024, 3, 30, 5, "wg", False),      # one ragged task per prime; the int64 fold
+    (256, 2, 30, 5, "parent", True),    # below the wg design's N: the parent design
+    (2048, 1, 28, 3, "parent", True),
+])
+def test_emulated_mxu_inverse_matches_plain(emulated, monkeypatch, n, nprimes, prime_bits, rows,
+                                            design, split):
+    monkeypatch.setattr(tmxu, "WG_SPLIT", split)
+    m = t_get_module(n, nprimes, prime_bits, "cpu")
+    y = _edge_residues(np.random.default_rng(87), m.basis.primes, (rows, nprimes, n))
+    out, launch = tmxu._inverse_launch(m.tables, y, design)
+    launch()
+    assert torch.equal(out, tmxu.mxu4_inverse_ref(m.tables, y))
+
+
+@pytest.mark.parametrize("n,prime_bits,rows,design", [(2048, 30, 9, "wg"), (512, 28, 5, "parent")])
+def test_emulated_mxu_inverse_stage_clock(emulated, n, prime_bits, rows, design):
+    """The TIMED instances (the wg design's at N 2048, the path shape), a
+    ragged task: the same output as the plain version, a positive count per
+    block and stage."""
+    m = t_get_module(n, 2, prime_bits, "cpu")
+    y = _edge_residues(np.random.default_rng(88), m.basis.primes, (rows, 2, n))
+    out, stamps = tmxu.stage_cycles(m.tables, y, design)
+    assert torch.equal(out, tmxu.mxu4_inverse_ref(m.tables, y))
+    assert stamps.shape[1] == len(tmxu.STAGES[design]) and bool((stamps > 0).all())
+
+
+@pytest.mark.parametrize("n,nprimes,prime_bits,batch,k,mo,min_blocks,design", [
+    (256, 2, 28, 5, 6, 8, 1, "tile"),       # RouteShape, 5 rows per block
+    (256, 2, 30, 7, 3, 8, 2, "tile"),       # KsShape, a ragged last block
+    (256, 2, 28, 3, 6, 12, 528, "tile"),    # CkksShape, one row per block
+    (256, 3, 30, 3, 12, 5, 1, "tile"),      # runtime-shaped: one fold at k 8
+    (512, 1, 30, 2, 17, 9, 528, "tile"),    # runtime-shaped: two folds, M past one pass
+    (256, 2, 30, 3, 12, 5, 528, "parent"),
+])
+def test_emulated_vmp_matches_plain(emulated, monkeypatch, n, nprimes, prime_bits, batch, k, mo,
+                                    min_blocks, design):
+    monkeypatch.setattr(tvmp, "TILE_MIN_BLOCKS", min_blocks)
+    m = t_get_module(n, nprimes, prime_bits, "cpu")
+    rng = np.random.default_rng(89)
+    a = _edge_residues(rng, m.basis.primes, (batch, k, nprimes, n))
+    pm = _residues(rng, m.basis.primes, (k, mo, nprimes, n))
+    pm[:, :, :, :8] = torch.tensor(m.basis.primes, dtype=torch.int32)[:, None] - 1
+    want = tvmp.vmp_apply_ref(m, a[:, :, None], pm[None, :, :, None]).reshape(batch, mo, nprimes, n)
+    assert torch.equal(tvmp.vmp_kernel(m, a, pm, design=design), want)
