@@ -48,7 +48,9 @@ its last use.
 Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
 
   1. device      card name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build       nvcc build of the kernels of csrc/ (sm_90a);
+  2. build       nvcc build of the kernels of csrc/ (sm_90a), then what ptxas
+                 reported for the Garner exit's instances and the MXU
+                 transforms' wg designs (registers, stack frame, spills);
   3. kernels     each CUDA kernel against its plain PyTorch version on the same
                  CUDA inputs at its path's shapes, tolerance 0, with its time,
                  the plain version's time and the bound (the least time the
@@ -59,18 +61,21 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  and small products at the relinearize and ckks_rotate
                  paths' shapes, batch 256; the VMP also at the non-wide
                  CKKS mul's shape and on the 30-bit basis of the "mxu"
-                 keyswitch, batch 256); the butterfly product and block
-                 step (the lazy design, which the paths run) and the VMP
-                 (the tile design) also against their parent design, equal
-                 and timed in the same way;
+                 keyswitch, batch 256; the NTT also at the non-wide CKKS
+                 mul's four transform shapes, batch 256); the butterfly
+                 product and block step (the lazy design, which the paths
+                 run) and the VMP (the tile design) also against their parent
+                 design, equal and timed in the same way;
   3′. kernels    the same for the MXU route's kernels, after the last path: at
                  the product path's shapes, the fused MXU product with the
                  body at the keyswitch path's, batch 256, and the block step
                  at the gate path's, batch 1024, each with the time of
                  torch._int_mm on its step-B-shaped digit product as a
-                 library yardstick of the product part alone; the inverse
-                 (the wg design) also on the keyswitch path's 30-bit basis,
-                 and against its parent design, equal and timed;
+                 library yardstick of the product part alone; the forward,
+                 the inverse (their wg designs) and the Garner exit (its tile
+                 design) also at the keyswitch path's 30-bit shapes (batch
+                 256, the exit with its 3-limb body), and each against its
+                 parent design, equal and timed;
   3‴. stages     the fused kernels' stage clocks, after 3′: the fused MXU
                  kernel's at the product, keyswitch (`small`) and gate (block
                  step) paths' shapes, for the parent design (one ciphertext
@@ -84,10 +89,12 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  planes, forward steps A and B, VMP, inverse steps A and B,
                  exit; butterfly: entry, forward NTT, VMP, inverse NTT,
                  exit), their shares and those shares of the time; then the
-                 MXU inverse's (mxu_ntt.cu) at the product and keyswitch
-                 paths' shapes, for the parent and the wg design (planes,
-                 step A — the wg design's split into its products and its
-                 epilogues —, step B);
+                 MXU forward's and inverse's (mxu_ntt.cu) at the product and
+                 keyswitch paths' shapes, for the parent and the wg design
+                 (parent: planes, step A, step B; the forward's wg design:
+                 the wait for its input, step A, step B's products and
+                 epilogues; the inverse's: planes, step A's products and
+                 epilogues, step B);
   3″. kernels_large_n  each product kernel at a shape whose rows do not fit
                  in shared memory (N 8192 for bench.py's product, N 4096
                  for the CKKS key's keyswitch and relinearization exits,
@@ -155,7 +162,11 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  timed chained NANDs decrypt to the tracked bits (gates/s
                  beside phase 7's), then a profiled NAND.
 
-Only the five *_mxu paths may launch an MXU kernel.  Then one line
+Only the five *_mxu paths may launch an MXU kernel.  After each path the
+NTT kernel's launches per (direction, primes, N, rows per prime) of that
+path (ntt_shapes); after 3″ the NTT timed at each of those shapes with its
+launches × (ms − bound) over all the paths (ntt_shape, and their sums per
+direction).  Then one line
 {"kernels": [...]} (launches summed over the paths' runs)
 and, last, {"ok": true, "device": {...}}.  Any failure exits non-zero
 before that line.  Without a CUDA device, or without the poulpy_tpu_torch
@@ -168,6 +179,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -242,8 +254,8 @@ ROUTES = ("mxu", "fused_mxu")
 DESIGNS = ("parent", "tile")
 # the butterfly kernels' designs there (backends/fused.py)
 BUTTERFLY_DESIGNS = ("parent", "lazy")
-# the MXU inverse's designs (csrc/mxu_ntt.cu), timed by its stage clock in 3‴
-INVERSE_DESIGNS = ("parent", "wg")
+# the MXU transforms' designs (csrc/mxu_ntt.cu), timed by their stage clocks in 3‴
+TRANSFORM_DESIGNS = ("parent", "wg")
 
 _FUSED = "poulpy_tpu/backends/pallas_fused.py:951"
 _WIDE = "poulpy_tpu/backends/pallas_wide.py"
@@ -557,12 +569,31 @@ def phase_kernels(m, gm, wm) -> dict:
     ks_dft = residues(km, (KS_BATCH, 1, 3, km.nprimes, N))
     ks_dft[0] = (torch.tensor(km.basis.primes, device=km.device) - 1).to(torch.int32)[:, None]
     ks_vpmat = residues(km, (KS_DNUM, 1, 2, 4, km.nprimes, N))
+    # the NTT at the non-wide CKKS mul's shapes (ckks/ops.py mul, batch 256,
+    # as the ckks path's ntt_shapes line counts them: core/operations.py
+    # glwe_tensor_product_big transforms both operands [2 columns, 4 limbs]
+    # forward and its three terms [conv 7] inverse; the tensor key's
+    # keyswitch its digits [1, dnum 6] forward and its sum [co 2, psize 6]
+    # inverse)
+    ck_ops = residues(m, (rb, 2, 4, kp, N))
+    ck_terms = residues(m, (rb, 7, kp, N))
+    ck_digits = residues(m, (rb, 1, 6, kp, N))
+    ck_sum = residues(m, (rb, 2, 6, kp, N))
     i32, i64 = 4, 8
+
+    def ntt_case(fn, x, inverse):
+        return (lambda: fn(t, x), lambda: getattr(ntt, fn.__name__ + "_ref")(t, x),
+                bound(2 * x.numel() * i32, ntt_ops(x.numel() // N, N, inverse)))
+
     cases = {
         "ntt_forward": (lambda: ntt.ntt_forward(t, x), lambda: ntt.ntt_forward_ref(t, x),
                         bound(2 * x.numel() * i32, ntt_ops(x.numel() // N, N))),
         "ntt_inverse": (lambda: ntt.ntt_inverse(t, x), lambda: ntt.ntt_inverse_ref(t, x),
                         bound(2 * x.numel() * i32, ntt_ops(x.numel() // N, N, True))),
+        "ntt_forward@ckks_conv": ntt_case(ntt.ntt_forward, ck_ops, False),
+        "ntt_inverse@ckks_conv": ntt_case(ntt.ntt_inverse, ck_terms, True),
+        "ntt_forward@ckks_keyswitch": ntt_case(ntt.ntt_forward, ck_digits, False),
+        "ntt_inverse@ckks_keyswitch": ntt_case(ntt.ntt_inverse, ck_sum, True),
         "vmp": (lambda: vmp.vmp_apply(m, a_dft, pmat),
                 lambda: chunked(lambda c: vmp.vmp_apply_ref(m, c, pmat), a_dft),
                 bound((a_dft.numel() + pmat.numel() + BATCH * 2 * 4 * NPRIMES * N) * i32,
@@ -688,20 +719,32 @@ def phase_kernels_mxu(m, km, gm) -> dict:
     n2 = split(N)[1]
     garner_products = NPRIMES * (NPRIMES - 1) // 2 + NPRIMES - 1   # per limb
     i32, i64 = 4, 8
-    # the inverse of the "mxu" keyswitch (30-bit basis, its 8 output rows at
-    # batch KS_BATCH, residues p − 1 in row 0)
+    # the "mxu" keyswitch (30-bit basis, batch KS_BATCH): the forward of its
+    # 3 mask limbs (3 planes, limbs past int32 in row 0), the inverse of its 8
+    # output rows (residues p − 1 in row 0), the exit of its [co 2, psize 4]
+    # residues with the 3-limb body
+    x_ks = ints(-(2**22), 2**22, (KS_BATCH, 1, 3, N))
+    x_ks[0, 0, 0, :4] = torch.tensor([-(2**63), 2**63 - 1, 2**31, -(2**31) - 1])
     y_ks = residues(km, (KS_BATCH * 8, kp, N))
     y_ks[0] = (torch.tensor(km.basis.primes, device=km.device) - 1).to(torch.int32)[:, None]
+    exit_ks = residues(km, (KS_BATCH, 2, 4, kp, N))
+    exit_ks[0] = (torch.tensor(km.basis.primes, device=km.device) - 1).to(torch.int32)[:, None]
+    body_ks = ints(-(2**16), 2**16, (KS_BATCH, 3, N))
 
-    def inverse_parent(tables, y):
+    def parent(prepare, *args):
         def run():
-            out, launch = mxu._inverse_launch(tables, y, "parent")
+            out, launch = prepare(*args, design="parent")
             launch()
             return out
         return run
 
-    parents = {"mxu_inverse": inverse_parent(t, y_mxu),
-               "mxu_inverse@keyswitch": inverse_parent(km.tables, y_ks)}
+    parents = {"mxu_forward": parent(mxu._forward_launch, t, a, 3),
+               "mxu_forward@keyswitch": parent(mxu._forward_launch, km.tables, x_ks, 3),
+               "mxu_inverse": parent(mxu._inverse_launch, t, y_mxu),
+               "mxu_inverse@keyswitch": parent(mxu._inverse_launch, km.tables, y_ks),
+               "garner_exit": parent(fused._exit_launch, m, x_exit, 4, 3, BASE2K, BASE2K),
+               "garner_exit@keyswitch": parent(fused._exit_launch, km, exit_ks, 4, 3, BASE2K,
+                                               BASE2K, body_ks)}
     return check_kernels({
         "mxu_forward": (
             lambda: mxu.mxu4_forward_limbs(t, a, 3),
@@ -709,6 +752,12 @@ def phase_kernels_mxu(m, km, gm) -> dict:
             bound(a.numel() * (i64 + NPRIMES * i32), a.numel() * NPRIMES,
                   mxu_macs(BATCH * 6, NPRIMES, N, 3)),
             BATCH * 6 * NPRIMES * n2),
+        "mxu_forward@keyswitch": (
+            lambda: mxu.mxu4_forward_limbs(km.tables, x_ks, 3),
+            lambda: mxu.mxu4_forward_limbs_ref(km.tables, x_ks, 3),
+            bound(x_ks.numel() * (i64 + kp * i32), x_ks.numel() * kp,
+                  mxu_macs(KS_BATCH * 3, kp, N, 3)),
+            KS_BATCH * 3 * kp * n2),
         "mxu_inverse": (
             lambda: mxu.mxu4_inverse(t, y_mxu),
             lambda: chunked(lambda c: mxu.mxu4_inverse_ref(t, c), y_mxu),
@@ -723,6 +772,11 @@ def phase_kernels_mxu(m, km, gm) -> dict:
             lambda: fused.garner_exit(m, x_exit, 4, 3, BASE2K, BASE2K),
             lambda: chunked(lambda c: fused.garner_exit_ref(m, c, 4, 3, BASE2K, BASE2K), x_exit),
             bound(x_exit.numel() * i32 + BATCH * 2 * 3 * N * i64, BATCH * 2 * 4 * N * garner_products)),
+        "garner_exit@keyswitch": (
+            lambda: fused.garner_exit(km, exit_ks, 4, 3, BASE2K, BASE2K, body_ks),
+            lambda: fused.garner_exit_ref(km, exit_ks, 4, 3, BASE2K, BASE2K, body_ks),
+            bound(exit_ks.numel() * i32 + (body_ks.numel() + KS_BATCH * 2 * 3 * N) * i64,
+                  KS_BATCH * 2 * 4 * N * garner_products)),
         "fused_mxu_product": (
             lambda: fused_mxu.fused_mxu_glwe_product(m, a, pmat, 3, BASE2K, BASE2K),
             lambda: chunked(lambda c: fused_mxu.fused_mxu_glwe_product_ref(m, c, pmat, 3, BASE2K,
@@ -857,11 +911,14 @@ def phase_stages(backend, cases: dict, designs: tuple) -> None:
             del out, want, timed_out
 
 
-def inverse_cases(m, km) -> dict:
-    """The MXU inverse at the "mxu" route's shapes, on inputs of its own:
-    name → (tables, residues y).  The product path's [B·8 rows, P 2, N 2048]
-    on the 28-bit basis, and the keyswitch path's [KS_BATCH·8, P 2, N 2048]
-    on the 30-bit basis (its residues at p − 1 in the first row)."""
+def transform_cases(m, km) -> dict:
+    """The MXU transforms at the "mxu" route's shapes, on inputs of their
+    own: name → (tables, input, forward).  The forward of the product path's
+    [B·6 rows, N 2048] limbs (3 planes) on the 28-bit basis and of the
+    keyswitch path's [KS_BATCH·3, N] on the 30-bit basis (limbs past int32 in
+    its first row); the inverse of the product path's [B·8 rows, P 2, N] and
+    of the keyswitch path's [KS_BATCH·8, P 2, N] (residues p − 1 in its first
+    row)."""
     import torch
 
     gen = torch.Generator(device=m.device).manual_seed(10)
@@ -871,41 +928,105 @@ def inverse_cases(m, km) -> dict:
         x = torch.randint(0, 1 << 62, shape, generator=gen, device=mod.device, dtype=torch.int64)
         return (x % primes).to(torch.int32)
 
+    def limbs(rows):
+        return torch.randint(-(2**22), 2**22, (rows, N), generator=gen, device=m.device,
+                             dtype=torch.int64)
+
+    x_ks = limbs(KS_BATCH * 3)
+    x_ks[0, :4] = torch.tensor([-(2**63), 2**63 - 1, 2**31, -(2**31) - 1])
     y_ks = residues(km, (KS_BATCH * 8, km.nprimes, N))
     y_ks[0] = (torch.tensor(km.basis.primes, device=km.device) - 1).to(torch.int32)[:, None]
-    return {"mxu_inverse": (m.tables, residues(m, (BATCH * 8, NPRIMES, N))),
-            "mxu_inverse@keyswitch": (km.tables, y_ks)}
+    return {"mxu_forward": (m.tables, limbs(BATCH * 6), True),
+            "mxu_forward@keyswitch": (km.tables, x_ks, True),
+            "mxu_inverse": (m.tables, residues(m, (BATCH * 8, NPRIMES, N)), False),
+            "mxu_inverse@keyswitch": (km.tables, y_ks, False)}
 
 
-def phase_inverse_stages(cases: dict, designs: tuple) -> None:
-    """The MXU inverse's stage clock, per design: the kernel's time (CUDA
+def phase_transform_stages(cases: dict, designs: tuple) -> None:
+    """The MXU transforms' stage clocks, per design: the kernel's time (CUDA
     events, 5 launches), then one launch of its TIMED instance, whose output
     must equal the untimed one's and the plain version's; per stage the SM
-    cycles per block (mean over blocks; the wg design's block walks many
+    cycles per block (mean over blocks; the wg designs' block walks many
     tasks) and per row (summed over blocks), its share, and that share of
-    the time."""
+    the time.  The forwards take 3 digit planes, as the route's."""
     import torch
 
     from poulpy_tpu_torch.backends import mxu
 
-    for name, (t, y) in cases.items():
-        want = chunked(lambda c: mxu.mxu4_inverse_ref(t, c), y)
+    for name, (t, x, forward) in cases.items():
+        if forward:
+            want = chunked(lambda c: mxu.mxu4_forward_limbs_ref(t, c, 3), x)
+            stages = mxu.FWD_STAGES
+        else:
+            want = chunked(lambda c: mxu.mxu4_inverse_ref(t, c), x)
+            stages = mxu.STAGES
         for design in designs:
-            out, launch = mxu._inverse_launch(t, y, design)
+            if forward:
+                out, launch = mxu._forward_launch(t, x, 3, design)
+            else:
+                out, launch = mxu._inverse_launch(t, x, design)
             ms = cuda_ms(launch, 5)
-            timed_out, stamps = mxu.stage_cycles(t, y, design)
+            timed_out, stamps = mxu.stage_cycles(t, x, design, forward=forward, nd_in=3)
             torch.cuda.synchronize()
             if not (torch.equal(out, want) and torch.equal(timed_out, want)):
                 raise SystemExit(f"stages: the {design} {name} disagrees with its plain version")
             cycles = stamps.to(torch.float64).mean(0).tolist()
             total = sum(cycles)
-            rows = y.shape[0]
+            rows = x.shape[0]
             emit(phase="stages", kernel=name, design=design, ms=ms, blocks=stamps.shape[0],
                  rows=rows, block_cycles=total,
                  stages={st: dict(cycles=c, per_row=c * stamps.shape[0] / rows, share=c / total,
                                   ms=ms * c / total)
-                         for st, c in zip(mxu.STAGES[design], cycles)})
+                         for st, c in zip(stages[design], cycles)})
             del out, timed_out
+        del want
+
+
+def phase_ptxas() -> None:
+    """What ptxas reported (`-Xptxas -v` in the build's nvcc.log) for the
+    Garner exit's instances and the MXU transforms' wg designs: registers,
+    stack frame and spills per entry function."""
+    import re
+
+    from poulpy_tpu_torch.backends import _lib
+
+    log = (Path(_lib.build_info["path"]).parent / "nvcc.log").read_text()
+    entries = re.findall(r"Compiling entry function '(\w+)'.*?\n(?:.*?\n)*?.*?(\d+) bytes stack "
+                         r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used "
+                         r"(\d+) registers", log)
+    for name, stack, stores, loads, regs in entries:
+        if any(k in name for k in ("garner_exit", "mxu_forward_wg", "mxu_inverse_wg")):
+            emit(phase="ptxas", entry=name, registers=int(regs), stack_frame=int(stack),
+                 spill_stores=int(stores), spill_loads=int(loads))
+
+
+def phase_ntt_shapes(tally: Counter) -> None:
+    """The NTT kernel at each shape the paths launched it (`tally`: launches
+    per (direction, P, N, rows per prime), summed over the paths), on
+    residues of its own: its time (CUDA events, 5 launches), its bound, and
+    launches × (ms − bound), the loss that rule 2 of ROADMAP scores; then
+    the sums per direction."""
+    import torch
+
+    from poulpy_tpu_torch.backends import ntt
+    from poulpy_tpu_torch.hal.module import get_module
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    total = Counter()
+    for (direction, P, n, rows), launches in sorted(tally.items()):
+        t = get_module(n, P, 28, "cuda").tables
+        primes = torch.tensor(t.basis.primes, device="cuda")[:, None]
+        x = (torch.randint(0, 1 << 62, (rows, P, n), generator=gen, device="cuda") % primes).to(
+            torch.int32)
+        fn = getattr(ntt, direction)
+        ms = cuda_ms(lambda: fn(t, x), 5)
+        bnd = bound(2 * x.numel() * 4, ntt_ops(rows * P, n, direction == "ntt_inverse"))
+        loss = launches * (ms - bnd["bound_ms"])
+        total[direction] += loss
+        emit(phase="ntt_shape", kernel=direction, nprimes=P, n=n, rows=rows, launches=launches,
+             ms=ms, bound_ms=bnd["bound_ms"], loss_ms=loss)
+        del x
+    emit(phase="ntt_shapes", path="all", loss_ms=dict(total))
 
 
 def phase_kernels_large_n() -> None:
@@ -1670,7 +1791,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from poulpy_tpu_torch.backends import LAUNCHES, _lib, fused, fused_mxu, reset_launches
+    from poulpy_tpu_torch.backends import (LAUNCHES, NTT_ROWS, _lib, fused, fused_mxu,
+                                           reset_launches)
     from poulpy_tpu_torch.hal.module import get_module
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1684,6 +1806,7 @@ def main() -> int:
     _lib.library()
     emit(phase="build", seconds=time.perf_counter() - t0, built=_lib.build_info["built"],
          library=str(Path(_lib.build_info["path"]).relative_to(ROOT)))
+    phase_ptxas()
 
     m = get_module(N, NPRIMES, PRIME_BITS, "cuda")
     gm = get_module(1024, 2, 28, "cuda")          # GateParams' n_glwe, nprimes, prime_bits
@@ -1731,11 +1854,16 @@ def main() -> int:
                 f"keyswitch_{ROUTES[-1]}": ("keyswitch",), "ckks_rotate": ("ckks",),
                 "gate_fused_mxu": ("gate",)}
     launches = dict.fromkeys(LAUNCHES, 0)
+    ntt_rows = Counter()
     for path, run in runs.items():
         reset_launches()
         run()
         counts = dict(LAUNCHES)
         emit(phase="launches", path=path, **counts)
+        if NTT_ROWS:
+            emit(phase="ntt_shapes", path=path, launches=[
+                [*shape, k] for shape, k in sorted(NTT_ROWS.items())])
+        ntt_rows.update(NTT_ROWS)
         missing = [k for k in PATHS[path] if counts[k] == 0]
         if missing:
             raise SystemExit(f"the {path} path never launched: {missing}")
@@ -1753,10 +1881,11 @@ def main() -> int:
     timings.update(phase_kernels_mxu(m, km, gm))
     phase_stages(fused_mxu, fused_mxu_cases(m, km, gm), DESIGNS)
     phase_stages(fused, butterfly_cases(m, km, gm), BUTTERFLY_DESIGNS)
-    phase_inverse_stages(inverse_cases(m, km), INVERSE_DESIGNS)
+    phase_transform_stages(transform_cases(m, km), TRANSFORM_DESIGNS)
     phase_kernels_large_n()
     if not all(launches.values()):
         raise SystemExit(f"kernels never launched: {[k for k, v in launches.items() if not v]}")
+    phase_ntt_shapes(ntt_rows)
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],

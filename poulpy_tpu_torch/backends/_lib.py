@@ -24,6 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = "arch=compute_90a,code=sm_90a"
+SMEM_LIMIT = 232448     # bytes of shared memory one block may use on sm_90
 
 # name → argument types of each C entry point (all return a cudaError_t)
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -38,10 +39,12 @@ _SIGNATURES = {
     "poulpy_wide_product": [_P] * 6 + [_I] * 15 + [_P, _I, _I, _P],
     "poulpy_wide_tensor": [_P] * 6 + [_I] * 12 + [_P, _I, _I, _P],
     "poulpy_tensor_product": [_P] * 7 + [_I] * 10 + [_P],
-    "poulpy_mxu_forward": [_P] * 6 + [_I] * 6 + [_P],
+    "poulpy_mxu_forward": [_P] * 6 + [_I] * 6 + [_P, _P],
+    "poulpy_mxu_forward_wg": [_P] * 7 + [_I] * 5 + [_P, _P],
     "poulpy_mxu_inverse": [_P] * 6 + [_I] * 5 + [_P, _P],
     "poulpy_mxu_inverse_wg": [_P] * 7 + [_I] * 4 + [_P, _P],
     "poulpy_garner_exit": [_P] * 4 + [_I] * 9 + [_P],
+    "poulpy_garner_exit_tile": [_P] * 4 + [_I] * 9 + [_P],
     "poulpy_fused_mxu_product": [_P] * 13 + [_I] * 16 + [_P, _I, _I, _P, _P],
     "poulpy_fused_mxu_tile": [_P] * 13 + [_I] * 17 + [_P, _P],
 }

@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from poulpy_tpu_torch.backends import LAUNCHES, _lib
+from poulpy_tpu_torch.backends._lib import SMEM_LIMIT
 from poulpy_tpu_torch.backends.mxu import sigma_index
 from poulpy_tpu_torch.backends.ntt import kernel_tables, shoup_tables
 from poulpy_tpu_torch.backends.vmp import vmp_apply_ref
@@ -64,7 +65,6 @@ from poulpy_tpu_torch.hal.ntt import (
 )
 from poulpy_tpu_torch.hal.primes import R
 
-SMEM_LIMIT = 232448     # bytes of shared memory one block may use on sm_90
 MAX_PRIMES = 8          # compile-time bounds of the kernel's per-thread arrays
 MAX_LIMBS = 16
 
@@ -402,6 +402,12 @@ def garner_exit_ref(module: Module, x, psize: int, res_size: int, res_base2k: in
     return vec_znx_normalize_full(res_size, res_base2k, 0, big, pm_base2k)
 
 
+# the shapes (P, psize, res_size, s_size, res_base2k, pm_base2k) of the exit's
+# specialised instances (csrc/garner_exit.cu ExitShape): the "mxu" route's
+# product and keyswitch (body of 3 limbs); any other takes the runtime-shaped one
+EXIT_SHAPES = ((2, 4, 3, 0, 17, 17), (2, 4, 3, 3, 17, 17))
+
+
 def garner_exit(module: Module, x, psize: int, res_size: int, res_base2k: int, pm_base2k: int,
                 small=None):
     """`x` [..., co, psize, P, N] int32 coefficient residues (canonical, the
@@ -411,6 +417,21 @@ def garner_exit(module: Module, x, psize: int, res_size: int, res_base2k: int, p
     CPU tensors, one CUDA launch on CUDA (`csrc/garner_exit.cu`)."""
     if x.device.type == "cpu":
         return garner_exit_ref(module, x, psize, res_size, res_base2k, pm_base2k, small)
+    out, launch = _exit_launch(module, x, psize, res_size, res_base2k, pm_base2k, small)
+    if launch is not None:
+        launch()
+        LAUNCHES["garner_exit"] += 1
+    return out
+
+
+def _exit_launch(module: Module, x, psize: int, res_size: int, res_base2k: int, pm_base2k: int,
+                 small=None, design: str = "tile"):
+    """(out, launch) of one `garner_exit` launch on CUDA tensors, launch None
+    for an empty batch: the "tile" design (the shapes of EXIT_SHAPES take
+    their specialised instance, any other the runtime-shaped one) or its
+    "parent".  Counts no launch."""
+    if design not in ("tile", "parent"):
+        raise ValueError(f"design must be 'tile' or 'parent', got {design!r}")
     P, n = module.nprimes, module.n
     lead, co = x.shape[:-4], x.shape[-4]
     if tuple(x.shape[-3:]) != (psize, P, n) or module.device != x.device:
@@ -423,14 +444,17 @@ def garner_exit(module: Module, x, psize: int, res_size: int, res_base2k: int, p
     small, s_size, sm_ptr = _body(small, lead, B, n)
     out = torch.empty(lead + (co, res_size, n), dtype=torch.int64, device=x.device)
     if B == 0:
-        return out
+        return out, None
     _, consts = kernel_tables(module.tables)
-    err = _lib.library().poulpy_garner_exit(
-        xm.data_ptr(), sm_ptr, out.data_ptr(), consts.data_ptr(), B, co, psize, s_size, res_size,
-        res_base2k, pm_base2k, P, module.log_n, _lib.stream())
-    _lib.check(err, "poulpy_garner_exit")
-    LAUNCHES["garner_exit"] += 1
-    return out
+    entry = "poulpy_garner_exit_tile" if design == "tile" else "poulpy_garner_exit"
+
+    def launch():
+        err = getattr(_lib.library(), entry)(
+            xm.data_ptr(), sm_ptr, out.data_ptr(), consts.data_ptr(), B, co, psize, s_size,
+            res_size, res_base2k, pm_base2k, P, module.log_n, _lib.stream())
+        _lib.check(err, entry)
+
+    return out, launch
 
 
 # --------------------------------------------------------------------------

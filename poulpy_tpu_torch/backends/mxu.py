@@ -19,11 +19,12 @@ the int8 products with int32 sums of the tensor cores are exact.  The plain
 versions do the digit products in float64, exact as well.
 
 The wrappers take the plain version for a CPU tensor and launch the kernel
-for a CUDA one; counters `mxu_forward` / `mxu_inverse`.  The inverse has two
-designs: "wg" (wgmma, a persistent block per SM, `wg_layout` / `wg_tables`)
-for the N of `WG_LOGN`, and "parent" (mma.sync, 4 rows per block) for the
-other N; the private `_inverse_launch(design=)` and `stage_cycles` reach
-either, for the comparisons and the stage clock of `chip_smoke.py`.
+for a CUDA one; counters `mxu_forward` / `mxu_inverse`.  Each transform has
+two designs: "wg" (wgmma, a persistent block per SM; `fwd_layout`,
+`wg_layout`, `wg_tables`) for the N of `WG_LOGN`, and
+"parent" (mma.sync, 4 rows per block) for the other N; the private
+`_forward_launch(design=)`, `_inverse_launch(design=)` and `stage_cycles`
+reach either, for the comparisons and the stage clocks of `chip_smoke.py`.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from poulpy_tpu_torch.backends import LAUNCHES, _lib
+from poulpy_tpu_torch.backends._lib import SMEM_LIMIT
 from poulpy_tpu_torch.backends.mxu_ntt import NDIG, _fold_digits
 from poulpy_tpu_torch.backends.mxu_ntt4 import (
     _assemble_ax,
@@ -228,8 +230,9 @@ WG_SPLIT = True
 
 
 @functools.lru_cache(maxsize=None)
-def _host_wg_tables(primes: tuple[int, ...], n: int, split: bool = True) -> dict:
-    """Numpy tables of the wg design, per basis and N:
+def _host_wg_tables(primes: tuple[int, ...], n: int, split: bool = True,
+                    forward: bool = False) -> dict:
+    """Numpy tables of the wg designs, per basis and N.  The inverse's:
 
       wa    [P, pairs, ksteps, 2, 128, 4] int32  step A's weights as the A
             operand of wgmma: thread 32w + 4g + t of tile h of pair q,
@@ -246,6 +249,11 @@ def _host_wg_tables(primes: tuple[int, ...], n: int, split: bool = True) -> dict
             (split, K low and high word, 0) and step B's constants (2^{-60},
             its quotient, 2^{s - 60}, its quotient)
 
+    The forward's (`forward`) mirror them: v0 (step B's weights, the [4·n1]²
+    register operand) in wa's order, ua (step A's, [4·n2]², in shared memory)
+    in w0's order, tw from tf (ψ^{n1(1+2k2)}·2^{-60}), the folds of ua (step
+    A, whose epilogue twiddles) and v0 (step B).
+
     A step's fold is "split" where its weights bound both halves of the
     partials' sum, |P_0 + 2^8·P_1| ≤ A = 257·128·max_col Σ_k |w|, with 2A + p
     ≤ 2^32: the halves + K = p·⌈A/p⌉ are the two words, s = 16; else the
@@ -255,20 +263,25 @@ def _host_wg_tables(primes: tuple[int, ...], n: int, split: bool = True) -> dict
     n1, n2 = _split(n)
     P = len(primes)
     host = _host_tables_mxu(primes, n)
-    wa = host["wa"]                                               # [P, 4·n1 (k), 4·n1 (col)]
+    if forward:
+        w_step_a, w_step_b, twiddle, names = host["ua"], host["v0"], host["tf"], ("v0", "ua")
+        regs, smem = w_step_b, w_step_a
+    else:
+        w_step_a, w_step_b, twiddle, names = host["wa"], host["w0"], host["ti"], ("wa", "w0")
+        regs, smem = w_step_a, w_step_b
     pairs, ksteps = n1 // 32, NDIG * n1 // 32
     q, s, h, w, g, t, kh, e, b = np.ix_(*(np.arange(k) for k in
                                          (pairs, ksteps, 2, 4, 8, 4, 2, 2, 4)))
     k = 32 * s + 16 * kh + 4 * t + b
     col = (2 * h + e) * n1 + 32 * q + 8 * w + g
-    frag = wa[:, k, col]                                          # [P, q, s, h, w, g, t, kh, e, b]
+    frag = regs[:, k, col]                                        # [P, q, s, h, w, g, t, kh, e, b]
     frag = np.ascontiguousarray(frag).reshape(P, pairs, ksteps, 2, 128, 4, 4)
     nb = NDIG * n2
     nu, kk = np.ix_(np.arange(nb), np.arange(nb))
     cols = (nu // 8 % 4) * n2 + 8 * (nu // 32) + nu % 8
-    w0 = np.zeros((P, nb * nb), np.int8)
+    smem_order = np.zeros((P, nb * nb), np.int8)
     at = (nu // 8) * 32 * n2 + (kk // 16) * 128 + (nu % 8) * 16 + kk % 16
-    w0[:, at] = host["w0"][:, kk, cols]
+    smem_order[:, at] = smem[:, kk, cols]
     tw = np.zeros((P, n1, n2, 4), np.uint32)
     consts = np.zeros((P, 12), np.uint32)
 
@@ -282,24 +295,46 @@ def _host_wg_tables(primes: tuple[int, ...], n: int, split: bool = True) -> dict
         return c, c * 2**32 // p
 
     for pi, p in enumerate(primes):
-        (split_a, k_a), s_a = fold(p, wa[pi])
-        (split_b, k_b), s_b = fold(p, host["w0"][pi])
-        c = host["ti"][pi].astype(object) * pow(2, -90, p) % p    # ti = ψ^{...}·R, R = 2^30
+        (split_a, k_a), s_a = fold(p, w_step_a[pi])
+        (split_b, k_b), s_b = fold(p, w_step_b[pi])
+        c = twiddle[pi].astype(object) * pow(2, -90, p) % p       # ψ^{...}·R, R = 2^30
         c_hi = c * 2**s_a % p
         for i, v in enumerate((c, c * 2**32 // p, c_hi, c_hi * 2**32 // p)):
             tw[pi, ..., i] = v.astype(np.uint64)
         consts[pi] = (split_a, k_a & 0xFFFFFFFF, k_a >> 32, 0, split_b, k_b & 0xFFFFFFFF,
                       k_b >> 32, 0, *shoup(pow(2, -60, p), p), *shoup(pow(2, s_b - 60, p), p))
-    return {"wa": frag.view(np.int32)[..., 0], "w0": w0, "tw": tw.view(np.int32),
-            "primes": consts.view(np.int32)}
+    return {names[0]: frag.view(np.int32)[..., 0], names[1]: smem_order,
+            "tw": tw.view(np.int32), "primes": consts.view(np.int32)}
 
 
-def wg_tables(t: NttTables) -> dict:
-    """The wg design's tables on the tables' device (the folds as WG_SPLIT allows)."""
+def wg_tables(t: NttTables, forward: bool = False) -> dict:
+    """The wg design's tables on the tables' device (the folds as WG_SPLIT
+    allows), the inverse's or (`forward`) the forward's."""
     def build():
-        tabs = _host_wg_tables(t.basis.primes, t.n, WG_SPLIT)
+        tabs = _host_wg_tables(t.basis.primes, t.n, WG_SPLIT, forward)
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(t.device) for k, v in tabs.items()}
-    return _cached(t, f"_mxu_wg_tables_{WG_SPLIT}", build)
+    return _cached(t, f"_mxu_wg_tables_{WG_SPLIT}_{forward}", build)
+
+
+def _fwd_smem(n1: int, n2: int, mb: int, ua_slots: int) -> int:
+    """Shared bytes of the forward's wg design at MB = rows·n2: the staged
+    limbs [rows][N] int64, step B's operand [MB][4·n1] and step A's weights
+    [4·n2]² of `ua_slots` primes (csrc/mxu_ntt.cu fwd_smem)."""
+    return mb // n2 * n1 * n2 * 8 + mb * NDIG * n1 + ua_slots * (NDIG * n2) ** 2
+
+
+def fwd_layout(n: int, rows: int, P: int, sms: int) -> tuple[int, int, int, int]:
+    """(rows per task, tasks, grid, shared bytes) of the forward's wg design:
+    a task is one prime of MB / n2 rows (MB = WG_MB, or half of it where
+    WG_MB's shared bytes would not fit: N 8192); one block per SM walks them,
+    with every prime's step-A weights in shared memory where they fit, else
+    one prime's."""
+    n1, n2 = _split(n)
+    mb = WG_MB if _fwd_smem(n1, n2, WG_MB, 1) <= SMEM_LIMIT else WG_MB // 2
+    per_task = mb // n2
+    tasks = -(-rows // per_task) * P
+    slots = P if _fwd_smem(n1, n2, mb, P) <= SMEM_LIMIT else 1
+    return per_task, tasks, max(1, min(tasks, sms)), _fwd_smem(n1, n2, mb, slots)
 
 
 def _check_split(n: int) -> None:
@@ -308,32 +343,73 @@ def _check_split(n: int) -> None:
         raise ValueError(f"the transform kernels need n1, n2 multiples of 8 (N ≥ 64), got N {n}")
 
 
-def mxu4_forward_limbs(t: NttTables, x, nd_in: int = NDIG):
-    """int limbs [..., N] → σ-order residues [..., P, N] int32: plain version
-    on CPU tensors, one CUDA launch on CUDA (int64 limbs read and wrapped to
-    int32 in the kernel)."""
-    if x.device.type == "cpu":
-        return mxu4_forward_limbs_ref(t, x, nd_in)
+# the stages of the forward kernels' stage clock per design (csrc/mxu_ntt.cu
+# INV_* and FWD_*): the wg design's wait for its staged limbs, step A, and
+# step B split into its products and its epilogues (thread 0's warpgroup)
+FWD_STAGES = {"parent": ("planes", "step_a", "step_b"),
+              "wg": ("input", "step_a", "step_b_products", "step_b_epilogue")}
+
+
+def _forward_launch(t: NttTables, x, nd_in: int = NDIG, design: str | None = None):
+    """(out, launch) for the forward kernel on CUDA limbs x [..., N]:
+    launch(timed=False) runs the kernel of `design` ("wg" where
+    `wg_supported`, the default there; "parent" elsewhere) into out
+    [..., P, N] and returns the stage clock's stamps [blocks,
+    len(FWD_STAGES[design])] (timed) or None.  Counts no launch."""
     n, P = t.n, t.basis.nprimes
     _check_split(n)
     if not 1 <= nd_in <= NDIG:
         raise ValueError(f"nd_in must lie in [1, {NDIG}], got {nd_in}")
     if x.shape[-1] != n or x.device != t.device:
         raise ValueError(f"x: expected [..., {n}] on {t.device}, got {tuple(x.shape)} on {x.device}")
+    design = design or ("wg" if wg_supported(n) else "parent")
+    if design not in ("wg", "parent") or (design == "wg" and not wg_supported(n)):
+        raise ValueError(f"design {design!r} does not take N {n}")
     xm = x.reshape(-1, n).to(torch.int64).contiguous()
     _lib.require(xm, "x", torch.int64)
     rows = xm.shape[0]
     out = torch.empty((rows, P, n), dtype=torch.int32, device=x.device)
-    if rows:
-        tabs = device_tables(t)
+
+    def launch(timed: bool = False):
+        if design == "wg":
+            grid = fwd_layout(n, rows, P, _lib.sm_count(x.device))[2]
+        else:
+            grid = -(-rows // ROWS_PER_BLOCK)
+        stamps = (torch.zeros((grid, len(FWD_STAGES[design])), dtype=torch.int64,
+                              device=x.device) if timed else None)
+        if not rows:
+            return stamps
         _, consts = kernel_tables(t)
-        err = _lib.library().poulpy_mxu_forward(
-            xm.data_ptr(), out.data_ptr(), tabs["ua"].data_ptr(), tabs["v0"].data_ptr(),
-            tabs["tf"].data_ptr(), consts.data_ptr(), rows, nd_in, P, t.logn, ROWS_PER_BLOCK,
-            transform_smem_bytes(n), _lib.stream())
-        _lib.check(err, "poulpy_mxu_forward")
+        if design == "wg":
+            wg = wg_tables(t, forward=True)
+            err = _lib.library().poulpy_mxu_forward_wg(
+                xm.data_ptr(), out.data_ptr(), wg["v0"].data_ptr(), wg["ua"].data_ptr(),
+                wg["tw"].data_ptr(), wg["primes"].data_ptr(), consts.data_ptr(), rows, nd_in, P,
+                t.logn, grid, _lib.ptr(stamps), _lib.stream())
+            _lib.check(err, "poulpy_mxu_forward_wg")
+        else:
+            tabs = device_tables(t)
+            err = _lib.library().poulpy_mxu_forward(
+                xm.data_ptr(), out.data_ptr(), tabs["ua"].data_ptr(), tabs["v0"].data_ptr(),
+                tabs["tf"].data_ptr(), consts.data_ptr(), rows, nd_in, P, t.logn, ROWS_PER_BLOCK,
+                transform_smem_bytes(n), _lib.ptr(stamps), _lib.stream())
+            _lib.check(err, "poulpy_mxu_forward")
+        return stamps
+
+    return out.reshape(x.shape[:-1] + (P, n)), launch
+
+
+def mxu4_forward_limbs(t: NttTables, x, nd_in: int = NDIG):
+    """int limbs [..., N] → σ-order residues [..., P, N] int32: plain version
+    on CPU tensors, one CUDA launch on CUDA (int64 limbs read and wrapped to
+    int32 in the kernel)."""
+    if x.device.type == "cpu":
+        return mxu4_forward_limbs_ref(t, x, nd_in)
+    out, launch = _forward_launch(t, x, nd_in)
+    if out.numel():
+        launch()
         LAUNCHES["mxu_forward"] += 1
-    return out.reshape(x.shape[:-1] + (P, n))
+    return out
 
 
 # the stages of the inverse kernels' stage clock per design (csrc/mxu_ntt.cu
@@ -391,12 +467,15 @@ def _inverse_launch(t: NttTables, y, design: str | None = None):
     return out.reshape(y.shape), launch
 
 
-def stage_cycles(t: NttTables, y, design: str | None = None):
-    """(out, stamps) of one launch of the inverse kernel's stage clock
-    instance: stamps [blocks, len(STAGES[design])] int64, the SM cycles each
-    block spent in each stage, from thread 0 at the barriers that close
-    them.  For measurement only: no path calls it, and it counts no launch."""
-    out, launch = _inverse_launch(t, y, design)
+def stage_cycles(t: NttTables, y, design: str | None = None, forward: bool = False,
+                 nd_in: int = NDIG):
+    """(out, stamps) of one launch of the inverse kernel's (`forward`: the
+    forward kernel's on limbs y with nd_in planes) stage clock instance:
+    stamps [blocks, len(STAGES[design])] (FWD_STAGES for the forward) int64,
+    the SM cycles each block spent in each stage, from thread 0 at the
+    barriers that close them.  For measurement only: no path calls it, and
+    it counts no launch."""
+    out, launch = _forward_launch(t, y, nd_in, design) if forward else _inverse_launch(t, y, design)
     return out, launch(timed=True)
 
 

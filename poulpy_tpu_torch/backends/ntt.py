@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from poulpy_tpu_torch.backends import LAUNCHES, _lib
+from poulpy_tpu_torch.backends import LAUNCHES, NTT_ROWS, _lib
 from poulpy_tpu_torch.hal.ntt import NttTables
 from poulpy_tpu_torch.hal.ntt import ntt_forward as ntt_forward_ref
 from poulpy_tpu_torch.hal.ntt import ntt_inverse as ntt_inverse_ref
@@ -91,7 +91,9 @@ def _launch(t: NttTables, x, inverse: bool):
     err = lib.poulpy_ntt(x.data_ptr(), out.data_ptr(), tw.data_ptr(), consts.data_ptr(),
                          rows, P, t.logn, int(inverse), _lib.stream())
     _lib.check(err, "poulpy_ntt")
-    LAUNCHES["ntt_inverse" if inverse else "ntt_forward"] += 1
+    name = "ntt_inverse" if inverse else "ntt_forward"
+    LAUNCHES[name] += 1
+    NTT_ROWS[(name, P, n, rows)] += 1
     return out
 
 

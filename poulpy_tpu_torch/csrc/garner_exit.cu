@@ -12,10 +12,22 @@
 // What bounds it on the H100: HBM.  A coefficient reads psize·P·4 bytes (+
 // s_size·8 of body at column 0) and writes res_size·8, against P² modular
 // products of the lift per limb.
-// Design: one thread per (ciphertext, column, coefficient), consecutive
-// threads on consecutive coefficients so every load and store is coalesced;
-// the lift (modarith.cuh garner), the wrapping add and normalize_full in
-// registers and local memory.
+//
+// Two designs.
+// - tile (the paths): a 2-D grid, blockIdx.x the (ciphertext, column) row
+//   and blockIdx.y a tile of coefficients, so no thread divides; the basis'
+//   Garner constants in shared memory, loaded once per block.  The shapes of
+//   ExitShape (backends/fused.py EXIT_SHAPES: the "mxu" route's product and
+//   keyswitch) are template parameters: a thread takes 4 consecutive
+//   coefficients with 16-byte loads of the residues and 16-byte stores of the
+//   limbs, and the lift, the body add and the normalize are unrolled, so
+//   their arrays stay in registers.  Any other shape takes the runtime-shaped
+//   instance, a coefficient per thread (its limb arrays, indexed at run time,
+//   in local memory).
+// - parent (the first design, kept as the reference): one thread per
+//   (ciphertext, column, coefficient) in a grid-stride loop, its row and
+//   column by 64-bit `/` and `%`, the constants read from global memory for
+//   every coefficient (modarith.cuh garner), the limb arrays in local memory.
 #include "modarith.cuh"
 
 namespace {
@@ -49,11 +61,185 @@ __global__ void __launch_bounds__(THREADS) garner_exit_kernel(
   }
 }
 
+// ---- the tile design ----
+
+// The compile-time shapes of the tile design (backends/fused.py EXIT_SHAPES):
+// primes, limbs in, limbs out, body limbs, output and input base; all 0 is
+// the runtime-shaped instance.  V: coefficients per thread.
+template <int P_, int PSIZE_, int RES_, int S_SIZE_, int KR_, int KA_>
+struct ExitShape {
+  static constexpr int P = P_, PSIZE = PSIZE_, RES = RES_, S_SIZE = S_SIZE_, KR = KR_, KA = KA_;
+  static constexpr int V = P_ ? 4 : 1;
+};
+using ProductExit = ExitShape<2, 4, 3, 0, 17, 17>;   // the "mxu" route's product
+using KsExit = ExitShape<2, 4, 3, 3, 17, 17>;        // the "mxu" route's keyswitch (body added)
+using AnyExit = ExitShape<0, 0, 0, 0, 0, 0>;
+
+constexpr int EXIT_THREADS = 256;
+
+// The Garner constants of a basis (backends/ntt.py kernel_tables), in shared
+// memory.
+struct ExitPrimes {
+  uint32_t p[MAX_PRIMES], qinv[MAX_PRIMES], ginv[MAX_PRIMES], half[MAX_PRIMES];
+  uint32_t pprod[MAX_PRIMES][MAX_PRIMES];
+  uint64_t weight[MAX_PRIMES], mod;
+};
+
+// Every thread of the block fills `k`, then a barrier.
+__device__ __forceinline__ void load_exit_primes(ExitPrimes& k, const int64_t* __restrict__ consts,
+                                                 int P) {
+  for (int i = threadIdx.x; i < P; i += blockDim.x) {
+    const int64_t* c = consts + i * CONSTS_PER_PRIME;
+    k.p[i] = (uint32_t)c[C_P], k.qinv[i] = (uint32_t)c[C_QINV];
+    k.ginv[i] = (uint32_t)c[C_GINV], k.half[i] = (uint32_t)c[C_HALF];
+    k.weight[i] = (uint64_t)c[C_WEIGHT];
+  }
+  for (int i = threadIdx.x; i < P * P; i += blockDim.x)
+    k.pprod[i / P][i % P] = (uint32_t)consts[P * CONSTS_PER_PRIME + i];
+  if (threadIdx.x == 0) k.mod = (uint64_t)consts[C_MOD];
+  __syncthreads();
+}
+
+// modarith.cuh garner on the constants of `k`: the centred lift of residues
+// r[0..P) (PT > 0: P = PT at compile time; 0: P ≤ MAX_PRIMES at run time,
+// the loops unrolled over MAX_PRIMES with a guard, so r and the digits stay in
+// registers either way).
+template <int PT>
+__device__ __forceinline__ int64_t exit_lift(const uint32_t (&r)[PT ? PT : MAX_PRIMES], int P_rt,
+                                             const ExitPrimes& k) {
+  constexpr int PM = PT ? PT : MAX_PRIMES;
+  const int P = PT ? PT : P_rt;
+  uint32_t d[PM];
+  uint64_t v = 0;
+#pragma unroll
+  for (int i = 0; i < PM; ++i) {
+    if (i >= P) break;
+    const uint32_t p = k.p[i], qinv = k.qinv[i];
+    uint32_t x = r[i];
+#pragma unroll
+    for (int j = 0; j < i; ++j) x = sub_mod(x, mont_mul(d[j], k.pprod[i][j], p, qinv), p);
+    if (i > 0) x = mont_mul(x, k.ginv[i], p, qinv);
+    d[i] = x;
+    v += (uint64_t)x * k.weight[i];
+  }
+  bool gt = false, eq = true;
+#pragma unroll
+  for (int i = PM - 1; i >= 0; --i) {
+    if (i >= P) continue;
+    gt = gt || (eq && d[i] > k.half[i]);
+    eq = eq && d[i] == k.half[i];
+  }
+  return (int64_t)(gt ? v - k.mod : v);
+}
+
+// modarith.cuh normalize_limbs at compile-time size and base.
+template <int SIZE, int KR>
+__device__ __forceinline__ void normalize_limbs_t(const int64_t (&a)[SIZE], int64_t (&out)[SIZE]) {
+  if constexpr (SIZE == 1) {
+    out[0] = get_digit(KR, get_digit(KR, a[0]));
+  } else {
+    int64_t d = get_digit(KR, a[SIZE - 1]);
+    int64_t c = get_carry(KR, a[SIZE - 1], d);
+    out[SIZE - 1] = d;
+#pragma unroll
+    for (int j = SIZE - 2; j > 0; --j) {
+      d = get_digit(KR, a[j]);
+      const int64_t carry = get_carry(KR, a[j], d);
+      const int64_t dpc = wadd(d, c);
+      const int64_t x1 = get_digit(KR, dpc);
+      out[j] = x1;
+      c = wadd(carry, get_carry(KR, dpc, x1));
+    }
+    out[0] = get_digit(KR, wadd(get_digit(KR, a[0]), c));
+  }
+}
+
+// modarith.cuh normalize_full at compile-time sizes and bases.
+template <int A, int RES, int KR, int KA>
+__device__ __forceinline__ void normalize_full_t(const int64_t (&a)[A], int64_t (&out)[RES]) {
+  if constexpr (KR == KA && RES == A) {
+    normalize_limbs_t<RES, KR>(a, out);
+  } else {
+    int64_t acc[RES];
+#pragma unroll
+    for (int i = 0; i < RES; ++i) {
+      int64_t s = 0;
+#pragma unroll
+      for (int j = 0; j < A; ++j) s = wadd(s, window(a[j], (i + 1) * KR - (j + 1) * KA, KR));
+      acc[i] = s;
+    }
+    normalize_limbs_t<RES, KR>(acc, out);
+  }
+}
+
+template <class S>
+__global__ void __launch_bounds__(EXIT_THREADS) garner_exit_tile_kernel(
+    const int32_t* __restrict__ x, const int64_t* __restrict__ small, int64_t* __restrict__ out,
+    const int64_t* __restrict__ consts, int co, int psize, int s_size, int res_size, int kr,
+    int ka, int P, int logn) {
+  __shared__ ExitPrimes k;
+  load_exit_primes(k, consts, S::P ? S::P : P);
+  const int bc = blockIdx.x;                                     // b·co + column
+  const int coef = (blockIdx.y * blockDim.x + threadIdx.x) * S::V;
+  const bool body = small != nullptr && bc % co == 0;
+  const int b = bc / co;
+  if constexpr (S::P != 0) {
+    constexpr int V = S::V;
+    int64_t big[V][S::PSIZE];
+#pragma unroll
+    for (int j = 0; j < S::PSIZE; ++j) {
+      uint32_t r[V][S::P];
+#pragma unroll
+      for (int pi = 0; pi < S::P; ++pi) {
+        const uint4 w = *(const uint4*)(x + ((((size_t)bc * S::PSIZE + j) * S::P + pi) << logn) + coef);
+        r[0][pi] = w.x, r[1][pi] = w.y, r[2][pi] = w.z, r[3][pi] = w.w;
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) big[v][j] = exit_lift<S::P>(r[v], S::P, k);
+      if (S::S_SIZE > j && body) {
+        const longlong2* sp =
+            (const longlong2*)(small + (((size_t)b * S::S_SIZE + j) << logn) + coef);
+        const longlong2 s0 = sp[0], s1 = sp[1];
+        big[0][j] = wadd(big[0][j], s0.x), big[1][j] = wadd(big[1][j], s0.y);
+        big[2][j] = wadd(big[2][j], s1.x), big[3][j] = wadd(big[3][j], s1.y);
+      }
+    }
+    int64_t res[V][S::RES];
+#pragma unroll
+    for (int v = 0; v < V; ++v) normalize_full_t<S::PSIZE, S::RES, S::KR, S::KA>(big[v], res[v]);
+#pragma unroll
+    for (int i = 0; i < S::RES; ++i) {
+      longlong2* op = (longlong2*)(out + (((size_t)bc * S::RES + i) << logn) + coef);
+      op[0] = make_longlong2(res[0][i], res[1][i]);
+      op[1] = make_longlong2(res[2][i], res[3][i]);
+    }
+  } else {
+    int64_t big[MAX_LIMBS];
+    for (int j = 0; j < psize; ++j) {
+      uint32_t r[MAX_PRIMES];
+#pragma unroll
+      for (int pi = 0; pi < MAX_PRIMES; ++pi)
+        if (pi < P) r[pi] = (uint32_t)x[((((size_t)bc * psize + j) * P + pi) << logn) + coef];
+      big[j] = exit_lift<0>(r, P, k);
+      if (body && j < s_size) big[j] = wadd(big[j], small[(((size_t)b * s_size + j) << logn) + coef]);
+    }
+    int64_t res[MAX_LIMBS];
+    normalize_full(big, psize, res, res_size, kr, ka);
+    for (int i = 0; i < res_size; ++i) out[(((size_t)bc * res_size + i) << logn) + coef] = res[i];
+  }
+}
+
+template <class S>
+bool exit_shape_is(int P, int psize, int res_size, int s_size, int kr, int ka) {
+  return P == S::P && psize == S::PSIZE && res_size == S::RES && s_size == S::S_SIZE &&
+         kr == S::KR && ka == S::KA;
+}
+
 }  // namespace
 
 // x: [B, co, psize, P, N] int32; small: [B, s_size, N] int64 or null with
 // s_size 0; out: [B, co, res_size, N] int64; consts: backends/ntt.py
-// kernel_tables.  Returns the cudaError_t of the launch.
+// kernel_tables.  The parent design.  Returns the cudaError_t of the launch.
 extern "C" int poulpy_garner_exit(const void* x, const void* small, void* out, const void* consts,
                                   int B, int co, int psize, int s_size, int res_size, int kr,
                                   int ka, int P, int logn, void* stream) {
@@ -63,5 +249,30 @@ extern "C" int poulpy_garner_exit(const void* x, const void* small, void* out, c
   garner_exit_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x, (const int64_t*)small, (int64_t*)out, (const int64_t*)consts, total, co,
       psize, s_size, res_size, kr, ka, P, logn);
+  return (int)cudaGetLastError();
+}
+
+// The tile design, same arguments (B·co < 2^31, N ≥ 4, the tensors 16-byte
+// aligned): the shapes of ExitShape take their instance, any other the
+// runtime-shaped one.
+extern "C" int poulpy_garner_exit_tile(const void* x, const void* small, void* out,
+                                       const void* consts, int B, int co, int psize, int s_size,
+                                       int res_size, int kr, int ka, int P, int logn,
+                                       void* stream) {
+  auto kernel = garner_exit_tile_kernel<AnyExit>;
+  int v = AnyExit::V;
+  if (exit_shape_is<ProductExit>(P, psize, res_size, s_size, kr, ka)) {
+    kernel = garner_exit_tile_kernel<ProductExit>;
+    v = ProductExit::V;
+  } else if (exit_shape_is<KsExit>(P, psize, res_size, s_size, kr, ka)) {
+    kernel = garner_exit_tile_kernel<KsExit>;
+    v = KsExit::V;
+  }
+  const int per_row = (1 << logn) / v;                  // threads per (ciphertext, column)
+  const int threads = per_row < EXIT_THREADS ? per_row : EXIT_THREADS;
+  const dim3 grid((unsigned)((int64_t)B * co), (unsigned)(per_row / threads));
+  kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x, (const int64_t*)small, (int64_t*)out, (const int64_t*)consts, co, psize,
+      s_size, res_size, kr, ka, P, logn);
   return (int)cudaGetLastError();
 }

@@ -7,14 +7,14 @@
 // mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 computed from the
 // fragments of the warp's 32 lanes (PTX ISA's fragment layouts) between two
 // barriers of the warp; a two-dimensional grid; the warpgroup product
-// wgmma.mma_async m64n128k32 s8 (A from the 128 threads' registers, B from
+// wgmma.mma_async m64nNk32 s8 (A from the 128 threads' registers, B from
 // shared memory through its no-swizzle descriptor, PTX ISA's layouts) between
 // two barriers of the warpgroup; cp.async as a plain copy.  The test's build
 // step rewrites the source first: `kernel<<<grid, threads, smem,
 // stream>>>(args)` into `emu_launch(kernel, grid, threads, smem, stream,
 // args)`, each inline asm by its instruction (mma.sync into emu_mma_s8(c, a,
-// b), wgmma.mma_async into emu_wgmma_m64n128k32(d, a, desc, scale) or, with
-// both operands in shared memory, emu_wgmma_ss(d, desc_a, desc_b, scale),
+// b), wgmma.mma_async into emu_wgmma_rs(d, a, desc, scale) or, with both
+// operands in shared memory, emu_wgmma_ss(d, desc_a, desc_b, scale),
 // cp.async.cg into emu_cp_async16(dst, src), the fences, commits and waits
 // into nothing: the emulation runs each copy and product to its end at
 // once), and `extern __shared__ … smem[]` into a pointer to the block's
@@ -52,6 +52,10 @@ struct uint2 {
 struct uint4 {
   unsigned x, y, z, w;
 };
+struct longlong2 {
+  long long x, y;
+};
+inline longlong2 make_longlong2(long long x, long long y) { return {x, y}; }
 struct dim3 {
   unsigned x, y = 1, z = 1;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
@@ -126,11 +130,13 @@ inline size_t __cvta_generic_to_shared(const void* p) {
 }
 inline void emu_cp_async16(void* dst, const void* src) { memcpy(dst, src, 16); }
 
-// d (+)= A·B for the warpgroup's m64n128k32 s8 product: thread 32w + 4g + t
-// holds A rows 16w + g and + 8, columns 4t.. and 16 + 4t.. (a[e + 2·kh]);
-// B (K-major, no swizzle) element (k, n) at start + (n / 8)·SBO + (k / 16)·LBO
-// + (n % 8)·16 + k % 16; d[4j + 2e + c] is row 16w + g + 8e, column 8j + 2t + c.
-inline void emu_wgmma_m64n128k32(int (&d)[64], const uint32_t (&a)[4], uint64_t desc, int scale) {
+// d (+)= A·B for the warpgroup's m64nNk32 s8 product, N = 2R: thread
+// 32w + 4g + t holds A rows 16w + g and + 8, columns 4t.. and 16 + 4t..
+// (a[e + 2·kh]); B (K-major, no swizzle) element (k, n) at start + (n / 8)·SBO
+// + (k / 16)·LBO + (n % 8)·16 + k % 16; d[4j + 2e + c] is row 16w + g + 8e,
+// column 8j + 2t + c.
+template <int R>
+void emu_wgmma_rs(int (&d)[R], const uint32_t (&a)[4], uint64_t desc, int scale) {
   const int wg = threadIdx.x >> 7, th = threadIdx.x & 127;
   for (int i = 0; i < 4; ++i) emu_wg_a[wg][th][i] = a[i];
   emu_wg_bar[wg].wait();
@@ -145,7 +151,7 @@ inline void emu_wgmma_m64n128k32(int (&d)[64], const uint32_t (&a)[4], uint64_t 
   auto B = [&](int k, int n) {
     return (int)(int8_t)start[(n >> 3) * sbo + (k >> 4) * lbo + (n & 7) * 16 + (k & 15)];
   };
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int row = 16 * w + g + 8 * ((i >> 1) & 1), col = 8 * (i >> 2) + 2 * t + (i & 1);
     int sum = 0;
     for (int k = 0; k < 32; ++k) sum += A(row, k) * B(k, col);

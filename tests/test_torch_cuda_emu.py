@@ -1,8 +1,8 @@
 """The CUDA sources of the fused kernels (`csrc/fused_mxu.cu`,
-`csrc/fused_product.cu`, `csrc/br_block_step.cu`), of the MXU inverse
-(`csrc/mxu_ntt.cu`) and of the VMP (`csrc/vmp.cu`), run on the CPU through
-an emulation of the CUDA execution model, against the plain versions, bit
-for bit.
+`csrc/fused_product.cu`, `csrc/br_block_step.cu`), of the MXU transforms
+(`csrc/mxu_ntt.cu`), of the VMP (`csrc/vmp.cu`) and of the Garner exit
+(`csrc/garner_exit.cu`), run on the CPU through an emulation of the CUDA
+execution model, against the plain versions, bit for bit.
 
 Each source is compiled with the host's g++ against `tests/cuda_emu/
 cuda_runtime.h` (one thread per CUDA thread, block and warp barriers,
@@ -15,7 +15,11 @@ wrappers (`_product_launch`, `_block_step_launch` of `fused_mxu` and of
 gets; only `_lib`'s loader, stream, device check and SM count (3 here, so
 the persistent grid walks several tasks per block) are replaced.  Small
 shapes: the specialised instances of the gate, keyswitch and bench shapes,
-the runtime-shaped instances at N 256 / 512, and the parent designs.  It
+the runtime-shaped instances at N 256 / 512, both transforms' wg designs
+at N 512 … 4096 (ragged tasks, 1 to 4 digit planes, limbs at INT64_MIN /
+INT64_MAX, both folds), the exit's specialised and runtime-shaped
+instances (P 1 / 5 / 8, psize 16, with and without the body), the TIMED
+instances, and the parent designs.  It
 says nothing of speed, and the `cuda` tests of tests/test_torch_mxu_tiles.py,
 tests/test_torch_fused_tiles.py and tests/test_torch_transform_tiles.py
 remain the check on the card.
@@ -45,8 +49,9 @@ CSRC = Path(__file__).resolve().parents[1] / "poulpy_tpu_torch" / "csrc"
 # each inline asm by its instruction: the emulated call, or nothing for a
 # fence, commit or wait (the emulation runs every copy and product to its end)
 _ASM = {"mma.sync": "emu_mma_s8(c, a, b);",
-        "wgmma.mma_async": "emu_wgmma_m64n128k32(d, a, desc, scale);",
-        "cp.async.cg": "emu_cp_async16(dst, src);"}
+        "wgmma.mma_async": "emu_wgmma_rs(d, a, desc, scale);",
+        "cp.async.cg": "emu_cp_async16(dst, src);",
+}
 
 
 def _emu_asm(m: re.Match) -> str:
@@ -68,8 +73,10 @@ SOURCES = {
     "fused_mxu": ("poulpy_fused_mxu_product", "poulpy_fused_mxu_tile"),
     "fused_product": ("poulpy_fused_product", "poulpy_fused_product_lazy"),
     "br_block_step": ("poulpy_br_block_step", "poulpy_br_block_step_lazy"),
-    "mxu_ntt": ("poulpy_mxu_inverse", "poulpy_mxu_inverse_wg"),
+    "mxu_ntt": ("poulpy_mxu_forward", "poulpy_mxu_forward_wg", "poulpy_mxu_inverse",
+                "poulpy_mxu_inverse_wg"),
     "vmp": ("poulpy_vmp", "poulpy_vmp_tile"),
+    "garner_exit": ("poulpy_garner_exit", "poulpy_garner_exit_tile"),
 }
 
 
@@ -292,6 +299,47 @@ def test_emulated_mxu_inverse_matches_plain(emulated, monkeypatch, n, nprimes, p
     assert torch.equal(out, tmxu.mxu4_inverse_ref(m.tables, y))
 
 
+def _forward_limbs(rng, rows, n):
+    """int64 limbs [rows, N], the first row starting with INT64_MIN, INT64_MAX
+    and other words far past int32 (the forward wraps them to int32)."""
+    x = torch.from_numpy(rng.integers(-(2**40), 2**40, size=(rows, n)))
+    x[0, :len(INT64_EDGES)] = torch.tensor(INT64_EDGES)
+    x[-1, -3:] = torch.tensor([2**31 - 1, -(2**31), 2**31])
+    return x
+
+
+@pytest.mark.parametrize("n,nprimes,prime_bits,rows,nd_in,design,split", [
+    (512, 2, 28, 19, 3, "wg", True),        # 16 rows per task: a ragged second group, 4 tasks
+    (1024, 3, 30, 17, 4, "wg", False),      # one row past a group; the int64 fold
+    (2048, 2, 28, 9, 3, "wg", True),        # the path's N and planes: 8 rows + 1
+    (2048, 1, 30, 5, 1, "wg", True),        # one plane, one ragged task
+    (512, 2, 30, 33, 2, "wg", True),        # 6 tasks on 3 blocks
+    (4096, 3, 30, 5, 3, "wg", True),        # step A's weights one prime at a time
+    (256, 2, 28, 5, 3, "parent", True),     # below the wg design's N: the parent design
+    (2048, 1, 28, 3, 4, "parent", True),
+])
+def test_emulated_mxu_forward_matches_plain(emulated, monkeypatch, n, nprimes, prime_bits, rows,
+                                            nd_in, design, split):
+    monkeypatch.setattr(tmxu, "WG_SPLIT", split)
+    m = t_get_module(n, nprimes, prime_bits, "cpu")
+    x = _forward_limbs(np.random.default_rng(90), rows, n)
+    out, launch = tmxu._forward_launch(m.tables, x, nd_in, design)
+    launch()
+    assert torch.equal(out, tmxu.mxu4_forward_limbs_ref(m.tables, x, nd_in))
+
+
+@pytest.mark.parametrize("n,prime_bits,rows,design", [(2048, 28, 9, "wg"), (512, 30, 5, "parent")])
+def test_emulated_mxu_forward_stage_clock(emulated, n, prime_bits, rows, design):
+    """The forward's TIMED instances (the wg design's at N 2048, the path
+    shape), a ragged task: the same output as the plain version, a positive
+    count per block and stage."""
+    m = t_get_module(n, 2, prime_bits, "cpu")
+    x = _forward_limbs(np.random.default_rng(94), rows, n)
+    out, stamps = tmxu.stage_cycles(m.tables, x, design, forward=True, nd_in=3)
+    assert torch.equal(out, tmxu.mxu4_forward_limbs_ref(m.tables, x, 3))
+    assert stamps.shape[1] == len(tmxu.FWD_STAGES[design]) and bool((stamps > 0).all())
+
+
 @pytest.mark.parametrize("n,prime_bits,rows,design", [(2048, 30, 9, "wg"), (512, 28, 5, "parent")])
 def test_emulated_mxu_inverse_stage_clock(emulated, n, prime_bits, rows, design):
     """The TIMED instances (the wg design's at N 2048, the path shape), a
@@ -322,3 +370,31 @@ def test_emulated_vmp_matches_plain(emulated, monkeypatch, n, nprimes, prime_bit
     pm[:, :, :, :8] = torch.tensor(m.basis.primes, dtype=torch.int32)[:, None] - 1
     want = tvmp.vmp_apply_ref(m, a[:, :, None], pm[None, :, :, None]).reshape(batch, mo, nprimes, n)
     assert torch.equal(tvmp.vmp_kernel(m, a, pm, design=design), want)
+
+
+# --------------------------------------------------------------------------
+# The Garner exit (garner_exit.cu, both designs)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,nprimes,prime_bits,batch,co,psize,res_size,s_size,kr,ka,design", [
+    (512, 2, 28, 3, 2, 4, 3, 0, 17, 17, "tile"),     # the product's instance (ProductExit)
+    (512, 2, 30, 3, 2, 4, 3, 3, 17, 17, "tile"),     # the keyswitch's (KsExit): the body added
+    (256, 1, 30, 2, 2, 3, 4, 2, 17, 17, "tile"),     # runtime-shaped: P 1, res > psize
+    (256, 5, 28, 2, 1, 16, 12, 16, 19, 13, "tile"),  # P 5, psize 16, other bases
+    (256, 8, 28, 1, 2, 6, 6, 9, 17, 17, "tile"),     # P 8, the body past psize
+    (256, 2, 28, 2, 2, 4, 3, 3, 17, 17, "parent"),
+])
+def test_emulated_garner_exit_matches_plain(emulated, n, nprimes, prime_bits, batch, co, psize,
+                                            res_size, s_size, kr, ka, design):
+    """Both designs against the plain version; the residues of the first
+    ciphertext at p − 1 (the lift's largest value and its centring)."""
+    m = t_get_module(n, nprimes, prime_bits, "cpu")
+    rng = np.random.default_rng(95)
+    x = _edge_residues(rng, m.basis.primes, (batch, co, psize, nprimes, n))
+    small = None
+    if s_size:
+        small = torch.from_numpy(rng.integers(-(2**62), 2**62, size=(batch, s_size, n)))
+        small[0, 0, :len(INT64_EDGES)] = torch.tensor(INT64_EDGES)
+    out, launch = tfused._exit_launch(m, x, psize, res_size, kr, ka, small, design)
+    launch()
+    assert torch.equal(out, tfused.garner_exit_ref(m, x, psize, res_size, kr, ka, small))

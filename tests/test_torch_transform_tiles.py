@@ -1,22 +1,27 @@
-"""The second designs of the MXU inverse (`csrc/mxu_ntt.cu`
-`mxu_inverse_wg_kernel`, the "wg" design) and of the VMP (`csrc/vmp.cu`
-`vmp_tile_kernel`, the "tile" design): their layout formulas and tables, and
-their CUDA launches at the edges of a task or tile.
+"""The second designs of the MXU transforms (`csrc/mxu_ntt.cu`
+`mxu_forward_wg_kernel` and `mxu_inverse_wg_kernel`, the "wg" designs), of
+the VMP (`csrc/vmp.cu` `vmp_tile_kernel`, the "tile" design) and of the
+Garner exit (`csrc/garner_exit.cu` `garner_exit_tile_kernel`, the "tile"
+design): their layout formulas and tables, and their CUDA launches at the
+edges of a task or tile.
 
-CPU part: `mxu.wg_layout` (rows per task, tasks, grid, shared bytes within
-the card's 232,448) at every N of the wg design's instances, the instances
-and stage names against the source, the tables of `mxu.wg_tables` (each a
-permutation or a Montgomery twin of the parent's tables), `vmp.tile_layout`
-at the paths' shapes and `VMP_SHAPES` against the source.
+CPU part: `mxu.fwd_layout` and `mxu.wg_layout` (rows per task, tasks, grid,
+shared bytes within the card's 232,448) at every N of the wg designs'
+instances and at the paths' shapes, the instances and stage names against
+the source, the tables of `mxu.wg_tables` (each a permutation or a
+Montgomery twin of the parent's tables), `vmp.tile_layout` at the paths'
+shapes and `VMP_SHAPES` against the source, `fused.EXIT_SHAPES` against the
+source.
 
-CUDA part (`-m cuda`, skipped without a card): the wg design against the
+CUDA part (`-m cuda`, skipped without a card): both wg designs against the
 plain version and the parent design at N 512 … 8192, one row, a task's rows
-± 1, P 1 and 3 on 30-bit primes, residues p − 1, both folds, and its stage
-clock; the
+± 1, P 1 and 3 on 30-bit primes, residues p − 1 or limbs past int32, 1 to 4
+digit planes, both folds, and their stage clocks; the
 tile VMP against the plain version at K 1 … 17 (the runtime-shaped
 instance's folds), M 1 … 13, one row, ragged row blocks, both bases, every
-specialised shape.  These tests do not touch JAX; on the machine with the
-card run them with
+specialised shape; the tile exit against the plain version and its parent
+at both specialised shapes and the runtime-shaped one.  These tests do not
+touch JAX; on the machine with the card run them with
 
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_transform_tiles.py -q
 """
@@ -144,6 +149,102 @@ def test_wg_fragment_of_one_thread():
 
 
 # --------------------------------------------------------------------------
+# The wg design of the MXU forward
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("logn", list(tmxu.WG_LOGN))
+@pytest.mark.parametrize("P", [1, 2, 3, 8])
+def test_fwd_layout_fits_every_instance(logn, P):
+    """A task is one prime of 128 / n2 rows (64 / n2 at N 8192, where 128
+    would not fit); its shared bytes (the staged int64 limbs, step B's
+    operand, step A's weights of every prime where they fit, else of one)
+    fit the card."""
+    n = 1 << logn
+    n1, n2 = _split(n)
+    per_task, tasks, grid, smem = tmxu.fwd_layout(n, 1000, P, H100_SMS)
+    mb = 64 if n == 8192 else 128
+    assert per_task * n2 == mb
+    assert tasks == -(-1000 // per_task) * P
+    assert grid == min(tasks, H100_SMS)
+    stage = per_task * n * 8                          # the staged limbs
+    slots = P if stage + mb * 4 * n1 + P * (4 * n2) ** 2 <= tfused.SMEM_LIMIT else 1
+    assert smem == stage + mb * 4 * n1 + slots * (4 * n2) ** 2 <= tfused.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("rows,P,groups", [
+    (16384 * 6, 2, 12288),     # the product path's forward: 16384 ciphertexts × 6 input rows
+    (256 * 3, 2, 96),          # the keyswitch path's (batch 256, 3 mask limbs)
+    (64 * 6, 2, 48),           # the product path's verify batch
+    (8 * 3, 2, 3),             # the keyswitch path's verify batch
+    (9, 1, 2),                 # a ragged task
+])
+def test_fwd_layout_at_path_shapes(rows, P, groups):
+    tasks = groups * P
+    smem = 8 * 2048 * 8 + 128 * 512 + P * 64 * 64     # limbs, step B's operand, P primes' ua
+    assert tmxu.fwd_layout(2048, rows, P, H100_SMS) == (8, tasks, min(tasks, H100_SMS), smem)
+
+
+def test_fwd_instances_and_stages_match_the_source():
+    """The source instantiates the forward's wg design for exactly WG_LOGN;
+    its stage names follow its enum; its shared bytes follow fwd_smem."""
+    src = (CSRC / "mxu_ntt.cu").read_text()
+    assert sorted(map(int, re.findall(r"POULPY_FWD\((\d+)\)", src))) == list(tmxu.WG_LOGN)
+    enum = re.search(r"enum \{ (FWD_\w+(?:, FWD_\w+)*), FWD_NSTAGES \};", src).group(1)
+    assert tuple(e[4:].lower() for e in enum.split(", ")) == tmxu.FWD_STAGES["wg"]
+    assert "return mb / n2 * n1 * n2 * 8 + mb * NDIG * n1 + ua_slots * NDIG * n2 * NDIG * n2;" in src
+
+
+@pytest.mark.parametrize("n,bits,split", [(512, 28, True), (2048, 30, True), (2048, 28, False)])
+def test_fwd_tables_rearrange_the_parent_tables(n, bits, split):
+    """The forward's step-B fragments and step-A weights hold the parent's
+    v0 and ua bytes in another order (every byte once); step A's output
+    constants are the parent's twiddles tf·R^{-1}·2^{-60} and that times
+    2^s; each fold's K as the inverse's."""
+    m = t_get_module(n, 2, bits, "cpu")
+    primes = m.basis.primes
+    host = tmxu._host_tables_mxu(primes, n)
+    wg = tmxu._host_wg_tables(primes, n, split, forward=True)
+    n1, n2 = _split(n)
+    assert set(wg) == {"v0", "ua", "tw", "primes"}
+    assert wg["v0"].shape == (2, n1 // 32, n1 // 8, 2, 128, 4)
+    for pi, p in enumerate(primes):
+        assert np.array_equal(np.sort(wg["v0"][pi].view(np.int8).ravel()),
+                              np.sort(host["v0"][pi].ravel()))
+        assert np.array_equal(np.sort(wg["ua"][pi]), np.sort(host["ua"][pi].ravel()))
+        c = wg["primes"][pi].view(np.uint32).astype(object)
+        shifts = []
+        for fold, weights in ((c[0:4], host["ua"][pi]), (c[4:8], host["v0"][pi])):
+            big = int(fold[2]) << 32 | int(fold[1])
+            bound = 257 * 128 * int(np.abs(weights.astype(np.int64)).sum(axis=0).max())
+            assert fold[0] == (split and 2 * bound + p <= 2**32) and big % p == 0
+            shifts.append(16 if fold[0] else 32)
+        tw = wg["tw"][pi].view(np.uint32).astype(object)
+        assert np.array_equal(tw[..., 0] * R * 2**60 % p, host["tf"][pi].astype(object))
+        assert np.array_equal(tw[..., 2], tw[..., 0] * 2**shifts[0] % p)
+        assert (c[8] * 2**60 % p, c[10]) == (1, c[8] * 2**shifts[1] % p)
+
+
+# --------------------------------------------------------------------------
+# The tile design of the Garner exit
+# --------------------------------------------------------------------------
+
+def test_exit_shapes_match_the_source():
+    src = (CSRC / "garner_exit.cu").read_text()
+    shapes = {tuple(map(int, d.split(","))) for d in
+              re.findall(r"= ExitShape<(\d+, \d+, \d+, \d+, \d+, \d+)>;", src)}
+    assert shapes - {(0,) * 6} == set(tfused.EXIT_SHAPES)
+
+
+@pytest.mark.parametrize("shape", list(tfused.EXIT_SHAPES))
+def test_exit_shapes_are_the_routes(shape):
+    """Each specialised exit is the "mxu" route's at one of its paths: the
+    product (bench.py: P 2, GGSW psize 4, 3 output limbs, base 17, no body)
+    and the keyswitch (its 3-limb body added)."""
+    P, psize, res_size, s_size, kr, ka = shape
+    assert (P, psize, res_size, kr, ka) == (2, 4, 3, 17, 17) and s_size in (0, 3)
+
+
+# --------------------------------------------------------------------------
 # The tile design of the VMP
 # --------------------------------------------------------------------------
 
@@ -220,6 +321,84 @@ def test_cuda_inverse_stage_clock(cuda, design):
     torch.cuda.synchronize()
     assert torch.equal(out, tmxu.mxu4_inverse_ref(m.tables, y))
     assert stamps.shape[1] == len(tmxu.STAGES[design]) and bool((stamps > 0).all())
+
+
+def _limbs(rng, rows, n):
+    """int64 limbs [rows, N], the first row starting with INT64_MIN, INT64_MAX
+    and words past int32 (the forward wraps them to int32)."""
+    x = rng.integers(-(2**40), 2**40, size=(rows, n))
+    x[0, :4] = [-(2**63), 2**63 - 1, 2**31, -(2**31) - 1]
+    return torch.from_numpy(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nprimes,prime_bits,rows,nd_in,split", [
+    (2048, 2, 28, 131, 3, True),     # the path's N and planes, ragged: 16 tasks and a 3-row one
+    (2048, 2, 30, 8, 3, True),       # exactly one task, 30-bit primes
+    (2048, 2, 30, 9, 4, False),      # the int64 fold
+    (2048, 1, 28, 1, 1, True),
+    (512, 3, 30, 17, 2, True),       # 16 rows per task + 1
+    (1024, 2, 28, 15, 3, False),     # 16 rows per task − 1
+    (4096, 3, 30, 5, 3, True),       # step A's weights one prime at a time
+    (8192, 2, 28, 3, 4, True),       # 64 / n2 rows per task; past the parent's shared memory
+])
+def test_cuda_wg_forward_matches_plain_and_parent(cuda, monkeypatch, n, nprimes, prime_bits, rows,
+                                                  nd_in, split):
+    monkeypatch.setattr(tmxu, "WG_SPLIT", split)
+    m = t_get_module(n, nprimes, prime_bits, cuda)
+    x = _limbs(np.random.default_rng(96), rows, n).to(cuda)
+    want = tmxu.mxu4_forward_limbs_ref(m.tables, x, nd_in)
+    reset_launches()
+    have = tmxu.mxu4_forward_limbs(m.tables, x, nd_in)
+    torch.cuda.synchronize()
+    assert LAUNCHES["mxu_forward"] == 1
+    assert torch.equal(have, want)
+    if n <= 4096:
+        out, launch = tmxu._forward_launch(m.tables, x, nd_in, "parent")
+        launch()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["wg", "parent"])
+def test_cuda_forward_stage_clock(cuda, design):
+    """The TIMED instance: the untimed output, a positive count per block and stage."""
+    m = t_get_module(2048, 2, 28, cuda)
+    x = _limbs(np.random.default_rng(97), 300, 2048).to(cuda)
+    out, stamps = tmxu.stage_cycles(m.tables, x, design, forward=True, nd_in=3)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tmxu.mxu4_forward_limbs_ref(m.tables, x, 3))
+    assert stamps.shape[1] == len(tmxu.FWD_STAGES[design]) and bool((stamps > 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nprimes,prime_bits,B,co,psize,res_size,s_size,kr,ka", [
+    (2048, 2, 28, 100, 2, 4, 3, 0, 17, 17),     # the product's instance
+    (2048, 2, 30, 9, 2, 4, 3, 3, 17, 17),       # the keyswitch's: the body added
+    (256, 2, 30, 3, 2, 4, 3, 3, 17, 17),        # its instance at N 256: one coefficient tile
+    (1024, 5, 28, 3, 1, 16, 12, 16, 19, 13),    # runtime-shaped: P 5, psize 16, other bases
+    (512, 1, 30, 2, 2, 3, 4, 2, 17, 17),        # runtime-shaped: P 1
+    (512, 8, 28, 2, 2, 6, 6, 9, 17, 17),        # runtime-shaped: P 8, the body past psize
+])
+def test_cuda_exit_matches_plain_and_parent(cuda, n, nprimes, prime_bits, B, co, psize, res_size,
+                                            s_size, kr, ka):
+    m = t_get_module(n, nprimes, prime_bits, cuda)
+    rng = np.random.default_rng(98)
+    x = _residues(rng, m.basis.primes, (B, co, psize, nprimes, n)).to(cuda)
+    small = None
+    if s_size:
+        body = rng.integers(-(2**62), 2**62, size=(B, s_size, n))
+        body[0, 0, :2] = [-(2**63), 2**63 - 1]
+        small = torch.from_numpy(body).to(cuda)
+    want = tfused.garner_exit_ref(m, x, psize, res_size, kr, ka, small)
+    reset_launches()
+    have = tfused.garner_exit(m, x, psize, res_size, kr, ka, small)
+    torch.cuda.synchronize()
+    assert LAUNCHES["garner_exit"] == 1
+    assert torch.equal(have, want)
+    out, launch = tfused._exit_launch(m, x, psize, res_size, kr, ka, small, design="parent")
+    launch()
+    assert torch.equal(out, want)
 
 
 @pytest.mark.cuda
