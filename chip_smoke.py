@@ -49,8 +49,9 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
 
   1. device      card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build       nvcc build of the kernels of csrc/ (sm_90a), then what ptxas
-                 reported for the Garner exit's instances and the MXU
-                 transforms' wg designs (registers, stack frame, spills);
+                 reported for the Garner exit's instances, the MXU
+                 transforms' wg designs and both tensor kernels' instances
+                 (registers, stack frame, spills);
   3. kernels     each CUDA kernel against its plain PyTorch version on the same
                  CUDA inputs at its path's shapes, tolerance 0, with its time,
                  the plain version's time and the bound (the least time the
@@ -63,9 +64,10 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  CKKS mul's shape and on the 30-bit basis of the "mxu"
                  keyswitch, batch 256; the NTT also at the non-wide CKKS
                  mul's four transform shapes, batch 256); the butterfly
-                 product and block step (the lazy design, which the paths
-                 run) and the VMP (the tile design) also against their parent
-                 design, equal and timed in the same way;
+                 product and block step and both tensor kernels (the lazy
+                 design, which the paths run) and the VMP (the tile design)
+                 also against their parent design, equal and timed in the
+                 same way;
   3′. kernels    the same for the MXU route's kernels, after the last path: at
                  the product path's shapes, the fused MXU product with the
                  body at the keyswitch path's, batch 256, and the block step
@@ -94,11 +96,17 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  (parent: planes, step A, step B; the forward's wg design:
                  the wait for its input, step A, step B's products and
                  epilogues; the inverse's: planes, step A's products and
-                 epilogues, step B);
+                 epilogues, step B); then the tensor kernels'
+                 (tensor_product.cu, wide_tensor.cu) at the relinearize and
+                 the CKKS-wide mul's shapes, for the parent and the lazy
+                 design (and the wide kernel's lazy design with a pair per
+                 task): entry and forward NTT, convolution, inverse NTT,
+                 lift;
   3″. kernels_large_n  each product kernel at a shape whose rows do not fit
                  in shared memory (N 8192 for bench.py's product, N 4096
                  for the CKKS key's keyswitch and relinearization exits,
-                 the gate's block steps and the CKKS-wide pair), batch 2–4,
+                 the gate's block steps, the relinearize path's tensor
+                 product and the CKKS-wide pair), batch 2–4,
                  against its plain version, tolerance 0, with the layout it
                  takes (it must be the global one) and its time;
   4. verify      product path: stage by stage (NTT → VMP → inverse NTT
@@ -442,9 +450,10 @@ def tensor_ops(B: int, P: int, n: int, size_a: int, size_b: int) -> int:
 
 
 def parent_run(prepare, mod, *args):
-    """A callable that launches the parent design of a butterfly kernel
-    (`fused._product_launch` or `_block_step_launch` and their arguments)
-    and returns its output; it counts no launch."""
+    """A callable that launches the parent design of a kernel with two
+    designs (`fused._product_launch`, `_block_step_launch`, `_tensor_launch`
+    or `wide._tensor_wide_launch` and their arguments) and returns its
+    output; it counts no launch."""
     def run():
         out, launch = prepare(mod, *args, design="parent")
         launch()
@@ -474,7 +483,10 @@ def check_kernels(cases: dict, parents: dict | None = None) -> dict:
         ms = cuda_ms(kernel, 5)
         parent = {}
         if name in parents:
-            parent_equal = bool(torch.equal(parents[name](), want))
+            got = parents[name]()
+            if isinstance(got, tuple):
+                got = torch.cat([x.flatten() for x in got])
+            parent_equal = bool(torch.equal(got, want))
             parent = dict(parent_ms=cuda_ms(parents[name], 5), parent_equal=parent_equal)
             equal = equal and parent_equal
         plain_ms = cuda_ms(plain, 1)
@@ -656,10 +668,14 @@ def phase_kernels(m, gm, wm) -> dict:
             bound((rot_a.numel() + rot_body.numel() + rb * 2 * 6 * N) * i64
                   + rkey.numel() * i32, fused_ops(rb, 6, 12, kp, N))),
     }
-    # the parent designs of the butterfly kernels (rows 3a, 3b, 3b′, 3c, 4)
-    # and of the VMP (row 2), in the same call
+    # the parent designs of the butterfly kernels (rows 3a, 3b, 3b′, 3c, 4),
+    # of the tensor kernels (rows 6, 8) and of the VMP (row 2), in the same call
     product, step = fused._product_launch, fused._block_step_launch
     parents = {
+        "tensor_product": parent_run(fused._tensor_launch, m, ra, rbb, 11, k.dnum, k.base2k,
+                                     k.base2k),
+        "wide_tensor": parent_run(wide._tensor_wide_launch, wm, ca, cb, 3, c.dnum, 3, c.base2k,
+                                  c.base2k, WIDE_OFFSET),
         "vmp": lambda: vmp.vmp_apply(m, a_dft, pmat, design="parent"),
         "vmp@ckks": lambda: vmp.vmp_apply(m, ck_dft, ck_pmat, design="parent"),
         "vmp@keyswitch": lambda: vmp.vmp_apply(km, ks_dft, ks_vpmat, design="parent"),
@@ -982,10 +998,71 @@ def phase_transform_stages(cases: dict, designs: tuple) -> None:
         del want
 
 
+def tensor_cases(m, wm) -> dict:
+    """The tensor kernels at their paths' shapes, on inputs of their own:
+    name → (launch preparer, arguments, the lazy design's task variants).
+    The relinearize path's tensor product (batch 256, 6 + 6 limbs of 17
+    bits, conv 11, dnum 6) and the CKKS-wide mul's (batch 256, 2 + 2 limbs of
+    52 bits, conv 3, dnum 2, lin 3, offset 13), whose lazy design is also
+    timed with a pair per task."""
+    import torch
+
+    from poulpy_tpu_torch.backends import fused, wide
+
+    gen = torch.Generator(device=m.device).manual_seed(12)
+
+    def ints(lim, shape):
+        return torch.randint(-lim, lim, shape, generator=gen, device=m.device, dtype=torch.int64)
+
+    k, c = CKKS, CKKS_WIDE
+    return {
+        "tensor_product": (fused._tensor_launch, m,
+                           (ints(2**16, (CKKS_BATCH, 2, 6, N)), ints(2**16, (CKKS_BATCH, 2, 6, N)),
+                            11, k.dnum, k.base2k, k.base2k), (None,)),
+        "wide_tensor": (wide._tensor_wide_launch, wm,
+                        (ints(2**51, (CKKS_BATCH, 2, 2, c.n)), ints(2**51, (CKKS_BATCH, 2, 2, c.n)),
+                         3, c.dnum, 3, c.base2k, c.base2k, WIDE_OFFSET), (None, 1)),
+    }
+
+
+def phase_tensor_stages(cases: dict) -> None:
+    """The tensor kernels' stage clocks, per design (and, for the lazy one,
+    per task variant): the kernel's time (CUDA events, 5 launches), then one
+    launch of its TIMED instance, whose output must equal the untimed one's
+    and the parent design's; per stage the SM cycles per block (mean over
+    blocks), its share, and that share of the time."""
+    import torch
+
+    from poulpy_tpu_torch.backends import fused
+
+    for name, (prepare, mod, args, variants) in cases.items():
+        want = None
+        for design, pairs in [("parent", None)] + [("lazy", v) for v in variants]:
+            out, launch = prepare(mod, *args, design=design, pairs=pairs)
+            ms = cuda_ms(launch, 5)
+            have = torch.cat([x.flatten() for x in out])
+            timed_out, launch_timed = prepare(mod, *args, design=design, pairs=pairs)
+            stamps = launch_timed(timed=True)
+            torch.cuda.synchronize()
+            timed = torch.cat([x.flatten() for x in timed_out])
+            want = have if want is None else want
+            if not (torch.equal(have, want) and torch.equal(timed, want)):
+                raise SystemExit(f"stages: the {design} {name} (pairs {pairs}) disagrees")
+            cycles = stamps.to(torch.float64).mean(0).tolist()
+            total = sum(cycles)
+            emit(phase="stages", kernel=name, design=design, pairs=pairs, ms=ms,
+                 blocks=stamps.shape[0], block_cycles=total,
+                 stages={st: dict(cycles=c, share=c / total, ms=ms * c / total)
+                         for st, c in zip(fused.TENSOR_STAGES, cycles)})
+            del out, have, timed_out, timed
+        del want
+
+
 def phase_ptxas() -> None:
     """What ptxas reported (`-Xptxas -v` in the build's nvcc.log) for the
-    Garner exit's instances and the MXU transforms' wg designs: registers,
-    stack frame and spills per entry function."""
+    Garner exit's instances, the MXU transforms' wg designs and the tensor
+    kernels' instances: registers, stack frame and spills per entry
+    function."""
     import re
 
     from poulpy_tpu_torch.backends import _lib
@@ -995,7 +1072,7 @@ def phase_ptxas() -> None:
                          r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used "
                          r"(\d+) registers", log)
     for name, stack, stores, loads, regs in entries:
-        if any(k in name for k in ("garner_exit", "mxu_forward_wg", "mxu_inverse_wg")):
+        if any(k in name for k in ("garner_exit", "mxu_forward_wg", "mxu_inverse_wg", "tensor")):
             emit(phase="ptxas", entry=name, registers=int(regs), stack_frame=int(stack),
                  spill_stores=int(stores), spill_loads=int(loads))
 
@@ -1060,6 +1137,7 @@ def phase_kernels_large_n() -> None:
     wd, wkey, wlin = (ints(2**51, (2, 1, 2, 4096)), residues(w4, (2, 1, 2, 3, 5, 4096)),
                       ints(2**51, (2, 2, 3, 4096)))
     wa, wb = ints(2**51, (2, 2, 2, 4096)), ints(2**51, (2, 2, 2, 4096))
+    ta, tb = ints(2**16, (3, 2, 6, 4096)), ints(2**16, (3, 2, 6, 4096))
 
     def flat(fn, *args):
         return lambda: torch.cat([x.flatten() for x in fn(*args)])
@@ -1086,7 +1164,11 @@ def phase_kernels_large_n() -> None:
                          lambda: wide.fused_glwe_product_wide(w4, wd, wkey, 2, 52, 52, small=wlin),
                          lambda: wide.fused_glwe_product_wide_ref(w4, wd, wkey, 2, 52, 52,
                                                                   small=wlin)),
-        "wide_tensor": (wide.tensor_wide_layout(2, 2, 3, 5, 4096),
+        "tensor_product": (fused.tensor_design_layout(6, 6, 11, 2, 4096),
+                           flat(fused.fused_tensor_product, m4, ta, tb, 11, 6, BASE2K, BASE2K),
+                           flat(fused.fused_tensor_product_ref, m4, ta, tb, 11, 6, BASE2K,
+                                BASE2K)),
+        "wide_tensor": (fused.tensor_design_layout(2, 2, 3, 5, 4096, parent=wide.tensor_wide_layout),
                         flat(wide.fused_tensor_product_wide, w4, wa, wb, 3, 2, 3, 52, 52,
                              WIDE_OFFSET),
                         flat(wide.fused_tensor_product_wide_ref, w4, wa, wb, 3, 2, 3, 52, 52,
@@ -1385,9 +1467,11 @@ def profile_once(phase: str, fn, timed_ms: float) -> None:
                 entry = device.setdefault(e.name, [0.0, 0])
                 entry[0] += e.time_range.elapsed_us() / 1e3
                 entry[1] += 1
-        # the kernels of csrc/ (each in an anonymous namespace) against torch's own (a
-        # template kernel's name starts with its return type: "void (anonymous namespace)::…")
-        csrc = [v for k, v in device.items() if "(anonymous namespace)::" in k]
+        # the kernels of csrc/ (each in an anonymous namespace, or in namespace poulpy
+        # for tensor.cuh's) against torch's own (a template kernel's name starts with
+        # its return type: "void (anonymous namespace)::…", "void poulpy::…")
+        csrc = [v for k, v in device.items()
+                if "(anonymous namespace)::" in k or k.startswith("void poulpy::")]
         if sum(c for _, c in csrc) >= launched:
             break
     busy_ms = sum(ms for ms, _ in device.values())
@@ -1882,6 +1966,7 @@ def main() -> int:
     phase_stages(fused_mxu, fused_mxu_cases(m, km, gm), DESIGNS)
     phase_stages(fused, butterfly_cases(m, km, gm), BUTTERFLY_DESIGNS)
     phase_transform_stages(transform_cases(m, km), TRANSFORM_DESIGNS)
+    phase_tensor_stages(tensor_cases(m, wm))
     phase_kernels_large_n()
     if not all(launches.values()):
         raise SystemExit(f"kernels never launched: {[k for k, v in launches.items() if not v]}")

@@ -37,8 +37,10 @@ _SIGNATURES = {
     "poulpy_br_block_step": [_P] * 7 + [_I] * 11 + [_P, _I, _I, _P, _P],
     "poulpy_br_block_step_lazy": [_P] * 7 + [_I] * 12 + [_P, _P],
     "poulpy_wide_product": [_P] * 6 + [_I] * 15 + [_P, _I, _I, _P],
-    "poulpy_wide_tensor": [_P] * 6 + [_I] * 12 + [_P, _I, _I, _P],
-    "poulpy_tensor_product": [_P] * 7 + [_I] * 10 + [_P],
+    "poulpy_wide_tensor": [_P] * 6 + [_I] * 12 + [_P, _I, _I, _P, _P],
+    "poulpy_wide_tensor_lazy": [_P] * 7 + [_I] * 14 + [_P, _P],
+    "poulpy_tensor_product": [_P] * 7 + [_I] * 10 + [_P, _I, _I, _P, _P],
+    "poulpy_tensor_product_lazy": [_P] * 7 + [_I] * 12 + [_P, _P],
     "poulpy_mxu_forward": [_P] * 6 + [_I] * 6 + [_P, _P],
     "poulpy_mxu_forward_wg": [_P] * 7 + [_I] * 5 + [_P, _P],
     "poulpy_mxu_inverse": [_P] * 6 + [_I] * 5 + [_P, _P],

@@ -18,7 +18,9 @@ Replace four call patterns of `poulpy_tpu/backends/pallas_fused.py`
   `fused_br_block_step`,
       acc ← normalize(acc + idft(Σ_i NTT(X^{a_i} − 1) · (dft(acc) ⊡ BRK_i)));
 - the rank-1 tensor product: `fused_tensor_product`, the quadratic term's
-  gadget digits and the raw 64-bit linear terms that feed `small64`;
+  gadget digits and the raw 64-bit linear terms that feed `small64`
+  (`csrc/tensor_product.cu`, its lazy design shared with
+  `csrc/wide_tensor.cu` in `csrc/tensor.cuh`);
 
 and `_kernel_b_fn` → `_kernel_b`, the exit of the "mxu" route on its own:
 `garner_exit`, coefficient residues → Garner lift → + small → normalize.
@@ -29,11 +31,12 @@ parts only, so on a CUDA tensor they launch no kernel of `csrc/`.  The
 fused kernels' wrappers choose a layout by formula (`kernel_layout`): the
 shared one where a block's rows fit in shared memory, else the global one
 (the rows in a device workspace, the transforms staged through shared
-memory).  `fused_product.cu` and `br_block_step.cu` have two designs: the
-lazy design (`lazy_layout`: every shape whose rows fit, 256 ≤ N ≤ 2048)
-and the parent design, which takes the other shapes (its global layout
-past shared memory) and is the stage clock's reference.  `stage_cycles`
-reads either design's stage clock, for measurement only.
+memory).  `fused_product.cu`, `br_block_step.cu` and the tensor kernels
+have two designs: the lazy design (`lazy_layout`, `tensor_lazy_layout`:
+every shape whose rows fit, 256 ≤ N ≤ 2048) and the parent design, which
+takes the other shapes (its global layout past shared memory) and is the
+stage clock's reference.  `stage_cycles` and `tensor_stage_cycles` read
+either design's stage clock, for measurement only.
 """
 
 from __future__ import annotations
@@ -70,6 +73,18 @@ MAX_LIMBS = 16
 
 # the stages of the butterfly kernels' stage clock (csrc/modarith.cuh BF_*)
 STAGES = ("entry", "fwd", "vmp", "inv", "exit")
+# the stages of the tensor kernels' stage clock (csrc/modarith.cuh TS_*)
+TENSOR_STAGES = ("entry_fwd", "conv", "inv", "lift")
+# The shapes with a specialised instance of the tensor kernels' lazy design
+# (csrc/tensor_product.cu TensorShape, csrc/wide_tensor.cu WideTensorShape):
+# (wide, log N, P, size_a, size_b, conv, dnum, lin limbs, pairs per task or 0
+# for either, kr, ka), the relinearize path's and the CKKS-wide mul's.  Any
+# other shape takes the runtime-shaped instance.
+TENSOR_SHAPES = {(False, 11, 2, 6, 6, 11, 6, 11, 1, 17, 17),
+                 (True, 11, 5, 2, 2, 3, 2, 3, 0, 52, 52)}
+# shared bytes the lazy tensor kernel keeps beside its rows (its static
+# __shared__ constants, csrc/tensor.cuh)
+TENSOR_STATIC_SMEM = 2048
 # The shapes with a specialised instance of the lazy design (csrc/fused_product.cu
 # ProductShape, SmallShape, GateKsShape, RotateShape; csrc/br_block_step.cu
 # GateShape): (block step, log N, KK, cpb·psize, P, psize, res_size) →
@@ -175,7 +190,9 @@ class Layout:
     the same for `tile` ciphertexts per block.  "global": in a global
     workspace slot of `ws_rows` rows of N words per block (all co columns in
     one task, the blocks walking the tasks), each transform staged through
-    `smem` bytes of shared memory `chunk` rows at a time."""
+    `smem` bytes of shared memory `chunk` rows at a time.  "lazy" (the
+    tensor kernels): `chunk` rows of shared memory, `pairs` column pairs per
+    task."""
 
     kind: str
     cpb: int
@@ -183,6 +200,7 @@ class Layout:
     chunk: int = 0
     ws_rows: int = 0
     tile: int = 1
+    pairs: int = 0
 
 
 def kernel_layout(co: int, shared_bytes, split: bool, ws_rows: int, stage_bytes,
@@ -217,7 +235,7 @@ def launch_workspace(layout: Layout, tasks: int, n: int, device):
     with a workspace slot of `ws_rows` rows of N words."""
     if layout.kind == "shared":
         return None, tasks
-    grid = min(tasks, 2 * torch.cuda.get_device_properties(device).multi_processor_count)
+    grid = min(tasks, 2 * _lib.sm_count(device))
     return torch.empty((grid, layout.ws_rows, n), dtype=torch.int32, device=device), grid
 
 
@@ -321,8 +339,8 @@ def fused_glwe_product(module: Module, a_data, pmat, res_size: int, res_base2k: 
     return out
 
 
-def _stamps(timed: bool, blocks: int, device):
-    return torch.zeros((blocks, len(STAGES)), dtype=torch.int64, device=device) if timed else None
+def _stamps(timed: bool, blocks: int, device, stages: tuple = STAGES):
+    return torch.zeros((blocks, len(stages)), dtype=torch.int64, device=device) if timed else None
 
 
 def _product_launch(module: Module, a_data, pmat, res_size: int, res_base2k: int,
@@ -479,15 +497,111 @@ def fused_tensor_product_ref(module: Module, a_data, b_data, conv_size: int, dnu
 
 
 def tensor_smem_bytes(size_a: int, size_b: int, conv_size: int, n: int) -> int:
-    """Shared memory of one tensor block: the rows of one prime that the
-    cross pair reads, or the conv_size rows written over them if more."""
+    """Shared memory of one block of the parent tensor design: the rows of
+    one prime that the cross pair reads, or the conv_size rows written over
+    them if more."""
     return 4 * n * max(2 * (size_a + size_b), conv_size)
 
 
+def tensor_layout(size_a: int, size_b: int, conv_size: int, nprimes: int, n: int) -> Layout:
+    """The parent design's layout of `tensor_product.cu` (one block per
+    ciphertext and pair): shared where its workspace fits, else global, the
+    workspace slot holding the input rows and the P·conv_size rows of the
+    shared layout's scratch, the stage whole rows."""
+    in_rows = 2 * (size_a + size_b)
+    return kernel_layout(1, lambda _: tensor_smem_bytes(size_a, size_b, conv_size, n), False,
+                         in_rows + nprimes * conv_size, lambda c: 4 * n * c,
+                         max(in_rows, conv_size))
+
+
+def tensor_lazy_layout(size_a: int, size_b: int, conv_size: int, nprimes: int, n: int,
+                       pairs: int | None = None) -> Layout | None:
+    """The tensor kernels' lazy design's layout (csrc/tensor.cuh), or None
+    where it does not take the shape (N outside 256..2048, more than
+    MAX_PRIMES primes or MAX_LIMBS limbs, or one prime's rows of a task past
+    shared memory): all three column pairs per task where one prime's region
+    of max(2·(size_a + size_b), 3·conv_size) rows fits, else one pair per
+    task (max(2·(size_a + size_b), conv_size) rows for the cross pair); as
+    many primes' regions as fit, `chunk` rows.  `pairs` (1 or 3) forces the
+    task, for measurement."""
+    logn = n.bit_length() - 1
+    if not 8 <= logn <= 11 or nprimes > MAX_PRIMES or max(size_a, size_b, conv_size) > MAX_LIMBS:
+        return None
+    cap = (SMEM_LIMIT - TENSOR_STATIC_SMEM) // (4 * n)
+    in_rows = 2 * (size_a + size_b)
+    for g in ((3, 1) if pairs is None else (pairs,)):
+        region = max(in_rows, g * conv_size)
+        if region <= cap:
+            rows = min(nprimes, cap // region) * region
+            return Layout("lazy", 1, 4 * n * rows, chunk=rows, pairs=g)
+    return None
+
+
+def tensor_scratch_slots(lay: Layout, size_a: int, size_b: int, conv_size: int, nprimes: int,
+                         B: int) -> int:
+    """Scratch slots of a lazy tensor launch: one per task whose primes do
+    not fit in one pass (the first tasks: the cross pairs, or every
+    ciphertext), 0 if every task's do."""
+    def passes_fit(region: int) -> bool:
+        return lay.chunk // region >= nprimes
+
+    if passes_fit(max(2 * (size_a + size_b), lay.pairs * conv_size)):
+        return 0
+    if lay.pairs == 3 or passes_fit(max(size_a + size_b, conv_size)):
+        return B
+    return 3 * B
+
+
+def tensor_design_layout(size_a: int, size_b: int, conv_size: int, nprimes: int, n: int,
+                         design: str = "lazy", pairs: int | None = None,
+                         parent=tensor_layout) -> Layout:
+    """The layout a launch of a tensor kernel takes: the lazy design's where
+    it takes the shape (`design` "lazy"), else its parent design's, `parent`
+    (`tensor_layout`, or `wide.tensor_wide_layout` for the wide kernel,
+    whose parent keeps the conv rows in shared memory)."""
+    if design not in ("lazy", "parent"):
+        raise ValueError(f"design: 'lazy' or 'parent', got {design!r}")
+    lay = tensor_lazy_layout(size_a, size_b, conv_size, nprimes, n, pairs) \
+        if design == "lazy" else None
+    return lay or parent(size_a, size_b, conv_size, nprimes, n)
+
+
 def tensor_fits(module: Module, size_a: int, size_b: int, conv_size: int, dnum: int) -> bool:
-    """True when `fused_tensor_product`'s kernel takes these shapes."""
-    return (module.nprimes <= MAX_PRIMES and max(size_a, size_b, conv_size, dnum) <= MAX_LIMBS
-            and tensor_smem_bytes(size_a, size_b, conv_size, module.n) <= SMEM_LIMIT)
+    """True when `fused_tensor_product`'s kernel takes these shapes: its
+    compile-time bounds (any N: the global layout takes what shared memory
+    does not)."""
+    return module.nprimes <= MAX_PRIMES and max(size_a, size_b, conv_size, dnum) <= MAX_LIMBS
+
+
+def _tensor_operands(module: Module, a_data, b_data):
+    """(lead, size_a, size_b, B, a, b) of a tensor launch: the batch shape,
+    the limbs, and both operands as contiguous [B, 2, size, N] int64."""
+    n = module.n
+    lead = a_data.shape[:-3]
+    size_a, size_b = a_data.shape[-2], b_data.shape[-2]
+    if tuple(a_data.shape[-3:]) != (2, size_a, n) or tuple(b_data.shape) != tuple(lead) + (
+            2, size_b, n):
+        raise ValueError(f"a_data {tuple(a_data.shape)}, b_data {tuple(b_data.shape)}: expected "
+                         f"rank-1 ciphertexts [..., 2, size, {n}] with one batch shape")
+    if b_data.device != a_data.device or module.device != a_data.device:
+        raise ValueError("a_data, b_data and module must be on one device")
+    B = a_data.numel() // (2 * size_a * n) if a_data.numel() else 0
+    a = a_data.reshape(B, 2, size_a, n).contiguous()
+    b = b_data.reshape(B, 2, size_b, n).contiguous()
+    _lib.require(a, "a_data", torch.int64)
+    _lib.require(b, "b_data", torch.int64)
+    return lead, size_a, size_b, B, a, b
+
+
+def tensor_lazy_scratch(lay: Layout, size_a: int, size_b: int, conv_size: int, nprimes: int,
+                        B: int, n: int, device):
+    """The lazy tensor launch's scratch [slots, P, pairs·conv_size, N] int32,
+    or None."""
+    slots = tensor_scratch_slots(lay, size_a, size_b, conv_size, nprimes, B)
+    if not slots:
+        return None
+    return torch.empty((slots, nprimes, lay.pairs * conv_size, n), dtype=torch.int32,
+                       device=device)
 
 
 def fused_tensor_product(module: Module, a_data, b_data, conv_size: int, dnum: int, kr: int,
@@ -499,37 +613,65 @@ def fused_tensor_product(module: Module, a_data, b_data, conv_size: int, dnum: i
     a0·b1 + a1·b0).  Plain version on CPU tensors, one CUDA launch on CUDA."""
     if a_data.device.type == "cpu":
         return fused_tensor_product_ref(module, a_data, b_data, conv_size, dnum, kr, ka)
+    out, launch = _tensor_launch(module, a_data, b_data, conv_size, dnum, kr, ka)
+    if launch is not None:
+        launch()
+        LAUNCHES["tensor_product"] += 1
+    return out
+
+
+def _tensor_launch(module: Module, a_data, b_data, conv_size: int, dnum: int, kr: int, ka: int,
+                   design: str = "lazy", pairs: int | None = None):
+    """The checked arguments of one `fused_tensor_product` launch: ((d, lin),
+    launch) with launch(timed=False) → the stage clock's stamps or None
+    (launch None for an empty batch); `design` "lazy" or "parent"
+    (`tensor_design_layout`, `pairs` forcing the lazy design's task).
+    Counts no launch."""
     P, n = module.nprimes, module.n
-    lead = a_data.shape[:-3]
-    size_a, size_b = a_data.shape[-2], b_data.shape[-2]
-    if tuple(a_data.shape[-3:]) != (2, size_a, n) or tuple(b_data.shape) != tuple(lead) + (
-            2, size_b, n):
-        raise ValueError(f"a_data {tuple(a_data.shape)}, b_data {tuple(b_data.shape)}: expected "
-                         f"rank-1 ciphertexts [..., 2, size, {n}] with one batch shape")
-    if not tensor_fits(module, size_a, size_b, conv_size, dnum):
-        raise ValueError(f"tensor kernel bounds: P ≤ {MAX_PRIMES}, limbs ≤ {MAX_LIMBS}, "
-                         f"{tensor_smem_bytes(size_a, size_b, conv_size, n)} B of shared memory "
-                         f"≤ {SMEM_LIMIT}")
-    if b_data.device != a_data.device or module.device != a_data.device:
-        raise ValueError("a_data, b_data and module must be on one device")
-    B = a_data.numel() // (2 * size_a * n) if a_data.numel() else 0
-    a = a_data.reshape(B, 2, size_a, n).contiguous()
-    b = b_data.reshape(B, 2, size_b, n).contiguous()
-    _lib.require(a, "a_data", torch.int64)
-    _lib.require(b, "b_data", torch.int64)
+    if not tensor_fits(module, a_data.shape[-2], b_data.shape[-2], conv_size, dnum):
+        raise ValueError(f"tensor kernel bounds: P ≤ {MAX_PRIMES}, limbs ≤ {MAX_LIMBS}")
+    lead, size_a, size_b, B, a, b = _tensor_operands(module, a_data, b_data)
+    lay = tensor_design_layout(size_a, size_b, conv_size, P, n, design, pairs)
     d = torch.empty(lead + (dnum, n), dtype=torch.int64, device=a_data.device)
     lin = torch.empty(lead + (2, conv_size, n), dtype=torch.int64, device=a_data.device)
     if B == 0:
-        return d, lin
-    scratch = torch.empty((B * 3, P, conv_size, n), dtype=torch.int32, device=a_data.device)
+        return (d, lin), None
     tw, consts = kernel_tables(module.tables)
-    err = _lib.library().poulpy_tensor_product(
-        a.data_ptr(), b.data_ptr(), d.data_ptr(), lin.data_ptr(), scratch.data_ptr(),
-        tw.data_ptr(), consts.data_ptr(), B, size_a, size_b, conv_size, dnum, kr, ka, P,
-        module.log_n, tensor_smem_bytes(size_a, size_b, conv_size, n), _lib.stream())
-    _lib.check(err, "poulpy_tensor_product")
-    LAUNCHES["tensor_product"] += 1
-    return d, lin
+    sizes = (B, size_a, size_b, conv_size, dnum, kr, ka, P, module.log_n)
+
+    def launch(timed: bool = False):
+        # the closure holds every tensor whose pointer it passes
+        args = (a.data_ptr(), b.data_ptr(), d.data_ptr(), lin.data_ptr())
+        if lay.kind == "lazy":
+            scratch = tensor_lazy_scratch(lay, size_a, size_b, conv_size, P, B, n, a.device)
+            stamps = _stamps(timed, B if lay.pairs == 3 else 3 * B, a.device, TENSOR_STAGES)
+            err = _lib.library().poulpy_tensor_product_lazy(
+                *args, _lib.ptr(scratch), shoup_tables(module.tables).data_ptr(),
+                consts.data_ptr(), *sizes, lay.pairs, lay.chunk, lay.smem, _lib.ptr(stamps),
+                _lib.stream())
+        else:
+            if timed and lay.kind == "global":
+                raise ValueError("the stage clock runs the shared layout only")
+            ws, grid = launch_workspace(lay, 3 * B, n, a.device)
+            scratch = None if ws is not None else torch.empty((3 * B, P, conv_size, n),
+                                                              dtype=torch.int32, device=a.device)
+            stamps = _stamps(timed, 3 * B, a.device, TENSOR_STAGES)
+            err = _lib.library().poulpy_tensor_product(
+                *args, _lib.ptr(scratch), tw.data_ptr(), consts.data_ptr(), *sizes, lay.smem,
+                _lib.ptr(ws), lay.chunk, grid, _lib.ptr(stamps), _lib.stream())
+        _lib.check(err, "poulpy_tensor_product")
+        return stamps
+
+    return (d, lin), launch
+
+
+def tensor_stage_cycles(module: Module, *args, design: str = "lazy"):
+    """((d, lin), stamps) of one launch of the stage clock's instance on
+    `fused_tensor_product`'s arguments: stamps [blocks, len(TENSOR_STAGES)]
+    int64, the SM cycles each block spent in each stage.  For measurement
+    only: no path calls it, and it counts no launch."""
+    out, launch = _tensor_launch(module, *args, design=design)
+    return out, launch(timed=True)
 
 
 # --------------------------------------------------------------------------

@@ -10,7 +10,8 @@ for base2k up to ~52):
 - `fused_tensor_product_wide` (`_tensor_wide_fn`): the rank-1 ct × ct limb
   convolution, its quadratic term normalized to the relinearization's
   digits and its linear terms to ciphertext limbs, both with CKKS mul's
-  landing offset.
+  landing offset; two designs, as `fused.fused_tensor_product`'s (the lazy
+  one shared with it in `csrc/tensor.cuh`).
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA one.  The plain versions (`*_ref`) are built from plain
@@ -26,16 +27,21 @@ import torch
 
 from poulpy_tpu_torch.backends import LAUNCHES, _lib
 from poulpy_tpu_torch.backends.fused import (
+    TENSOR_STAGES,
     Layout,
     _check_bounds,
+    _stamps,
+    _tensor_operands,
     kernel_layout,
     launch_workspace,
     pm_kernel_layout,
     pm_kernel_layout_dsize,
     product_dft_ref,
     product_layout,
+    tensor_design_layout,
+    tensor_lazy_scratch,
 )
-from poulpy_tpu_torch.backends.ntt import kernel_tables
+from poulpy_tpu_torch.backends.ntt import kernel_tables, shoup_tables
 from poulpy_tpu_torch.hal.dft import cnv_apply, dft_add
 from poulpy_tpu_torch.hal.module import Module
 from poulpy_tpu_torch.hal.ntt import ntt_forward, ntt_inverse, to_mont, to_residues
@@ -152,8 +158,9 @@ def wide_tensor_smem_bytes(size_a: int, size_b: int, conv_size: int, nprimes: in
 
 
 def tensor_wide_layout(size_a: int, size_b: int, conv_size: int, nprimes: int, n: int) -> Layout:
-    """The layout of `wide_tensor.cu` (one block per ciphertext and pair):
-    the global workspace holds the same rows, the stage whole rows."""
+    """The parent design's layout of `wide_tensor.cu` (one block per
+    ciphertext and pair): the global workspace holds the same rows, the
+    stage whole rows."""
     in_rows = 2 * (size_a + size_b)
     return kernel_layout(1, lambda _: wide_tensor_smem_bytes(size_a, size_b, conv_size, nprimes, n),
                          False, in_rows + nprimes * conv_size, lambda c: 4 * n * c,
@@ -172,32 +179,59 @@ def fused_tensor_product_wide(module: Module, a_data, b_data, conv_size: int, dn
     if a_data.device.type == "cpu":
         return fused_tensor_product_wide_ref(module, a_data, b_data, conv_size, dnum, lin_size,
                                              kr, ka, offset)
+    out, launch = _tensor_wide_launch(module, a_data, b_data, conv_size, dnum, lin_size, kr, ka,
+                                      offset)
+    if launch is not None:
+        launch()
+        LAUNCHES["wide_tensor"] += 1
+    return out
+
+
+def _tensor_wide_launch(module: Module, a_data, b_data, conv_size: int, dnum: int,
+                        lin_size: int, kr: int, ka: int, offset: int = 0, design: str = "lazy",
+                        pairs: int | None = None):
+    """The checked arguments of one `fused_tensor_product_wide` launch, as
+    `fused._tensor_launch`'s: ((d, lin), launch(timed=False) → stamps or
+    None)."""
     P, n = module.nprimes, module.n
-    lead = a_data.shape[:-3]
-    size_a, size_b = a_data.shape[-2], b_data.shape[-2]
-    if tuple(a_data.shape[-3:]) != (2, size_a, n) or tuple(b_data.shape) != tuple(lead) + (
-            2, size_b, n):
-        raise ValueError(f"a_data {tuple(a_data.shape)}, b_data {tuple(b_data.shape)}: expected "
-                         f"rank-1 ciphertexts [..., 2, size, {n}] with one batch shape")
-    lay = tensor_wide_layout(size_a, size_b, conv_size, P, n)
+    lead, size_a, size_b, B, a, b = _tensor_operands(module, a_data, b_data)
+    lay = tensor_design_layout(size_a, size_b, conv_size, P, n, design, pairs,
+                               tensor_wide_layout)
     _check_bounds(P, conv_size, max(dnum, lin_size))
-    if b_data.device != a_data.device or module.device != a_data.device:
-        raise ValueError("a_data, b_data and module must be on one device")
-    B = a_data.numel() // (2 * size_a * n) if a_data.numel() else 0
-    a = a_data.reshape(B, 2, size_a, n).contiguous()
-    b = b_data.reshape(B, 2, size_b, n).contiguous()
-    _lib.require(a, "a_data", torch.int64)
-    _lib.require(b, "b_data", torch.int64)
     d = torch.empty(lead + (dnum, n), dtype=torch.int64, device=a_data.device)
     lin = torch.empty(lead + (2, lin_size, n), dtype=torch.int64, device=a_data.device)
     if B == 0:
-        return d, lin
+        return (d, lin), None
     tw, consts = kernel_tables(module.tables)
-    ws, grid = launch_workspace(lay, B * 3, n, a_data.device)
-    err = _lib.library().poulpy_wide_tensor(
-        a.data_ptr(), b.data_ptr(), d.data_ptr(), lin.data_ptr(), tw.data_ptr(),
-        consts.data_ptr(), B, size_a, size_b, conv_size, dnum, lin_size, kr, ka, offset, P,
-        module.log_n, lay.smem, _lib.ptr(ws), lay.chunk, grid, _lib.stream())
-    _lib.check(err, "poulpy_wide_tensor")
-    LAUNCHES["wide_tensor"] += 1
-    return d, lin
+    sizes = (B, size_a, size_b, conv_size, dnum, lin_size, kr, ka, offset, P, module.log_n)
+
+    def launch(timed: bool = False):
+        # the closure holds every tensor whose pointer it passes
+        args = (a.data_ptr(), b.data_ptr(), d.data_ptr(), lin.data_ptr())
+        if lay.kind == "lazy":
+            scratch = tensor_lazy_scratch(lay, size_a, size_b, conv_size, P, B, n, a.device)
+            stamps = _stamps(timed, B if lay.pairs == 3 else 3 * B, a.device, TENSOR_STAGES)
+            err = _lib.library().poulpy_wide_tensor_lazy(
+                *args, _lib.ptr(scratch), shoup_tables(module.tables).data_ptr(),
+                consts.data_ptr(), *sizes, lay.pairs, lay.chunk, lay.smem, _lib.ptr(stamps),
+                _lib.stream())
+        else:
+            if timed and lay.kind == "global":
+                raise ValueError("the stage clock runs the shared layout only")
+            ws, grid = launch_workspace(lay, B * 3, n, a.device)
+            stamps = _stamps(timed, 3 * B, a.device, TENSOR_STAGES)
+            err = _lib.library().poulpy_wide_tensor(
+                *args, tw.data_ptr(), consts.data_ptr(), *sizes, lay.smem, _lib.ptr(ws),
+                lay.chunk, grid, _lib.ptr(stamps), _lib.stream())
+        _lib.check(err, "poulpy_wide_tensor")
+        return stamps
+
+    return (d, lin), launch
+
+
+def tensor_wide_stage_cycles(module: Module, *args, design: str = "lazy"):
+    """((d, lin), stamps) of one launch of the stage clock's instance on
+    `fused_tensor_product_wide`'s arguments, as `fused.tensor_stage_cycles`.
+    For measurement only: no path calls it, and it counts no launch."""
+    out, launch = _tensor_wide_launch(module, *args, design=design)
+    return out, launch(timed=True)

@@ -77,101 +77,6 @@ using AnyExit = ExitShape<0, 0, 0, 0, 0, 0>;
 
 constexpr int EXIT_THREADS = 256;
 
-// The Garner constants of a basis (backends/ntt.py kernel_tables), in shared
-// memory.
-struct ExitPrimes {
-  uint32_t p[MAX_PRIMES], qinv[MAX_PRIMES], ginv[MAX_PRIMES], half[MAX_PRIMES];
-  uint32_t pprod[MAX_PRIMES][MAX_PRIMES];
-  uint64_t weight[MAX_PRIMES], mod;
-};
-
-// Every thread of the block fills `k`, then a barrier.
-__device__ __forceinline__ void load_exit_primes(ExitPrimes& k, const int64_t* __restrict__ consts,
-                                                 int P) {
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const int64_t* c = consts + i * CONSTS_PER_PRIME;
-    k.p[i] = (uint32_t)c[C_P], k.qinv[i] = (uint32_t)c[C_QINV];
-    k.ginv[i] = (uint32_t)c[C_GINV], k.half[i] = (uint32_t)c[C_HALF];
-    k.weight[i] = (uint64_t)c[C_WEIGHT];
-  }
-  for (int i = threadIdx.x; i < P * P; i += blockDim.x)
-    k.pprod[i / P][i % P] = (uint32_t)consts[P * CONSTS_PER_PRIME + i];
-  if (threadIdx.x == 0) k.mod = (uint64_t)consts[C_MOD];
-  __syncthreads();
-}
-
-// modarith.cuh garner on the constants of `k`: the centred lift of residues
-// r[0..P) (PT > 0: P = PT at compile time; 0: P ≤ MAX_PRIMES at run time,
-// the loops unrolled over MAX_PRIMES with a guard, so r and the digits stay in
-// registers either way).
-template <int PT>
-__device__ __forceinline__ int64_t exit_lift(const uint32_t (&r)[PT ? PT : MAX_PRIMES], int P_rt,
-                                             const ExitPrimes& k) {
-  constexpr int PM = PT ? PT : MAX_PRIMES;
-  const int P = PT ? PT : P_rt;
-  uint32_t d[PM];
-  uint64_t v = 0;
-#pragma unroll
-  for (int i = 0; i < PM; ++i) {
-    if (i >= P) break;
-    const uint32_t p = k.p[i], qinv = k.qinv[i];
-    uint32_t x = r[i];
-#pragma unroll
-    for (int j = 0; j < i; ++j) x = sub_mod(x, mont_mul(d[j], k.pprod[i][j], p, qinv), p);
-    if (i > 0) x = mont_mul(x, k.ginv[i], p, qinv);
-    d[i] = x;
-    v += (uint64_t)x * k.weight[i];
-  }
-  bool gt = false, eq = true;
-#pragma unroll
-  for (int i = PM - 1; i >= 0; --i) {
-    if (i >= P) continue;
-    gt = gt || (eq && d[i] > k.half[i]);
-    eq = eq && d[i] == k.half[i];
-  }
-  return (int64_t)(gt ? v - k.mod : v);
-}
-
-// modarith.cuh normalize_limbs at compile-time size and base.
-template <int SIZE, int KR>
-__device__ __forceinline__ void normalize_limbs_t(const int64_t (&a)[SIZE], int64_t (&out)[SIZE]) {
-  if constexpr (SIZE == 1) {
-    out[0] = get_digit(KR, get_digit(KR, a[0]));
-  } else {
-    int64_t d = get_digit(KR, a[SIZE - 1]);
-    int64_t c = get_carry(KR, a[SIZE - 1], d);
-    out[SIZE - 1] = d;
-#pragma unroll
-    for (int j = SIZE - 2; j > 0; --j) {
-      d = get_digit(KR, a[j]);
-      const int64_t carry = get_carry(KR, a[j], d);
-      const int64_t dpc = wadd(d, c);
-      const int64_t x1 = get_digit(KR, dpc);
-      out[j] = x1;
-      c = wadd(carry, get_carry(KR, dpc, x1));
-    }
-    out[0] = get_digit(KR, wadd(get_digit(KR, a[0]), c));
-  }
-}
-
-// modarith.cuh normalize_full at compile-time sizes and bases.
-template <int A, int RES, int KR, int KA>
-__device__ __forceinline__ void normalize_full_t(const int64_t (&a)[A], int64_t (&out)[RES]) {
-  if constexpr (KR == KA && RES == A) {
-    normalize_limbs_t<RES, KR>(a, out);
-  } else {
-    int64_t acc[RES];
-#pragma unroll
-    for (int i = 0; i < RES; ++i) {
-      int64_t s = 0;
-#pragma unroll
-      for (int j = 0; j < A; ++j) s = wadd(s, window(a[j], (i + 1) * KR - (j + 1) * KA, KR));
-      acc[i] = s;
-    }
-    normalize_limbs_t<RES, KR>(acc, out);
-  }
-}
-
 template <class S>
 __global__ void __launch_bounds__(EXIT_THREADS) garner_exit_tile_kernel(
     const int32_t* __restrict__ x, const int64_t* __restrict__ small, int64_t* __restrict__ out,
@@ -206,7 +111,7 @@ __global__ void __launch_bounds__(EXIT_THREADS) garner_exit_tile_kernel(
     }
     int64_t res[V][S::RES];
 #pragma unroll
-    for (int v = 0; v < V; ++v) normalize_full_t<S::PSIZE, S::RES, S::KR, S::KA>(big[v], res[v]);
+    for (int v = 0; v < V; ++v) normalize_full_t<S::PSIZE, S::RES>(big[v], res[v], S::KR, S::KA);
 #pragma unroll
     for (int i = 0; i < S::RES; ++i) {
       longlong2* op = (longlong2*)(out + (((size_t)bc * S::RES + i) << logn) + coef);

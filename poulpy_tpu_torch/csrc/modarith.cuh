@@ -496,8 +496,176 @@ __device__ __forceinline__ void lift_add_normalize_wide(const uint32_t* ys, int 
   for (int i = 0; i < res_size; ++i) out[(int64_t)i * n] = res[i];
 }
 
+// ---- the lift at compile-time shapes (garner_exit.cu's tile design, tensor.cuh's
+// lazy design): the Garner constants in shared memory, the limb arrays sized
+// at compile time so that they stay in registers ----
+
+// The Garner constants of a basis (backends/ntt.py kernel_tables), in shared
+// memory; weight_hi / mod_hi are the 128-bit lift's high words, ninv the
+// inverse NTT's N^{-1} (Montgomery).
+struct ExitPrimes {
+  uint32_t p[MAX_PRIMES], qinv[MAX_PRIMES], ginv[MAX_PRIMES], half[MAX_PRIMES];
+  uint32_t ninv[MAX_PRIMES];
+  uint32_t pprod[MAX_PRIMES][MAX_PRIMES];
+  uint64_t weight[MAX_PRIMES], weight_hi[MAX_PRIMES], mod, mod_hi;
+};
+
+// Every thread of the block fills `k`, then a barrier.
+__device__ __forceinline__ void load_exit_primes(ExitPrimes& k, const int64_t* __restrict__ consts,
+                                                 int P) {
+  for (int i = threadIdx.x; i < P; i += blockDim.x) {
+    const int64_t* c = consts + i * CONSTS_PER_PRIME;
+    k.p[i] = (uint32_t)c[C_P], k.qinv[i] = (uint32_t)c[C_QINV];
+    k.ginv[i] = (uint32_t)c[C_GINV], k.half[i] = (uint32_t)c[C_HALF];
+    k.ninv[i] = (uint32_t)c[C_NINV];
+    k.weight[i] = (uint64_t)c[C_WEIGHT], k.weight_hi[i] = (uint64_t)c[C_WEIGHT_HI];
+  }
+  for (int i = threadIdx.x; i < P * P; i += blockDim.x)
+    k.pprod[i / P][i % P] = (uint32_t)consts[P * CONSTS_PER_PRIME + i];
+  if (threadIdx.x == 0) k.mod = (uint64_t)consts[C_MOD], k.mod_hi = (uint64_t)consts[C_MOD_HI];
+  __syncthreads();
+}
+
+// garner_digits and garner_above_half on the constants of `k`: the digits
+// d[0..P) of residues r[0..P), and whether the value is centred (PT > 0: P =
+// PT at compile time; 0: P ≤ MAX_PRIMES at run time, the loops unrolled over
+// MAX_PRIMES with a guard, so r and the digits stay in registers either way).
+template <int PT>
+__device__ __forceinline__ bool exit_digits(const uint32_t (&r)[PT ? PT : MAX_PRIMES], int P_rt,
+                                            const ExitPrimes& k,
+                                            uint32_t (&d)[PT ? PT : MAX_PRIMES]) {
+  constexpr int PM = PT ? PT : MAX_PRIMES;
+  const int P = PT ? PT : P_rt;
+#pragma unroll
+  for (int i = 0; i < PM; ++i) {
+    if (i >= P) break;
+    const uint32_t p = k.p[i], qinv = k.qinv[i];
+    uint32_t x = r[i];
+#pragma unroll
+    for (int j = 0; j < i; ++j) x = sub_mod(x, mont_mul(d[j], k.pprod[i][j], p, qinv), p);
+    if (i > 0) x = mont_mul(x, k.ginv[i], p, qinv);
+    d[i] = x;
+  }
+  bool gt = false, eq = true;
+#pragma unroll
+  for (int i = PM - 1; i >= 0; --i) {
+    if (i >= P) continue;
+    gt = gt || (eq && d[i] > k.half[i]);
+    eq = eq && d[i] == k.half[i];
+  }
+  return gt;
+}
+
+// modarith.cuh garner on the constants of `k`: the centred lift of residues
+// r[0..P) to wrapping int64.
+template <int PT>
+__device__ __forceinline__ int64_t exit_lift(const uint32_t (&r)[PT ? PT : MAX_PRIMES], int P_rt,
+                                             const ExitPrimes& k) {
+  constexpr int PM = PT ? PT : MAX_PRIMES;
+  const int P = PT ? PT : P_rt;
+  uint32_t d[PM];
+  const bool above = exit_digits<PT>(r, P_rt, k, d);
+  uint64_t v = 0;
+#pragma unroll
+  for (int i = 0; i < PM; ++i) {
+    if (i >= P) break;
+    v += (uint64_t)d[i] * k.weight[i];
+  }
+  return (int64_t)(above ? v - k.mod : v);
+}
+
+// modarith.cuh garner128 on the constants of `k`: the same lift into a
+// wrapping 128-bit value.
+template <int PT>
+__device__ __forceinline__ __int128 exit_lift_wide(const uint32_t (&r)[PT ? PT : MAX_PRIMES],
+                                                   int P_rt, const ExitPrimes& k) {
+  constexpr int PM = PT ? PT : MAX_PRIMES;
+  const int P = PT ? PT : P_rt;
+  uint32_t d[PM];
+  const bool above = exit_digits<PT>(r, P_rt, k, d);
+  unsigned __int128 v = 0;
+#pragma unroll
+  for (int i = 0; i < PM; ++i) {
+    if (i >= P) break;
+    v += (unsigned __int128)d[i] * (((unsigned __int128)k.weight_hi[i] << 64) | k.weight[i]);
+  }
+  if (above) v -= ((unsigned __int128)k.mod_hi << 64) | k.mod;
+  return (__int128)v;
+}
+
+// normalize_limbs at a compile-time size.
+template <int SIZE>
+__device__ __forceinline__ void normalize_limbs_t(const int64_t (&a)[SIZE], int64_t (&out)[SIZE],
+                                                  int kr) {
+  if constexpr (SIZE == 1) {
+    out[0] = get_digit(kr, get_digit(kr, a[0]));
+  } else {
+    int64_t d = get_digit(kr, a[SIZE - 1]);
+    int64_t c = get_carry(kr, a[SIZE - 1], d);
+    out[SIZE - 1] = d;
+#pragma unroll
+    for (int j = SIZE - 2; j > 0; --j) {
+      d = get_digit(kr, a[j]);
+      const int64_t carry = get_carry(kr, a[j], d);
+      const int64_t dpc = wadd(d, c);
+      const int64_t x1 = get_digit(kr, dpc);
+      out[j] = x1;
+      c = wadd(carry, get_carry(kr, dpc, x1));
+    }
+    out[0] = get_digit(kr, wadd(get_digit(kr, a[0]), c));
+  }
+}
+
+// normalize_full at compile-time sizes.
+template <int A, int RES>
+__device__ __forceinline__ void normalize_full_t(const int64_t (&a)[A], int64_t (&out)[RES],
+                                                 int kr, int ka) {
+  if constexpr (RES == A) {
+    if (kr == ka) {
+      normalize_limbs_t<RES>(a, out, kr);
+      return;
+    }
+  }
+  int64_t acc[RES];
+#pragma unroll
+  for (int i = 0; i < RES; ++i) {
+    int64_t s = 0;
+#pragma unroll
+    for (int j = 0; j < A; ++j) s = wadd(s, window(a[j], (i + 1) * kr - (j + 1) * ka, kr));
+    acc[i] = s;
+  }
+  normalize_limbs_t<RES>(acc, out, kr);
+}
+
+// normalize_full_wide at compile-time sizes.
+template <int A, int RES>
+__device__ __forceinline__ void normalize_full_wide_t(const __int128 (&a)[A], int64_t (&out)[RES],
+                                                      int kr, int ka, int offset) {
+  const uint64_t mask = (1ull << kr) - 1;
+  int64_t acc[RES];
+#pragma unroll
+  for (int i = 0; i < RES; ++i) {
+    int64_t s = 0;
+#pragma unroll
+    for (int j = 0; j < A; ++j) {
+      const int t = (i + 1) * kr - ((j + 1) * ka - offset);
+      if (t >= kr) continue;
+      uint64_t piece;
+      if (t > 0) {
+        piece = ((uint64_t)a[j] & ((1ull << (kr - t)) - 1)) << t;
+      } else {
+        const int sh = -t;
+        piece = (uint64_t)(sh >= 128 ? a[j] >> 127 : a[j] >> sh) & mask;
+      }
+      s = wadd(s, (int64_t)piece);
+    }
+    acc[i] = s;
+  }
+  normalize_limbs_t<RES>(acc, out, kr);
+}
+
 // ---- the stage clock of the TIMED instances (fused_mxu.cu, fused_product.cu,
-// br_block_step.cu) ----
+// br_block_step.cu, tensor_product.cu, wide_tensor.cu) ----
 
 // Thread 0 adds the SM cycles since its last mark to the stage that a
 // barrier has just closed; each block writes its NST sums to
@@ -525,6 +693,11 @@ struct StageClock {
 // both designs: limbs to residues, forward NTT, VMP (with the block step's
 // x-power products), inverse NTT, exit (N^{-1}, Garner, add, normalize).
 enum { BF_ENTRY, BF_FWD, BF_VMP, BF_INV, BF_EXIT, BF_NSTAGES };
+
+// The stages of the rank-1 tensor kernels (tensor_product.cu, wide_tensor.cu),
+// both designs: limbs to residues and the forward NTT, the limb convolution,
+// the inverse NTT, the lift (N^{-1}, Garner, normalize).
+enum { TS_ENTRY_FWD, TS_CONV, TS_INV, TS_LIFT, TS_NSTAGES };
 
 // ---- the lazy design of the butterfly kernels (fused_product.cu,
 // br_block_step.cu) ----

@@ -20,9 +20,22 @@
 // lift of 3·conv_size·N values.  As in wide_product.cu, the TPU kernel's i32
 // workarounds are gone: any int64 limb enters through a signed 64-bit %, the
 // lift and the windows use a native __int128.
-// Design: all three pairs of one ciphertext in one block would hold 8 input
-// rows and 3·conv_size·P = 45 output rows at the mul shape (N 2048, P 5), about
-// 434 KB of shared memory.  So a block takes one (ciphertext, pair): the input
+// Two designs share the entry points' arguments:
+//
+// The lazy design (tensor.cuh; 256 ≤ N ≤ 2048 where one prime's rows of a
+// task fit, backends/fused.py tensor_lazy_layout).  At the mul shape (N
+// 2048, P 5, 2 + 2 limbs, conv 3) a task is a whole ciphertext: its 8
+// operand rows per prime are transformed once and the three pairs' 9 conv
+// rows written in place over them, 9 rows per prime, so 3 primes at once
+// (221,184 B) in two passes, the first pass's rows in a scratch slot until
+// the 128-bit lift.  WideTensorShape (the mul's shape) unrolls the
+// convolution and keeps the lift's __int128 values and the windows in
+// registers; any other shape takes the runtime-shaped instance.
+//
+// The parent design (wide_tensor_kernel; N ≥ 4096, and the stage clock's
+// reference): all three pairs of one ciphertext in one block would hold 8
+// input rows and 3·conv_size·P = 45 output rows at the mul shape, about 434
+// KB of shared memory.  So a block takes one (ciphertext, pair): the input
 // columns that pair reads (both for a0·b1 + a1·b0, one otherwise) NTT'd per
 // prime, then conv_size rows per prime kept for the lift: 4·N·(2·size_a +
 // 2·size_b + P·conv_size) bytes at most, 188,416 at the mul shape.  The three
@@ -33,7 +46,7 @@
 // pair's rows do not fit (376,832 B at the CKKS-wide mul at N 4096), the
 // STAGED instance keeps them in a global workspace and passes each transform
 // through shared memory srows rows at a time (modarith.cuh, global layout).
-#include "modarith.cuh"
+#include "tensor.cuh"
 
 namespace {
 
@@ -41,16 +54,18 @@ using namespace poulpy;
 
 constexpr int THREADS = 512;
 
-// STAGED: the global layout (modarith.cuh), the block's rows in its
-// workspace slot.
-template <bool STAGED>
+// The parent design.  STAGED: the global layout (modarith.cuh), the block's
+// rows in its workspace slot.  TIMED: the stage clock (shared layout only),
+// stamps [tasks][TS_NSTAGES].
+template <bool STAGED, bool TIMED = false>
 __global__ void __launch_bounds__(THREADS, 1) wide_tensor_kernel(
     const int64_t* __restrict__ a, const int64_t* __restrict__ b, int64_t* __restrict__ d,
     int64_t* __restrict__ lin, const int32_t* __restrict__ tw,
     const int64_t* __restrict__ consts, int size_a, int size_b, int conv_size, int dnum,
     int lin_size, int kr, int ka, int offset, int P, int logn, uint32_t* __restrict__ ws,
-    int srows, int tasks) {
+    int srows, int tasks, long long* __restrict__ stamps) {
   extern __shared__ uint32_t smem[];
+  StageClock<TIMED, TS_NSTAGES> clk;
   const int n = 1 << logn;
   const int in_rows = 2 * (size_a + size_b);
   for_each_task<STAGED>(tasks, ws, (size_t)(in_rows + P * conv_size) * n,
@@ -79,16 +94,21 @@ __global__ void __launch_bounds__(THREADS, 1) wide_tensor_kernel(
               load_rows_mod_p(buf + ((size_t)ea << logn), bc, size_b, size_b, r0 + ea - na,
                               nr - ea, logn, p);
           },
-          [&](uint32_t* buf, int nr) { ntt_fwd_rows(buf, nr, logn, tw + (size_t)pi * n, p, qinv); });
+          [&](uint32_t* buf, int nr) {
+            ntt_fwd_rows(buf, nr, logn, tw + (size_t)pi * n, p, qinv);
+            clk.mark(TS_ENTRY_FWD);
+          });
       transform_rows<STAGED>(
           ys + (size_t)pi * conv_size * n, conv_size, smem, srows, logn,
           [&](uint32_t* buf, int r0, int nr) {
             for (int coef = threadIdx.x; coef < n; coef += blockDim.x)
               pair_conv<false>(buf, xa, xb, pair, size_a, size_b, r0, r0 + nr, logn, coef, p);
             __syncthreads();
+            clk.mark(TS_CONV);
           },
           [&](uint32_t* buf, int nr) {
             ntt_inv_rows(buf, nr, logn, tw + (size_t)(P + pi) * n, p, qinv);
+            clk.mark(TS_INV);
           });
     }
 
@@ -102,8 +122,18 @@ __global__ void __launch_bounds__(THREADS, 1) wide_tensor_kernel(
                                 offset, consts);
       }
     }
+    if (TIMED) {
+      __syncthreads();
+      clk.mark(TS_LIFT);
+    }
   });
+  clk.store(stamps);
 }
+
+// The CKKS-wide mul's shape (log N, P, size_a, size_b, conv, dnum, lin_size;
+// all three pairs per task or one; base 2^52 in and out; backends/fused.py
+// TENSOR_SHAPES); any other shape takes TsRuntime.
+using WideTensorShape = TsShape<11, 5, 2, 2, 3, 2, 3, 0, 52, 52>;
 
 }  // namespace
 
@@ -112,20 +142,47 @@ __global__ void __launch_bounds__(THREADS, 1) wide_tensor_kernel(
 // layout's shared memory (backends/wide.py tensor_wide_layout).  ws: null for
 // the shared layout (a block per ciphertext and pair), else the global
 // layout's workspace of `grid` slots of 2·(size_a + size_b) + P·conv_size
-// rows of N words, srows rows staged at a time.  Returns the cudaError_t of
-// the launch.
+// rows of N words, srows rows staged at a time.  stamps: null, or [B·3][4]
+// int64 for the stage clock (shared layout only).  The parent design.
+// Returns the cudaError_t of the launch.
 extern "C" int poulpy_wide_tensor(const void* a, const void* b, void* d, void* lin,
                                   const void* tw, const void* consts, int B, int size_a,
                                   int size_b, int conv_size, int dnum, int lin_size, int kr,
                                   int ka, int offset, int P, int logn, int smem, void* ws,
-                                  int srows, int grid, void* stream) {
+                                  int srows, int grid, void* stamps, void* stream) {
   const bool staged = ws != nullptr;
-  const auto kernel = staged ? wide_tensor_kernel<true> : wide_tensor_kernel<false>;
+  if (staged && stamps != nullptr) return (int)cudaErrorInvalidValue;
+  const auto kernel = stamps != nullptr ? wide_tensor_kernel<false, true>
+                      : staged          ? wide_tensor_kernel<true>
+                                        : wide_tensor_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<(unsigned)(staged ? grid : B * 3), THREADS, (size_t)smem, (cudaStream_t)stream>>>(
       (const int64_t*)a, (const int64_t*)b, (int64_t*)d, (int64_t*)lin, (const int32_t*)tw,
       (const int64_t*)consts, size_a, size_b, conv_size, dnum, lin_size, kr, ka, offset, P, logn,
-      (uint32_t*)ws, srows, B * 3);
+      (uint32_t*)ws, srows, B * 3, (long long*)stamps);
   return (int)cudaGetLastError();
+}
+
+// The lazy design (tensor.cuh): the arguments of poulpy_wide_tensor without
+// the layouts'; tw: the Shoup twiddles [2][P][N] uint2 (backends/ntt.py
+// shoup_tables); scratch: [slots][P][pairs·conv_size][N] 32-bit words for the
+// tasks whose primes run in passes (the first `slots` tasks), or null; pairs
+// (1 or 3), srows (shared rows) and smem from backends/fused.py
+// tensor_lazy_layout.  stamps: null, or [tasks][4] int64 for the stage
+// clock.  Returns the cudaError_t of the launch.
+extern "C" int poulpy_wide_tensor_lazy(const void* a, const void* b, void* d, void* lin,
+                                       void* scratch, const void* tw, const void* consts, int B,
+                                       int size_a, int size_b, int conv_size, int dnum,
+                                       int lin_size, int kr, int ka, int offset, int P, int logn,
+                                       int pairs, int srows, int smem, void* stamps,
+                                       void* stream) {
+  const TensorArgs g{(const int64_t*)a, (const int64_t*)b, (int64_t*)d, (int64_t*)lin,
+                     (const uint2*)tw, (const int64_t*)consts, (uint32_t*)scratch,
+                     (long long*)stamps, B, size_a, size_b, conv_size, dnum, lin_size, kr, ka,
+                     offset, P, logn, pairs, srows};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (is_tensor_shape<WideTensorShape>(g))
+    return launch_lazy_tensor<WideTensorShape, true>(g, smem, st);
+  return launch_lazy_tensor<TsRuntime, true>(g, smem, st);
 }

@@ -77,6 +77,8 @@ SOURCES = {
                 "poulpy_mxu_inverse_wg"),
     "vmp": ("poulpy_vmp", "poulpy_vmp_tile"),
     "garner_exit": ("poulpy_garner_exit", "poulpy_garner_exit_tile"),
+    "tensor_product": ("poulpy_tensor_product", "poulpy_tensor_product_lazy"),
+    "wide_tensor": ("poulpy_wide_tensor", "poulpy_wide_tensor_lazy"),
 }
 
 
@@ -398,3 +400,109 @@ def test_emulated_garner_exit_matches_plain(emulated, n, nprimes, prime_bits, ba
     out, launch = tfused._exit_launch(m, x, psize, res_size, kr, ka, small, design)
     launch()
     assert torch.equal(out, tfused.garner_exit_ref(m, x, psize, res_size, kr, ka, small))
+
+
+# --------------------------------------------------------------------------
+# The rank-1 tensor kernels (tensor_product.cu, wide_tensor.cu), both designs
+# --------------------------------------------------------------------------
+
+def _tensor_operands(rng, batch, size_a, size_b, n, lim):
+    """Both operands [batch, 2, size, N], the first row of a starting with
+    INT64_MIN, INT64_MAX and other words far past any prime, and b's last row
+    ending with them."""
+    a = torch.from_numpy(rng.integers(-lim, lim, size=(batch, 2, size_a, n)))
+    b = torch.from_numpy(rng.integers(-lim, lim, size=(batch, 2, size_b, n)))
+    a[0, 0, 0, :len(INT64_EDGES)] = torch.tensor(INT64_EDGES)
+    b[-1, 1, -1, -len(INT64_EDGES):] = torch.tensor(INT64_EDGES)
+    return a, b
+
+
+@pytest.mark.parametrize("n,nprimes,prime_bits,batch,size_a,size_b,dnum,kr,ka,design,pairs", [
+    (2048, 2, 28, 2, 6, 6, 6, 17, 17, "lazy", 1),     # the relinearize path's: TensorShape
+    (512, 2, 28, 2, 6, 6, 6, 17, 17, "lazy", 3),      # all three pairs, two primes in one pass
+    (256, 5, 30, 2, 3, 5, 4, 13, 17, "lazy", 3),      # P 5, other bases, size_a ≠ size_b
+    (256, 8, 28, 2, 8, 8, 6, 17, 17, "lazy", 3),      # conv 15, P 8: primes in passes of 5 + 3
+    (512, 1, 30, 2, 4, 2, 3, 15, 17, "lazy", 3),      # P 1
+    (256, 2, 28, 2, 5, 4, 5, 17, 17, "parent", 0),
+])
+def test_emulated_tensor_product_matches_plain(emulated, n, nprimes, prime_bits, batch, size_a,
+                                               size_b, dnum, kr, ka, design, pairs):
+    m = t_get_module(n, nprimes, prime_bits, "cpu")
+    a, b = _tensor_operands(np.random.default_rng(96), batch, size_a, size_b, n, 2**40)
+    conv = size_a + size_b - 1
+    lay = tfused.tensor_design_layout(size_a, size_b, conv, nprimes, n, design)
+    assert (lay.kind, lay.pairs) == ("lazy" if design == "lazy" else "shared", pairs)
+    (d, lin), launch = tfused._tensor_launch(m, a, b, conv, dnum, kr, ka, design=design)
+    launch()
+    want = tfused.fused_tensor_product_ref(m, a, b, conv, dnum, kr, ka)
+    assert torch.equal(d, want[0]) and torch.equal(lin, want[1])
+
+
+@pytest.mark.parametrize("n,nprimes,size_a,size_b,pairs", [
+    (2048, 2, 6, 6, 1),      # the path's shape, a pair per task, the cross pair in two passes
+    (2048, 3, 6, 6, 1),      # every pair in passes (the cross pair in three)
+    (512, 5, 2, 2, 1),
+])
+def test_emulated_tensor_product_pair_tasks(emulated, n, nprimes, size_a, size_b, pairs):
+    """The lazy design with a pair per task (forced where all three fit)."""
+    m = t_get_module(n, nprimes, 28, "cpu")
+    a, b = _tensor_operands(np.random.default_rng(97), 2, size_a, size_b, n, 2**62)
+    conv = size_a + size_b - 1
+    (d, lin), launch = tfused._tensor_launch(m, a, b, conv, 6, 17, 17, pairs=pairs)
+    launch()
+    want = tfused.fused_tensor_product_ref(m, a, b, conv, 6, 17, 17)
+    assert torch.equal(d, want[0]) and torch.equal(lin, want[1])
+
+
+def test_emulated_tensor_product_staged(emulated, monkeypatch):
+    """The parent design's global layout (shared memory cut so that its
+    workspace does not fit): the STAGED instance, 5 rows per pass, the
+    blocks walking the tasks."""
+    monkeypatch.setattr(tfused, "SMEM_LIMIT", 4 * 256 * 5)
+    m = t_get_module(256, 2, 28, "cpu")
+    a, b = _tensor_operands(np.random.default_rng(98), 3, 4, 3, 256, 2**40)
+    lay = tfused.tensor_design_layout(4, 3, 6, 2, 256)
+    assert (lay.kind, lay.chunk, lay.ws_rows) == ("global", 5, 14 + 2 * 6)
+    (d, lin), launch = tfused._tensor_launch(m, a, b, 6, 4, 17, 17)
+    launch()
+    want = tfused.fused_tensor_product_ref(m, a, b, 6, 4, 17, 17)
+    assert torch.equal(d, want[0]) and torch.equal(lin, want[1])
+
+
+@pytest.mark.parametrize("n,nprimes,batch,size_a,size_b,dnum,lin_size,kr,ka,offset,design", [
+    (2048, 5, 2, 2, 2, 2, 3, 52, 52, 13, "lazy"),      # the CKKS-wide mul's: WideTensorShape
+    (256, 5, 2, 2, 3, 3, 3, 52, 52, -9, "lazy"),       # runtime-shaped
+    (512, 3, 2, 3, 3, 2, 4, 44, 52, 13, "lazy"),
+    (256, 8, 2, 4, 4, 3, 5, 52, 52, 0, "lazy"),
+    (256, 5, 2, 2, 2, 2, 3, 52, 52, 13, "parent"),
+])
+def test_emulated_wide_tensor_matches_plain(emulated, n, nprimes, batch, size_a, size_b, dnum,
+                                            lin_size, kr, ka, offset, design):
+    from poulpy_tpu_torch.backends import wide as twide
+
+    m = t_get_module(n, nprimes, 28, "cpu")
+    a, b = _tensor_operands(np.random.default_rng(99), batch, size_a, size_b, n, 2**51)
+    conv = size_a + size_b - 1
+    (d, lin), launch = twide._tensor_wide_launch(m, a, b, conv, dnum, lin_size, kr, ka, offset,
+                                                 design=design)
+    launch()
+    want = twide.fused_tensor_product_wide_ref(m, a, b, conv, dnum, lin_size, kr, ka, offset)
+    assert torch.equal(d, want[0]) and torch.equal(lin, want[1])
+
+
+@pytest.mark.parametrize("design", ["lazy", "parent"])
+def test_emulated_tensor_stage_clocks(emulated, design):
+    """The TIMED instances of both kernels and both designs: the same output
+    as the plain version, a positive count per block and stage."""
+    from poulpy_tpu_torch.backends import wide as twide
+
+    m = t_get_module(256, 2, 28, "cpu")
+    a, b = _tensor_operands(np.random.default_rng(100), 2, 3, 3, 256, 2**20)
+    (d, lin), stamps = tfused.tensor_stage_cycles(m, a, b, 5, 3, 17, 17, design=design)
+    want = tfused.fused_tensor_product_ref(m, a, b, 5, 3, 17, 17)
+    assert torch.equal(d, want[0]) and torch.equal(lin, want[1])
+    assert stamps.shape[1] == len(tfused.TENSOR_STAGES) and bool((stamps > 0).all())
+    (d, lin), stamps = twide.tensor_wide_stage_cycles(m, a, b, 5, 2, 3, 52, 52, 13, design=design)
+    want = twide.fused_tensor_product_wide_ref(m, a, b, 5, 2, 3, 52, 52, 13)
+    assert torch.equal(d, want[0]) and torch.equal(lin, want[1])
+    assert stamps.shape[1] == len(tfused.TENSOR_STAGES) and bool((stamps > 0).all())

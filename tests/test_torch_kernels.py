@@ -475,8 +475,8 @@ def test_cuda_wide_keyswitch_and_product_match_cpu(cuda):
 def test_column_split_and_tensor_shared_memory():
     """The product kernels split output columns over blocks only where all
     of co does not fit (the CKKS keyswitch and relinearization: KK 6, co 2,
-    psize 6, P 2, N 2048); the tensor kernel's workspace at the relinearize
-    path's shape."""
+    psize 6, P 2, N 2048); the tensor kernel's parent workspace at the
+    relinearize path's shape, and its bounds."""
     assert tfused.product_layout(6, 2, 4, 2, 2048).cpb == 2      # the headline product
     assert tfused.product_layout(2, 2, 3, 2, 1024).cpb == 2      # the gate keyswitch
     assert tfused.fused_smem_bytes(6, 2 * 6, 2, 2048) == 245760 > tfused.SMEM_LIMIT
@@ -488,7 +488,11 @@ def test_column_split_and_tensor_shared_memory():
     assert (lay.kind, lay.cpb) == ("global", 2)
     assert tfused.tensor_smem_bytes(6, 6, 11, 2048) == 196608
     m = t_get_module(2048, 2, 28, "cpu")
-    assert tfused.tensor_fits(m, 6, 6, 11, 6) and not tfused.tensor_fits(m, 8, 8, 15, 6)
+    # past shared memory the tensor kernel takes its global layout: only its
+    # compile-time bounds (P ≤ 8, limbs ≤ 16) remain
+    assert tfused.tensor_fits(m, 6, 6, 11, 6) and tfused.tensor_fits(m, 8, 8, 15, 6)
+    assert tfused.tensor_design_layout(8, 8, 15, 2, 2048).kind == "global"
+    assert not tfused.tensor_fits(m, 9, 9, 17, 6)
     assert tfused.product_fits(m, 6, 6, 12, 11) and not tfused.product_fits(m, 6, 6, 12, 17)
 
 

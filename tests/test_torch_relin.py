@@ -123,6 +123,34 @@ def test_relinearize_routes_agree(name, monkeypatch):
     assert torch.equal(fused.data, unfused.data)
 
 
+def test_relinearize_takes_the_tensor_kernel_past_shared_memory(monkeypatch):
+    """At N 4096 with 6 + 6 limbs the tensor kernel's parent workspace
+    (393,216 B) passes shared memory and its global layout takes the shape,
+    so glwe_tensor_relinearize calls fused_tensor_product there, as the JAX
+    package calls its kernel (a random prepared key: the route is what is
+    checked); the result equals the unfused data flow's."""
+    tm = t_get_module(4096, 2, 28, "cpu")
+    rng = np.random.default_rng(63)
+    a, b = (tlay.GLWECiphertext(data=torch.from_numpy(rng.integers(-(2**16), 2**16,
+                                                                   size=(1, 2, 6, 4096))),
+                                base2k=17, k=102) for _ in range(2))
+    pmat = np.stack([rng.integers(0, p, size=(6, 1, 2, 6, 4096)) for p in tm.basis.primes],
+                    axis=-2)
+    key = tprep.GGLWEPrepared(pmat=torch.from_numpy(pmat.astype(np.int32)), base2k=17, k=102)
+    tsk = tprep.GLWETensorKeyPrepared(keys={(0, 0): key})
+    assert tfused.tensor_design_layout(6, 6, 11, 2, 4096).kind == "global"
+    assert tfused.tensor_fits(tm, 6, 6, 11, 6)
+    calls = []
+    fused = tops.fused_tensor_product
+    monkeypatch.setattr(tops, "fused_tensor_product",
+                        lambda *args, **kw: calls.append(1) or fused(*args, **kw))
+    have = tops.glwe_tensor_relinearize(tm, a, b, tsk)
+    assert calls == [1]
+    monkeypatch.setattr(tops, "tensor_fits", lambda *args: False)
+    assert torch.equal(have.data, tops.glwe_tensor_relinearize(tm, a, b, tsk).data)
+    assert calls == [1]
+
+
 def test_relinearize_decrypts_to_the_tensor_product():
     """decrypt(relin(a, b)) == d0 + d1·s + d2·s² on the torus, up to the
     tensor key's keyswitch noise (tests/test_core.py's check, on the port)."""
