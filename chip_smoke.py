@@ -50,8 +50,8 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
   1. device      card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build       nvcc build of the kernels of csrc/ (sm_90a), then what ptxas
                  reported for the Garner exit's instances, the MXU
-                 transforms' wg designs and both tensor kernels' instances
-                 (registers, stack frame, spills);
+                 transforms' wg designs, both tensor kernels' instances and
+                 both NTT designs' (registers, stack frame, spills);
   3. kernels     each CUDA kernel against its plain PyTorch version on the same
                  CUDA inputs at its path's shapes, tolerance 0, with its time,
                  the plain version's time and the bound (the least time the
@@ -63,11 +63,11 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  paths' shapes, batch 256; the VMP also at the non-wide
                  CKKS mul's shape and on the 30-bit basis of the "mxu"
                  keyswitch, batch 256; the NTT also at the non-wide CKKS
-                 mul's four transform shapes, batch 256); the butterfly
-                 product and block step and both tensor kernels (the lazy
-                 design, which the paths run) and the VMP (the tile design)
-                 also against their parent design, equal and timed in the
-                 same way;
+                 mul's four transform shapes, batch 256); the NTT, the
+                 butterfly product and block step and both tensor kernels
+                 (the lazy design, which the paths run) and the VMP (the
+                 tile design) also against their parent design, equal and
+                 timed in the same way;
   3′. kernels    the same for the MXU route's kernels, after the last path: at
                  the product path's shapes, the fused MXU product with the
                  body at the keyswitch path's, batch 256, and the block step
@@ -171,10 +171,12 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  beside phase 7's), then a profiled NAND.
 
 Only the five *_mxu paths may launch an MXU kernel.  After each path the
-NTT kernel's launches per (direction, primes, N, rows per prime) of that
-path (ntt_shapes); after 3″ the NTT timed at each of those shapes with its
+NTT kernel's launches per (direction, primes, N, rows per prime, prime
+bits) of that path (ntt_shapes); after 3″ the NTT at each of those shapes
+on that basis, both designs equal to the plain version and timed through
+the wrapper and, in a CUDA graph, on the device alone, each with its
 launches × (ms − bound) over all the paths (ntt_shape, and their sums per
-direction).  Then one line
+direction and design).  Then one line
 {"kernels": [...]} (launches summed over the paths' runs)
 and, last, {"ok": true, "device": {...}}.  Any failure exits non-zero
 before that line.  Without a CUDA device, or without the poulpy_tpu_torch
@@ -324,6 +326,29 @@ def cuda_ms(fn, reps: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of `fn()` over `reps` calls captured in one
+    CUDA graph and replayed between two CUDA events: the launches back to
+    back, without the host's time between them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -668,10 +693,21 @@ def phase_kernels(m, gm, wm) -> dict:
             bound((rot_a.numel() + rot_body.numel() + rb * 2 * 6 * N) * i64
                   + rkey.numel() * i32, fused_ops(rb, 6, 12, kp, N))),
     }
-    # the parent designs of the butterfly kernels (rows 3a, 3b, 3b′, 3c, 4),
-    # of the tensor kernels (rows 6, 8) and of the VMP (row 2), in the same call
+    # the parent designs of the NTT (row 1), of the butterfly kernels (rows
+    # 3a, 3b, 3b′, 3c, 4), of the tensor kernels (rows 6, 8) and of the VMP
+    # (row 2), in the same call
     product, step = fused._product_launch, fused._block_step_launch
+
+    def ntt_parent(fn, v):
+        return lambda: fn(t, v, design="parent")
+
     parents = {
+        "ntt_forward": ntt_parent(ntt.ntt_forward, x),
+        "ntt_inverse": ntt_parent(ntt.ntt_inverse, x),
+        "ntt_forward@ckks_conv": ntt_parent(ntt.ntt_forward, ck_ops),
+        "ntt_inverse@ckks_conv": ntt_parent(ntt.ntt_inverse, ck_terms),
+        "ntt_forward@ckks_keyswitch": ntt_parent(ntt.ntt_forward, ck_digits),
+        "ntt_inverse@ckks_keyswitch": ntt_parent(ntt.ntt_inverse, ck_sum),
         "tensor_product": parent_run(fused._tensor_launch, m, ra, rbb, 11, k.dnum, k.base2k,
                                      k.base2k),
         "wide_tensor": parent_run(wide._tensor_wide_launch, wm, ca, cb, 3, c.dnum, 3, c.base2k,
@@ -1060,9 +1096,9 @@ def phase_tensor_stages(cases: dict) -> None:
 
 def phase_ptxas() -> None:
     """What ptxas reported (`-Xptxas -v` in the build's nvcc.log) for the
-    Garner exit's instances, the MXU transforms' wg designs and the tensor
-    kernels' instances: registers, stack frame and spills per entry
-    function."""
+    Garner exit's instances, the MXU transforms' wg designs, the tensor
+    kernels' instances and both designs of the NTT: registers, stack frame
+    and spills per entry function."""
     import re
 
     from poulpy_tpu_torch.backends import _lib
@@ -1072,38 +1108,52 @@ def phase_ptxas() -> None:
                          r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used "
                          r"(\d+) registers", log)
     for name, stack, stores, loads, regs in entries:
-        if any(k in name for k in ("garner_exit", "mxu_forward_wg", "mxu_inverse_wg", "tensor")):
+        if any(k in name for k in ("garner_exit", "mxu_forward_wg", "mxu_inverse_wg", "tensor",
+                                   "ntt_kernel", "ntt_lazy")):
             emit(phase="ptxas", entry=name, registers=int(regs), stack_frame=int(stack),
                  spill_stores=int(stores), spill_loads=int(loads))
 
 
 def phase_ntt_shapes(tally: Counter) -> None:
     """The NTT kernel at each shape the paths launched it (`tally`: launches
-    per (direction, P, N, rows per prime), summed over the paths), on
-    residues of its own: its time (CUDA events, 5 launches), its bound, and
-    launches × (ms − bound), the loss that rule 2 of ROADMAP scores; then
-    the sums per direction."""
+    per (direction, P, N, rows per prime, prime bits), summed over the
+    paths), on residues of its own on that basis (get_module(N, P, bits)):
+    both designs equal to the plain version, tolerance 0, each one's time
+    (CUDA events, 5 launches through the wrapper, its host time included
+    where it exceeds the kernel's), launches × (ms − bound), the loss that
+    rule 2 of ROADMAP scores, and its device time (`graph_ms`, 20 launches
+    in a CUDA graph); then the sums per direction and design of both losses
+    (the device one with device_ms in place of ms)."""
     import torch
 
     from poulpy_tpu_torch.backends import ntt
     from poulpy_tpu_torch.hal.module import get_module
 
     gen = torch.Generator(device="cuda").manual_seed(11)
-    total = Counter()
-    for (direction, P, n, rows), launches in sorted(tally.items()):
-        t = get_module(n, P, 28, "cuda").tables
+    total, device_total = Counter(), Counter()
+    for (direction, P, n, rows, bits), launches in sorted(tally.items()):
+        t = get_module(n, P, bits, "cuda").tables
         primes = torch.tensor(t.basis.primes, device="cuda")[:, None]
         x = (torch.randint(0, 1 << 62, (rows, P, n), generator=gen, device="cuda") % primes).to(
             torch.int32)
         fn = getattr(ntt, direction)
-        ms = cuda_ms(lambda: fn(t, x), 5)
+        want = getattr(ntt, direction + "_ref")(t, x)
         bnd = bound(2 * x.numel() * 4, ntt_ops(rows * P, n, direction == "ntt_inverse"))
-        loss = launches * (ms - bnd["bound_ms"])
-        total[direction] += loss
-        emit(phase="ntt_shape", kernel=direction, nprimes=P, n=n, rows=rows, launches=launches,
-             ms=ms, bound_ms=bnd["bound_ms"], loss_ms=loss)
-        del x
-    emit(phase="ntt_shapes", path="all", loss_ms=dict(total))
+        designs = {}
+        for design in ntt.DESIGNS:
+            if not torch.equal(fn(t, x, design=design), want):
+                raise SystemExit(f"ntt_shape: the {design} {direction} at [{rows}, {P}, {n}] "
+                                 f"({bits}-bit primes) disagrees with its plain version")
+            ms = cuda_ms(lambda design=design: fn(t, x, design=design), 5)
+            loss = launches * (ms - bnd["bound_ms"])
+            total[f"{direction}/{design}"] += loss
+            device_ms = graph_ms(lambda design=design: fn(t, x, design=design), 20)
+            device_total[f"{direction}/{design}"] += launches * (device_ms - bnd["bound_ms"])
+            designs[design] = dict(ms=ms, loss_ms=loss, device_ms=device_ms)
+        emit(phase="ntt_shape", kernel=direction, nprimes=P, n=n, rows=rows, prime_bits=bits,
+             launches=launches, equal=True, tolerance=0, bound_ms=bnd["bound_ms"], **designs)
+        del x, want
+    emit(phase="ntt_shapes", path="all", loss_ms=dict(total), device_loss_ms=dict(device_total))
 
 
 def phase_kernels_large_n() -> None:
@@ -1471,7 +1521,8 @@ def profile_once(phase: str, fn, timed_ms: float) -> None:
         # for tensor.cuh's) against torch's own (a template kernel's name starts with
         # its return type: "void (anonymous namespace)::…", "void poulpy::…")
         csrc = [v for k, v in device.items()
-                if "(anonymous namespace)::" in k or k.startswith("void poulpy::")]
+                if k.startswith(("(anonymous namespace)::", "void (anonymous namespace)::",
+                                 "void poulpy::"))]
         if sum(c for _, c in csrc) >= launched:
             break
     busy_ms = sum(ms for ms, _ in device.values())

@@ -4,8 +4,9 @@ Each wrapper takes its kernel's plain PyTorch version for a tensor that lies
 on the CPU, and launches its kernel for a CUDA tensor (or raises): there is
 no fallback and no switch.  `LAUNCHES` counts kernel launches per wrapper,
 so that a run can show which kernels its path went through; `NTT_ROWS`
-counts the NTT kernel's launches per (direction, primes, N, rows per prime),
-so that a run can show at which shapes its path transforms.
+counts the NTT kernel's launches per (direction, primes, N, rows per prime,
+prime bits of the basis), so that a run can show at which shapes, and on
+which basis, its path transforms.
 """
 
 from collections import Counter

@@ -30,6 +30,7 @@ SMEM_LIMIT = 232448     # bytes of shared memory one block may use on sm_90
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "poulpy_ntt": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "poulpy_ntt_lazy": [_P] * 4 + [_I] * 7 + [_P],
     "poulpy_vmp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "poulpy_vmp_tile": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "poulpy_fused_product": [_P] * 7 + [_I] * 15 + [_P, _I, _I, _P, _P],

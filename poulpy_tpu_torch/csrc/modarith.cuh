@@ -17,11 +17,12 @@ constexpr uint32_t MASK30 = (1u << 30) - 1;
 
 // Layout of the per-prime constants (backends/ntt.py: kernel_tables).  The
 // garner weight and the modulus are 128-bit values split into their low and
-// high 64 bits (the 64-bit lift reads only the low halves).
+// high 64 bits (the 64-bit lift reads only the low halves); C_NINV_SHOUP
+// holds N^{-1} mod p in its low word and ⌊N^{-1}·2^32/p⌋ in its high word.
 constexpr int CONSTS_PER_PRIME = 10;
 enum {
   C_P = 0, C_QINV = 1, C_NINV = 2, C_GINV = 3, C_HALF = 4, C_WEIGHT = 5, C_MOD = 6,
-  C_WEIGHT_HI = 7, C_MOD_HI = 8
+  C_WEIGHT_HI = 7, C_MOD_HI = 8, C_NINV_SHOUP = 9
 };
 
 constexpr int MAX_PRIMES = 8;

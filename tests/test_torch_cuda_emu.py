@@ -1,7 +1,8 @@
 """The CUDA sources of the fused kernels (`csrc/fused_mxu.cu`,
 `csrc/fused_product.cu`, `csrc/br_block_step.cu`), of the MXU transforms
-(`csrc/mxu_ntt.cu`), of the VMP (`csrc/vmp.cu`) and of the Garner exit
-(`csrc/garner_exit.cu`), run on the CPU through an emulation of the CUDA
+(`csrc/mxu_ntt.cu`), of the VMP (`csrc/vmp.cu`), of the Garner exit
+(`csrc/garner_exit.cu`), of the tensor kernels and of the standalone NTT
+(`csrc/ntt.cu`), run on the CPU through an emulation of the CUDA
 execution model, against the plain versions, bit for bit.
 
 Each source is compiled with the host's g++ against `tests/cuda_emu/
@@ -19,7 +20,8 @@ the runtime-shaped instances at N 256 / 512, both transforms' wg designs
 at N 512 … 4096 (ragged tasks, 1 to 4 digit planes, limbs at INT64_MIN /
 INT64_MAX, both folds), the exit's specialised and runtime-shaped
 instances (P 1 / 5 / 8, psize 16, with and without the body), the TIMED
-instances, and the parent designs.  It
+instances, the NTT's lazy design at N 256 … 8192 (ragged blocks, residues
+0 and p − 1), and the parent designs.  It
 says nothing of speed, and the `cuda` tests of tests/test_torch_mxu_tiles.py,
 tests/test_torch_fused_tiles.py and tests/test_torch_transform_tiles.py
 remain the check on the card.
@@ -39,6 +41,7 @@ from poulpy_tpu_torch.backends import _lib
 from poulpy_tpu_torch.backends import fused as tfused
 from poulpy_tpu_torch.backends import fused_mxu as tfm
 from poulpy_tpu_torch.backends import mxu as tmxu
+from poulpy_tpu_torch.backends import ntt as tntt
 from poulpy_tpu_torch.backends import vmp as tvmp
 from poulpy_tpu_torch.hal.module import get_module as t_get_module
 
@@ -70,6 +73,7 @@ def _rewrite(src: str) -> str:
 
 # the emulated sources and their entry points
 SOURCES = {
+    "ntt": ("poulpy_ntt", "poulpy_ntt_lazy"),
     "fused_mxu": ("poulpy_fused_mxu_product", "poulpy_fused_mxu_tile"),
     "fused_product": ("poulpy_fused_product", "poulpy_fused_product_lazy"),
     "br_block_step": ("poulpy_br_block_step", "poulpy_br_block_step_lazy"),
@@ -506,3 +510,33 @@ def test_emulated_tensor_stage_clocks(emulated, design):
     want = twide.fused_tensor_product_wide_ref(m, a, b, 5, 2, 3, 52, 52, 13)
     assert torch.equal(d, want[0]) and torch.equal(lin, want[1])
     assert stamps.shape[1] == len(tfused.TENSOR_STAGES) and bool((stamps > 0).all())
+
+
+# --------------------------------------------------------------------------
+# The standalone NTT (ntt.cu, both designs)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,nprimes,prime_bits,rows", [
+    (256, 1, 30, 5),        # K 0: 8 rows per block, one ragged block, no barrier
+    (256, 5, 28, 2),        # 10 rows: a full block and a ragged one
+    (512, 5, 30, 13),       # 4 rows per block: 65 rows, the 17th block ragged
+    (1024, 1, 28, 3),       # 2 rows per block: a ragged second block
+    (2048, 2, 28, 4),       # the paths' N: a row per block
+    (2048, 1, 30, 1),
+    (4096, 1, 30, 1),       # K 4: two chunks per warp
+    (8192, 2, 28, 1),       # K 5: 32 points per thread, four chunks per warp
+])
+def test_emulated_ntt_matches_plain(emulated, n, nprimes, prime_bits, rows):
+    """Both directions of both designs against the plain version, tolerance
+    0, the first row at p − 1 and the last half of the last row at 0, and
+    inverse(forward(x)) == x."""
+    t = t_get_module(n, nprimes, prime_bits, "cpu").tables
+    x = _edge_residues(np.random.default_rng(101), t.basis.primes, (rows, nprimes, n))
+    x[-1, -1, n // 2:] = 0
+    assert tntt.lazy_layout(rows, nprimes, n).design == "lazy"
+    want_f, want_i = tntt.ntt_forward_ref(t, x), tntt.ntt_inverse_ref(t, x)
+    for design in tntt.DESIGNS:
+        f = tntt._launch(t, x, False, design)
+        assert torch.equal(f, want_f), design
+        assert torch.equal(tntt._launch(t, x, True, design), want_i), design
+        assert torch.equal(tntt._launch(t, f, True, design), x), design
