@@ -50,7 +50,8 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
   1. device      card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build       nvcc build of the kernels of csrc/ (sm_90a), then what ptxas
                  reported for the Garner exit's instances, the MXU
-                 transforms' wg designs, both tensor kernels' instances and
+                 transforms' wg designs, both tensor kernels' instances,
+                 both wide product designs' instances and
                  both NTT designs' (registers, stack frame, spills);
   3. kernels     each CUDA kernel against its plain PyTorch version on the same
                  CUDA inputs at its path's shapes, tolerance 0, with its time,
@@ -63,11 +64,13 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  paths' shapes, batch 256; the VMP also at the non-wide
                  CKKS mul's shape and on the 30-bit basis of the "mxu"
                  keyswitch, batch 256; the NTT also at the non-wide CKKS
-                 mul's four transform shapes, batch 256); the NTT, the
-                 butterfly product and block step and both tensor kernels
-                 (the lazy design, which the paths run) and the VMP (the
-                 tile design) also against their parent design, equal and
-                 timed in the same way;
+                 mul's four transform shapes, batch 256; the wide product
+                 also at a 30-bit wide keyswitch's shape, P 4, batch 256,
+                 its runtime-shaped instance); the NTT, the butterfly
+                 product and block step, both tensor kernels and the wide
+                 product (the lazy design, which the paths run) and the
+                 VMP (the tile design) also against their parent design,
+                 equal and timed in the same way;
   3′. kernels    the same for the MXU route's kernels, after the last path: at
                  the product path's shapes, the fused MXU product with the
                  body at the keyswitch path's, batch 256, and the block step
@@ -101,6 +104,9 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  the CKKS-wide mul's shapes, for the parent and the lazy
                  design (and the wide kernel's lazy design with a pair per
                  task): entry and forward NTT, convolution, inverse NTT,
+                 lift; then the wide product's (wide_product.cu) at the
+                 CKKS-wide mul's relinearization, for the parent and the
+                 lazy design: entry and forward NTT, VMP, inverse NTT,
                  lift;
   3″. kernels_large_n  each product kernel at a shape whose rows do not fit
                  in shared memory (N 8192 for bench.py's product, N 4096
@@ -543,6 +549,7 @@ def phase_kernels(m, gm, wm) -> dict:
     from poulpy_tpu_torch.hal.module import Module
 
     km = Module(KS_N, 2, 30, m.device)
+    wk = Module(KS_N, 4, 30, m.device)
 
     gen = torch.Generator(device=m.device).manual_seed(5)
 
@@ -583,6 +590,13 @@ def phase_kernels(m, gm, wm) -> dict:
     digits = ints(-(2**51), 2**51, (wb, 1, c.dnum, wn))
     lin = ints(-(2**51), 2**51, (wb, 2, 3, wn))
     tkey = residues(wm, (c.dnum, 1, 2, 3, wp, wn))
+    # a wide keyswitch on a 30-bit basis (P 4, base 2^44): the mask [ci 1, 2
+    # limbs] × [rows 3, ci 1, co 2, psize 3] with the 2-limb body in column
+    # 0, to 2 limbs; the wide product's runtime-shaped instance
+    wk_a = ints(-(2**43), 2**43, (wb, 1, 2, wn))
+    wk_body = torch.zeros((wb, 2, 2, wn), dtype=torch.int64, device=m.device)
+    wk_body[:, 0] = ints(-(2**43), 2**43, (wb, 2, wn))
+    wk_key = residues(wk, (3, 1, 2, 3, wk.nprimes, wn))
     # the relinearize path (ciphertexts of 6 limbs of 17 bits, tensor key k 95
     # dnum 6, psize 6): the tensor step on both ciphertexts, conv 11, then the
     # product of its 6 digits [ci 1, 6 rows] × [rows 6, ci 1, co 2, psize 6]
@@ -674,6 +688,12 @@ def phase_kernels(m, gm, wm) -> dict:
                                                      small=lin),
             bound((digits.numel() + lin.numel() + wb * 2 * 2 * wn) * i64 + tkey.numel() * i32,
                   fused_ops(wb, c.dnum, 6, wp, wn))),
+        "wide_product@keyswitch30": (
+            lambda: wide.fused_glwe_product_wide(wk, wk_a, wk_key, 2, 44, 44, small=wk_body),
+            lambda: wide.fused_glwe_product_wide_ref(wk, wk_a, wk_key, 2, 44, 44,
+                                                     small=wk_body),
+            bound((wk_a.numel() + wk_body.numel() + wb * 2 * 2 * wn) * i64
+                  + wk_key[:2].numel() * i32, fused_ops(wb, 2, 6, wk.nprimes, wn))),
         "tensor_product": (
             lambda: fused.fused_tensor_product(m, ra, rbb, 11, k.dnum, k.base2k, k.base2k),
             lambda: fused.fused_tensor_product_ref(m, ra, rbb, 11, k.dnum, k.base2k, k.base2k),
@@ -694,8 +714,8 @@ def phase_kernels(m, gm, wm) -> dict:
                   + rkey.numel() * i32, fused_ops(rb, 6, 12, kp, N))),
     }
     # the parent designs of the NTT (row 1), of the butterfly kernels (rows
-    # 3a, 3b, 3b′, 3c, 4), of the tensor kernels (rows 6, 8) and of the VMP
-    # (row 2), in the same call
+    # 3a, 3b, 3b′, 3c, 4), of the tensor kernels (rows 6, 8), of the wide
+    # product (row 7) and of the VMP (row 2), in the same call
     product, step = fused._product_launch, fused._block_step_launch
 
     def ntt_parent(fn, v):
@@ -712,6 +732,10 @@ def phase_kernels(m, gm, wm) -> dict:
                                      k.base2k),
         "wide_tensor": parent_run(wide._tensor_wide_launch, wm, ca, cb, 3, c.dnum, 3, c.base2k,
                                   c.base2k, WIDE_OFFSET),
+        "wide_product": parent_run(wide._wide_product_launch, wm, digits, tkey, 2, c.base2k,
+                                   c.base2k, lin),
+        "wide_product@keyswitch30": parent_run(wide._wide_product_launch, wk, wk_a, wk_key, 2,
+                                               44, 44, wk_body),
         "vmp": lambda: vmp.vmp_apply(m, a_dft, pmat, design="parent"),
         "vmp@ckks": lambda: vmp.vmp_apply(m, ck_dft, ck_pmat, design="parent"),
         "vmp@keyswitch": lambda: vmp.vmp_apply(km, ks_dft, ks_vpmat, design="parent"),
@@ -1061,35 +1085,67 @@ def tensor_cases(m, wm) -> dict:
     }
 
 
-def phase_tensor_stages(cases: dict) -> None:
-    """The tensor kernels' stage clocks, per design (and, for the lazy one,
-    per task variant): the kernel's time (CUDA events, 5 launches), then one
-    launch of its TIMED instance, whose output must equal the untimed one's
-    and the parent design's; per stage the SM cycles per block (mean over
-    blocks), its share, and that share of the time."""
+def wide_product_cases(wm) -> dict:
+    """The wide product at the CKKS-wide mul's relinearization (batch 256,
+    its 2 digits of 52 bits against the tensor key, co 2, psize 3, the 3
+    linear limbs of each column added, 2 limbs out), on inputs of its own:
+    name → (launch preparer, module, arguments, no task variants)."""
+    import torch
+
+    from poulpy_tpu_torch.backends import wide
+
+    gen = torch.Generator(device=wm.device).manual_seed(13)
+
+    def ints(lim, shape):
+        return torch.randint(-lim, lim, shape, generator=gen, device=wm.device, dtype=torch.int64)
+
+    c = CKKS_WIDE
+    primes = torch.tensor(wm.basis.primes, device=wm.device)[:, None]
+    key = (ints(1 << 62, (c.dnum, 1, 2, 3, c.nprimes, c.n)).abs() % primes).to(torch.int32)
+    return {"wide_product": (wide._wide_product_launch, wm,
+                             (ints(2**51, (CKKS_BATCH, 1, c.dnum, c.n)), key, 2, c.base2k,
+                              c.base2k, ints(2**51, (CKKS_BATCH, 2, 3, c.n))), (None,))}
+
+
+def phase_tensor_stages(cases: dict, stages: tuple | None = None,
+                        variant: str | None = "pairs") -> None:
+    """The stage clocks of the kernels with a lazy and a parent design (the
+    tensor kernels, whose launch preparer takes the lazy task's `variant`
+    keyword `pairs`; the wide product, `variant` None), per design and, for
+    the lazy one, per task variant: the kernel's time (CUDA events, 5 launches),
+    then one launch of its TIMED instance, whose output must equal the
+    untimed one's and the parent design's; per stage (`stages`, the tensor
+    kernels' by default) the SM cycles per block (mean over blocks), its
+    share, and that share of the time."""
     import torch
 
     from poulpy_tpu_torch.backends import fused
 
+    stages = stages or fused.TENSOR_STAGES
+
+    def flat(out):
+        return torch.cat([x.flatten() for x in out]) if isinstance(out, tuple) else out
+
     for name, (prepare, mod, args, variants) in cases.items():
         want = None
-        for design, pairs in [("parent", None)] + [("lazy", v) for v in variants]:
-            out, launch = prepare(mod, *args, design=design, pairs=pairs)
+        for design, v in [("parent", None)] + [("lazy", v) for v in variants]:
+            kw = {variant: v} if variant else {}
+            out, launch = prepare(mod, *args, design=design, **kw)
             ms = cuda_ms(launch, 5)
-            have = torch.cat([x.flatten() for x in out])
-            timed_out, launch_timed = prepare(mod, *args, design=design, pairs=pairs)
+            have = flat(out)
+            timed_out, launch_timed = prepare(mod, *args, design=design, **kw)
             stamps = launch_timed(timed=True)
             torch.cuda.synchronize()
-            timed = torch.cat([x.flatten() for x in timed_out])
+            timed = flat(timed_out)
             want = have if want is None else want
             if not (torch.equal(have, want) and torch.equal(timed, want)):
-                raise SystemExit(f"stages: the {design} {name} (pairs {pairs}) disagrees")
+                raise SystemExit(f"stages: the {design} {name} ({variant} {v}) disagrees")
             cycles = stamps.to(torch.float64).mean(0).tolist()
             total = sum(cycles)
-            emit(phase="stages", kernel=name, design=design, pairs=pairs, ms=ms,
+            emit(phase="stages", kernel=name, design=design, **kw, ms=ms,
                  blocks=stamps.shape[0], block_cycles=total,
                  stages={st: dict(cycles=c, share=c / total, ms=ms * c / total)
-                         for st, c in zip(fused.TENSOR_STAGES, cycles)})
+                         for st, c in zip(stages, cycles)})
             del out, have, timed_out, timed
         del want
 
@@ -1109,7 +1165,7 @@ def phase_ptxas() -> None:
                          r"(\d+) registers", log)
     for name, stack, stores, loads, regs in entries:
         if any(k in name for k in ("garner_exit", "mxu_forward_wg", "mxu_inverse_wg", "tensor",
-                                   "ntt_kernel", "ntt_lazy")):
+                                   "ntt_kernel", "ntt_lazy", "wide_product")):
             emit(phase="ptxas", entry=name, registers=int(regs), stack_frame=int(stack),
                  spill_stores=int(stores), spill_loads=int(loads))
 
@@ -1210,7 +1266,7 @@ def phase_kernels_large_n() -> None:
         "br_block_step": (fused.butterfly_layout(4, 2, 4, 2, 4096, 2, GATE_BLOCK, split=False),
                           lambda: fused.fused_br_block_step(m4, acc, brk, amounts, 2, BASE2K),
                           lambda: fused.fused_br_block_step_ref(m4, acc, brk, amounts, 2, BASE2K)),
-        "wide_product": (fused.product_layout(2, 2, 3, 5, 4096),
+        "wide_product": (wide.wide_design_layout(2, 2, 3, 5, 4096),
                          lambda: wide.fused_glwe_product_wide(w4, wd, wkey, 2, 52, 52, small=wlin),
                          lambda: wide.fused_glwe_product_wide_ref(w4, wd, wkey, 2, 52, 52,
                                                                   small=wlin)),
@@ -1927,7 +1983,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from poulpy_tpu_torch.backends import (LAUNCHES, NTT_ROWS, _lib, fused, fused_mxu,
-                                           reset_launches)
+                                           reset_launches, wide)
     from poulpy_tpu_torch.hal.module import get_module
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2018,6 +2074,7 @@ def main() -> int:
     phase_stages(fused, butterfly_cases(m, km, gm), BUTTERFLY_DESIGNS)
     phase_transform_stages(transform_cases(m, km), TRANSFORM_DESIGNS)
     phase_tensor_stages(tensor_cases(m, wm))
+    phase_tensor_stages(wide_product_cases(wm), wide.WIDE_STAGES, None)
     phase_kernels_large_n()
     if not all(launches.values()):
         raise SystemExit(f"kernels never launched: {[k for k, v in launches.items() if not v]}")

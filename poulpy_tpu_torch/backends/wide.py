@@ -7,6 +7,10 @@ for base2k up to ~52):
 
 - `fused_glwe_product_wide` (`_pipe_wide_fn`):
       big_normalize_wide(idft_wide(vmp(dft(a), pmat)) [+ small per column], offset);
+  two designs: the lazy one (`wide_lazy_layout`: the butterfly kernels' lazy
+  body with the tensor kernels' 128-bit exit) where it takes the shape, and
+  the parent one (`fused.product_layout`, its global layout past shared
+  memory), which takes the rest and is the stage clock's reference;
 - `fused_tensor_product_wide` (`_tensor_wide_fn`): the rank-1 ct × ct limb
   convolution, its quadratic term normalized to the relinearization's
   digits and its linear terms to ciphertext limbs, both with CKKS mul's
@@ -26,7 +30,10 @@ from __future__ import annotations
 import torch
 
 from poulpy_tpu_torch.backends import LAUNCHES, _lib
+from poulpy_tpu_torch.backends._lib import SMEM_LIMIT
 from poulpy_tpu_torch.backends.fused import (
+    MAX_LIMBS,
+    MAX_PRIMES,
     TENSOR_STAGES,
     Layout,
     _check_bounds,
@@ -50,6 +57,18 @@ from poulpy_tpu_torch.hal.wide import (
     vec_znx_normalize_full_wide,
     wide_add_small,
 )
+
+
+# the stages of the wide product's stage clock (csrc/wide_product.cu WP_*)
+WIDE_STAGES = ("entry_fwd", "vmp", "inv", "lift")
+# The shapes with a specialised instance of the wide product's lazy design
+# (csrc/wide_product.cu MulShape): (log N, KK, cpb·psize, P, psize, res_size,
+# kr, ka), the CKKS-wide mul's relinearization.  Any other shape takes the
+# runtime-shaped instance.
+WIDE_SHAPES = {(11, 2, 6, 5, 3, 2, 52, 52)}
+# shared bytes the lazy wide product keeps beside its rows (its static
+# __shared__ constants: PrimeL per prime, row offsets, ExitPrimes)
+WIDE_STATIC_SMEM = 2048
 
 
 def fused_wide_supported(psize: int, res_base2k: int, a_base2k: int) -> bool:
@@ -77,6 +96,47 @@ def fused_glwe_product_wide_ref(module: Module, a_data, pmat, res_size: int, res
     return vec_znx_normalize_full_wide(res_size, res_base2k, res_offset, pair, pm_base2k)
 
 
+def wide_lazy_layout(kk: int, co: int, psize: int, nprimes: int, n: int) -> Layout | None:
+    """The lazy design's layout of `wide_product.cu`, or None where it does
+    not take the shape (N outside 256..2048, no input row or more than
+    MAX_LIMBS input or output rows, P past MAX_PRIMES, or no column group
+    whose rows of one prime fit): the most output columns per block whose
+    region of max(KK, cpb·psize) rows fits in shared memory, the primes in
+    as few passes as fit, split evenly; `chunk` rows per pass."""
+    logn = n.bit_length() - 1
+    if not 8 <= logn <= 11 or not 0 < kk <= MAX_LIMBS or nprimes > MAX_PRIMES:
+        return None
+    cap = (SMEM_LIMIT - WIDE_STATIC_SMEM) // (4 * n)
+    for cpb in range(co, 0, -1):
+        region = max(kk, cpb * psize)
+        if co % cpb or cpb * psize > MAX_LIMBS or region > cap:
+            continue
+        passes = -(-nprimes // (cap // region))
+        rows = -(-nprimes // passes) * region
+        return Layout("lazy", cpb, 4 * n * rows, chunk=rows)
+    return None
+
+
+def wide_design_layout(kk: int, co: int, psize: int, nprimes: int, n: int,
+                       design: str = "lazy") -> Layout:
+    """The layout a launch of `wide_product.cu` takes: the lazy design's
+    where it takes the shape (`design` "lazy"), else the parent design's
+    `product_layout`."""
+    if design not in ("lazy", "parent"):
+        raise ValueError(f"design: 'lazy' or 'parent', got {design!r}")
+    lay = wide_lazy_layout(kk, co, psize, nprimes, n) if design == "lazy" else None
+    return lay or product_layout(kk, co, psize, nprimes, n)
+
+
+def wide_scratch(lay: Layout, kk: int, psize: int, nprimes: int, tasks: int, n: int, device):
+    """The lazy launch's scratch [tasks, P, cpb·psize, N] int32 where its
+    primes run in passes, else None."""
+    mrows = lay.cpb * psize
+    if lay.chunk // max(kk, mrows) >= nprimes:
+        return None
+    return torch.empty((tasks, nprimes, mrows, n), dtype=torch.int32, device=device)
+
+
 def fused_glwe_product_wide(module: Module, a_data, pmat, res_size: int, res_base2k: int,
                             pm_base2k: int, small=None, res_offset: int = 0, dsize: int = 1):
     """`a_data` [..., ci, size_a, N] int64 limbs × `pmat` [rows, ci, co,
@@ -84,19 +144,35 @@ def fused_glwe_product_wide(module: Module, a_data, pmat, res_size: int, res_bas
     2^res_base2k, the value landed at 2^res_offset.  `small` [..., co,
     s_size, N] int64, if given, is added to each column's first limbs before
     the normalization.  Plain version on CPU tensors, one CUDA launch on CUDA."""
-    rows, ci, co, psize = pmat.shape[:4]
+    psize = pmat.shape[3]
     if not fused_wide_supported(psize, res_base2k, pm_base2k):
         raise ValueError(f"wide product windows: base2k {res_base2k}/{pm_base2k}, psize {psize}")
     if a_data.device.type == "cpu":
         return fused_glwe_product_wide_ref(module, a_data, pmat, res_size, res_base2k,
                                            pm_base2k, small, res_offset, dsize)
+    out, launch = _wide_product_launch(module, a_data, pmat, res_size, res_base2k, pm_base2k,
+                                       small, res_offset, dsize)
+    if launch is not None:
+        launch()
+        LAUNCHES["wide_product"] += 1
+    return out
+
+
+def _wide_product_launch(module: Module, a_data, pmat, res_size: int, res_base2k: int,
+                         pm_base2k: int, small=None, res_offset: int = 0, dsize: int = 1,
+                         design: str = "lazy"):
+    """The checked arguments of one `fused_glwe_product_wide` launch: (out,
+    launch) with launch(timed=False) → the stage clock's stamps or None
+    (launch None for an empty batch); `design` "lazy" or "parent"
+    (`wide_design_layout`).  Counts no launch."""
+    rows, ci, co, psize = pmat.shape[:4]
     P, n = module.nprimes, module.n
     lead, a_size = a_data.shape[:-3], a_data.shape[-2]
     rmax = min(rows * dsize, a_size)
     kk = ci * rmax
     if a_data.shape[-3] != ci or a_data.shape[-1] != n:
         raise ValueError(f"a_data: expected [..., {ci}, size, {n}], got {tuple(a_data.shape)}")
-    lay = product_layout(kk, co, psize, P, n)
+    lay = wide_design_layout(kk, co, psize, P, n, design)
     _check_bounds(P, psize, res_size)
     if pmat.device != a_data.device or module.device != a_data.device:
         raise ValueError("a_data, pmat and module must be on one device")
@@ -104,7 +180,7 @@ def fused_glwe_product_wide(module: Module, a_data, pmat, res_size: int, res_bas
     B = a_data.numel() // (ci * a_size * n) if a_data.numel() else 0
     a = a_data.reshape(B, ci, a_size, n).contiguous()
     _lib.require(a, "a_data", torch.int64)
-    s_size, sm_ptr = 0, None
+    s_size = 0
     if small is not None:
         s_size = small.shape[-2]
         if tuple(small.shape) != tuple(lead) + (co, s_size, n):
@@ -112,19 +188,43 @@ def fused_glwe_product_wide(module: Module, a_data, pmat, res_size: int, res_bas
                              f"got {tuple(small.shape)}")
         small = small.reshape(B, co, s_size, n).contiguous()
         _lib.require(small, "small", torch.int64)
-        sm_ptr = small.data_ptr()
     out = torch.empty(lead + (co, res_size, n), dtype=torch.int64, device=a_data.device)
     if B == 0:
-        return out
+        return out, None
     tw, consts = kernel_tables(module.tables)
-    ws, grid = launch_workspace(lay, B * (co // lay.cpb), n, a_data.device)
-    err = _lib.library().poulpy_wide_product(
-        a.data_ptr(), pm.data_ptr(), sm_ptr, out.data_ptr(), tw.data_ptr(), consts.data_ptr(),
-        B, ci, a_size, rmax, co, psize, s_size, res_size, res_base2k, pm_base2k, res_offset,
-        lay.cpb, P, module.log_n, lay.smem, _lib.ptr(ws), lay.chunk, grid, _lib.stream())
-    _lib.check(err, "poulpy_wide_product")
-    LAUNCHES["wide_product"] += 1
-    return out
+    tasks = B * (co // lay.cpb)
+    sizes = (B, ci, a_size, rmax, co, psize, s_size, res_size, res_base2k, pm_base2k, res_offset,
+             lay.cpb, P, module.log_n)
+
+    def launch(timed: bool = False):
+        stamps = _stamps(timed, tasks, a.device, WIDE_STAGES)
+        # the closure holds every tensor whose pointer it passes
+        args = (a.data_ptr(), pm.data_ptr(), _lib.ptr(small), out.data_ptr())
+        if lay.kind == "lazy":
+            scratch = wide_scratch(lay, kk, psize, P, tasks, n, a.device)
+            err = _lib.library().poulpy_wide_product_lazy(
+                *args, _lib.ptr(scratch), shoup_tables(module.tables).data_ptr(),
+                consts.data_ptr(), *sizes, lay.chunk, lay.smem, _lib.ptr(stamps), _lib.stream())
+        else:
+            if timed and lay.kind == "global":
+                raise ValueError("the stage clock runs the shared layout only")
+            ws, grid = launch_workspace(lay, tasks, n, a.device)
+            err = _lib.library().poulpy_wide_product(
+                *args, tw.data_ptr(), consts.data_ptr(), *sizes, lay.smem, _lib.ptr(ws),
+                lay.chunk, grid, _lib.ptr(stamps), _lib.stream())
+        _lib.check(err, "poulpy_wide_product")
+        return stamps
+
+    return out, launch
+
+
+def wide_product_stage_cycles(module: Module, *args, design: str = "lazy"):
+    """(out, stamps) of one launch of the stage clock's instance on
+    `fused_glwe_product_wide`'s arguments: stamps [blocks, len(WIDE_STAGES)]
+    int64, the SM cycles each block spent in each stage.  For measurement
+    only: no path calls it, and it counts no launch."""
+    out, launch = _wide_product_launch(module, *args, design=design)
+    return out, launch(timed=True)
 
 
 # --------------------------------------------------------------------------

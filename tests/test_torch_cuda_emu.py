@@ -1,5 +1,6 @@
 """The CUDA sources of the fused kernels (`csrc/fused_mxu.cu`,
-`csrc/fused_product.cu`, `csrc/br_block_step.cu`), of the MXU transforms
+`csrc/fused_product.cu`, `csrc/br_block_step.cu`, `csrc/wide_product.cu`),
+of the MXU transforms
 (`csrc/mxu_ntt.cu`), of the VMP (`csrc/vmp.cu`), of the Garner exit
 (`csrc/garner_exit.cu`), of the tensor kernels and of the standalone NTT
 (`csrc/ntt.cu`), run on the CPU through an emulation of the CUDA
@@ -19,9 +20,11 @@ shapes: the specialised instances of the gate, keyswitch and bench shapes,
 the runtime-shaped instances at N 256 / 512, both transforms' wg designs
 at N 512 … 4096 (ragged tasks, 1 to 4 digit planes, limbs at INT64_MIN /
 INT64_MAX, both folds), the exit's specialised and runtime-shaped
-instances (P 1 / 5 / 8, psize 16, with and without the body), the TIMED
-instances, the NTT's lazy design at N 256 … 8192 (ragged blocks, residues
-0 and p − 1), and the parent designs.  It
+instances (P 1 / 5 / 8, psize 16, with and without the body), the wide
+product's lazy design (the CKKS-wide mul's instance at N 2048, the
+runtime-shaped one at N 256 / 512 with P 2 and 5, ci 2, dsize 2, primes in
+passes, a column per block), the TIMED instances, the NTT's lazy design at N 256 … 8192
+(ragged blocks, residues 0 and p − 1), and the parent designs.  It
 says nothing of speed, and the `cuda` tests of tests/test_torch_mxu_tiles.py,
 tests/test_torch_fused_tiles.py and tests/test_torch_transform_tiles.py
 remain the check on the card.
@@ -83,6 +86,7 @@ SOURCES = {
     "garner_exit": ("poulpy_garner_exit", "poulpy_garner_exit_tile"),
     "tensor_product": ("poulpy_tensor_product", "poulpy_tensor_product_lazy"),
     "wide_tensor": ("poulpy_wide_tensor", "poulpy_wide_tensor_lazy"),
+    "wide_product": ("poulpy_wide_product", "poulpy_wide_product_lazy"),
 }
 
 
@@ -510,6 +514,87 @@ def test_emulated_tensor_stage_clocks(emulated, design):
     want = twide.fused_tensor_product_wide_ref(m, a, b, 5, 2, 3, 52, 52, 13)
     assert torch.equal(d, want[0]) and torch.equal(lin, want[1])
     assert stamps.shape[1] == len(tfused.TENSOR_STAGES) and bool((stamps > 0).all())
+
+
+# --------------------------------------------------------------------------
+# The wide fused product (wide_product.cu), both designs
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize(
+    "n,nprimes,batch,ci,rows,size_a,psize,res_size,kr,ka,s_size,offset,dsize,design,cpb", [
+        (2048, 5, 1, 1, 2, 2, 3, 2, 52, 52, 3, 0, 1, "lazy", 2),   # the mul's shape: MulShape
+        (256, 5, 2, 1, 2, 2, 3, 2, 52, 52, 3, 0, 1, "lazy", 2),    # runtime-shaped, both columns
+        (512, 2, 3, 2, 3, 3, 4, 3, 44, 44, 2, -7, 1, "lazy", 2),   # ci 2, P 2
+        (256, 5, 2, 1, 2, 4, 3, 2, 52, 52, 0, 13, 2, "lazy", 2),   # dsize 2, no small
+        (512, 5, 2, 1, 2, 2, 3, 2, 52, 52, 3, 0, 1, "parent", 2),
+        (256, 2, 2, 2, 2, 2, 3, 3, 26, 52, 0, 5, 1, "parent", 2),
+    ])
+def test_emulated_wide_product_matches_plain(emulated, n, nprimes, batch, ci, rows, size_a,
+                                             psize, res_size, kr, ka, s_size, offset, dsize,
+                                             design, cpb):
+    """Both designs against the plain version, the first limbs at INT64_MIN,
+    INT64_MAX and other words far past any prime, the small limbs too."""
+    from poulpy_tpu_torch.backends import wide as twide
+
+    m = t_get_module(n, nprimes, 28, "cpu")
+    rng = np.random.default_rng(102)
+    a = _edge_limbs(rng, (batch, ci, size_a, n), 2**51)
+    pmat = _residues(rng, m.basis.primes, (rows, ci, 2, psize, nprimes, n))
+    small = None
+    if s_size:
+        small = torch.from_numpy(rng.integers(-(2**51), 2**51, size=(batch, 2, s_size, n)))
+        small[-1, 1, 0, -len(INT64_EDGES):] = torch.tensor(INT64_EDGES)
+    kk = ci * min(rows * dsize, size_a)
+    lay = twide.wide_design_layout(kk, 2, psize, nprimes, n, design)
+    assert (lay.kind, lay.cpb) == ("lazy" if design == "lazy" else "shared", cpb)
+    args = (m, a, pmat, res_size, kr, ka, small, offset, dsize)
+    out, launch = twide._wide_product_launch(*args, design=design)
+    launch()
+    assert torch.equal(out, twide.fused_glwe_product_wide_ref(*args))
+
+
+@pytest.mark.parametrize("nprimes,cap_rows,cpb,passes", [
+    (5, 12, 2, 3),      # a ciphertext per block, two primes per pass: 2 + 2 + 1
+    (5, 30, 2, 1),      # all five primes at once
+    (2, 6, 2, 2),
+    (5, 5, 1, 5),       # both columns' 6 rows past 5: a column per block, a prime per pass
+])
+def test_emulated_wide_product_primes_in_passes(emulated, monkeypatch, nprimes, cap_rows, cpb,
+                                                passes):
+    """The lazy design with shared memory cut so that its primes run in
+    passes through the scratch slot, or its columns split over blocks."""
+    from poulpy_tpu_torch.backends import wide as twide
+
+    monkeypatch.setattr(twide, "SMEM_LIMIT", twide.WIDE_STATIC_SMEM + 4 * 256 * cap_rows)
+    m = t_get_module(256, nprimes, 28, "cpu")
+    rng = np.random.default_rng(103)
+    a = _edge_limbs(rng, (2, 1, 2, 256), 2**51)
+    pmat = _residues(rng, m.basis.primes, (2, 1, 2, 3, nprimes, 256))
+    small = torch.from_numpy(rng.integers(-(2**51), 2**51, size=(2, 2, 3, 256)))
+    lay = twide.wide_lazy_layout(2, 2, 3, nprimes, 256)
+    assert lay.cpb == cpb and -(-nprimes // (lay.chunk // max(2, 3 * cpb))) == passes
+    args = (m, a, pmat, 2, 52, 52, small, 0, 1)
+    out, launch = twide._wide_product_launch(*args)
+    launch()
+    assert torch.equal(out, twide.fused_glwe_product_wide_ref(*args))
+
+
+@pytest.mark.parametrize("design", ["lazy", "parent"])
+def test_emulated_wide_product_stage_clock(emulated, design):
+    """The TIMED instances of both designs (a block per ciphertext at N
+    256): the same output as the plain version, a positive count per block
+    and stage."""
+    from poulpy_tpu_torch.backends import wide as twide
+
+    m = t_get_module(256, 5, 28, "cpu")
+    rng = np.random.default_rng(104)
+    a = _edge_limbs(rng, (2, 1, 2, 256), 2**51)
+    pmat = _residues(rng, m.basis.primes, (2, 1, 2, 3, 5, 256))
+    small = torch.from_numpy(rng.integers(-(2**51), 2**51, size=(2, 2, 3, 256)))
+    args = (m, a, pmat, 2, 52, 52, small, 13)
+    out, stamps = twide.wide_product_stage_cycles(*args, design=design)
+    assert torch.equal(out, twide.fused_glwe_product_wide_ref(*args))
+    assert stamps.shape == (2, len(twide.WIDE_STAGES)) and bool((stamps > 0).all())
 
 
 # --------------------------------------------------------------------------
