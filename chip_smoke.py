@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twelve paths of the port run, each with the launch counters set to 0 just
+Fourteen paths of the port run, each with the launch counters set to 0 just
 before it and read just after:
 
 - the product path, the headline operation of bench.py: a batched GLWE ×
@@ -37,13 +37,20 @@ before it and read just after:
   keyswitch through the same two routes;
 - gate_fused_mxu, on the gate path's keys and batch: the gate bootstrap
   through `route="fused_mxu"` (one fused MXU block step per block of the
-  blind rotation, the keyswitch through the fused MXU product).
+  blind rotation, the keyswitch through the fused MXU product);
+- cbt and cbt_block8, bench_schemes.py's circuit bootstrapping (LWE bit →
+  GGSW): N 1024 on get_module(1024, 2, 28), base2k 13, blind-rotation,
+  automorphism and tensor keys k 52 dnum 3, an output GGSW of k 26 dnum 2,
+  log_domain 1, to-constant; cbt with a binary secret of n_lwe 574 (one
+  fused product per coefficient), cbt_block8 with a block-binary one of 576
+  in blocks of 8 (one block step per block); then the trace (one keyswitch
+  per level and digit) and the GGSW expansion (NTT and VMP kernels).
 
 The seven paths before the MXU paths run as they would without them: the
-three set-ups the MXU paths reuse wait on the host meanwhile, and the MXU
-kernels' checks (3′, with their float64 plain versions and cuBLAS
-yardstick) and the large-N checks come last.  Each set-up is freed after
-its last use.
+three set-ups the MXU paths reuse wait on the host meanwhile; the two CBT
+paths follow the MXU paths, and the MXU kernels' checks (3′, with their
+float64 plain versions and cuBLAS yardstick) and the large-N checks come
+last.  Each set-up is freed after its last use.
 
 Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
 
@@ -66,7 +73,10 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  keyswitch, batch 256; the NTT also at the non-wide CKKS
                  mul's four transform shapes, batch 256; the wide product
                  also at a 30-bit wide keyswitch's shape, P 4, batch 256,
-                 its runtime-shaped instance); the NTT, the butterfly
+                 its runtime-shaped instance; the fused product, its
+                 `small` form and the block step at the CBT paths' shapes,
+                 batch 1024, after a line naming the instance each takes,
+                 specialised or runtime-shaped); the NTT, the butterfly
                  product and block step, both tensor kernels and the wide
                  product (the lazy design, which the paths run) and the
                  VMP (the tile design) also against their parent design,
@@ -174,7 +184,23 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  equals the butterfly's, NAND truth on both; at batch 1024
                  the warm-up NAND's fingerprint equals GATE_FINGERPRINT, 5
                  timed chained NANDs decrypt to the tracked bits (gates/s
-                 beside phase 7's), then a profiled NAND.
+                 beside phase 7's), then a profiled NAND;
+ 16. cbt, cbt_block8  set-up from bench_schemes.py's seeds (set-up seconds);
+                 at batch 4 the card's CBT equals the port's CPU run on the
+                 same keys (cbt_block8: also through the extended path,
+                 extension_factor 2), and three of its GGSWs, prepared,
+                 take a noiseless GLWE of m to bit·m within
+                 CBT_DECRYPT_BOUND (the JAX package's reading, see there);
+                 at batch 32 the warm-up's fingerprint equals the JAX
+                 package's (CBT_FINGERPRINT, CBT_BLOCK8_FINGERPRINT), 3
+                 timed CBTs on distinct batches end in a host checksum
+                 (cbt/s, launches, peak memory), a profiled CBT; at batch
+                 1024, 3 timed CBTs on distinct batches, four sampled rows
+                 decrypt-checked; at each batch the split: the blind
+                 rotation, the trace and the expansion run apart, the
+                 device synchronised between them, each with its
+                 launches and a profile (device busy), their result equal
+                 to the CBT's.
 
 Only the five *_mxu paths may launch an MXU kernel.  After each path the
 NTT kernel's launches per (direction, primes, N, rows per prime, prime
@@ -217,6 +243,34 @@ GATE_FINGERPRINT = 38199110968
 # keyswitch path: bench_full.py _keyswitch_setup / bench_keyswitch_*
 KS_N, KS_K_KEY, KS_DNUM = 2048, 68, 3
 KS_VERIFY_BATCH, KS_CHAIN, KS_REPS, KS_BATCH, KS_ITERS = 8, 16, 5, 256, 10
+# the circuit-bootstrapping paths: bench_schemes.py bench_circuit_bootstrap
+# (after poulpy-bench circuit_bootstrapping.rs): N 1024 on get_module(1024, 2,
+# 28), base2k 13, rank 1, blind-rotation / automorphism / tensor keys k 52
+# dnum 3, an output GGSW of k 26 dnum 2, LWE k 13, log_domain 1, to-constant;
+# cbt: a binary_prob secret of 574 coefficients; cbt_block8: binary_block of
+# 576 in blocks of 8 (bench_schemes.py:201-203)
+CBT_N, CBT_BASE2K, CBT_K_KEY, CBT_DNUM_KEY, CBT_K_RES, CBT_DNUM_RES = 1024, 13, 52, 3, 26, 2
+CBT_K_LWE, CBT_LOG_DOMAIN = 13, 1
+CBT_N_LWE, CBT_BLOCK8_N_LWE, CBT_BLOCK = 574, 576, 8
+CBT_BATCH, CBT_ITERS, CBT_VERIFY_BATCH, CBT_WIDE_BATCH, CBT_WIDE_ITERS = 32, 3, 4, 1024, 3
+# sum(|ggsw.data| mod 65536) of the warm-up batch (the last of CBT_ITERS + 1
+# encrypted batches of arange(32) % 2) on each path, computed by the JAX
+# package on the CPU (tests/test_torch_cbt.py::test_cbt_fingerprints_full_config
+# recomputes them)
+CBT_FINGERPRINT = 1194772570
+CBT_BLOCK8_FINGERPRINT = 1190505081
+# The external-product check: a noiseless GLWE whose body and mask limb 0 are
+# ternary (default_rng(11)), so that it encrypts m = body + mask·s at the
+# 2^-13 scale with digits of 1, times a prepared CBT output; |decrypt −
+# bit·m| at the 2^-26 scale (centred mod 2^26) must stay within
+# CBT_DECRYPT_BOUND: twice the largest error the JAX package reads over the
+# 32 GGSWs of the warm-up batch on the CPU on either path (293,679 on the
+# standard path, 112,428 on the block path; tests/test_torch_cbt.py::
+# test_cbt_fingerprints_full_config recomputes them).  The output GGSW of k
+# 26 keeps no noise margin: its expanded column carries noise near 2^-14, so a
+# fresh GLWE, whose 13-bit digits fill every coefficient, decrypts to noise
+# over the whole torus (the JAX package reads errors of 2^25 at this scale).
+CBT_MSG_SEED, CBT_DECRYPT_BOUND = 11, 2 * 293679
 
 
 @dataclass(frozen=True)
@@ -313,6 +367,8 @@ PATHS = {
     "keyswitch_fused_mxu": ("fused_product_small", "fused_mxu_product_small"),
     "gate_fused_mxu": ("br_block_step", "fused_product", "fused_mxu_br_block_step",
                        "fused_mxu_product", "fused_mxu_product_small"),
+    "cbt": ("fused_product", "fused_product_small", "ntt_forward", "ntt_inverse", "vmp"),
+    "cbt_block8": ("br_block_step", "fused_product_small", "ntt_forward", "ntt_inverse", "vmp"),
 }
 
 
@@ -366,16 +422,18 @@ def sync(device) -> None:
 
 
 def moved(obj, device):
-    """`obj` with every tensor in it (through tuples and the port's frozen
-    dataclasses) on `device`; anything else as it is."""
+    """`obj` with every tensor in it (through tuples, lists, dicts and the
+    port's frozen dataclasses) on `device`; anything else as it is."""
     import dataclasses
 
     import torch
 
     if isinstance(obj, torch.Tensor):
         return obj.to(device)
-    if isinstance(obj, tuple):
-        return tuple(moved(o, device) for o in obj)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(moved(o, device) for o in obj)
+    if isinstance(obj, dict):
+        return {k: moved(v, device) for k, v in obj.items()}
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{f.name: moved(getattr(obj, f.name), device)
                                            for f in dataclasses.fields(obj)})
@@ -542,7 +600,8 @@ def phase_kernels(m, gm, wm) -> dict:
     CKKS_BATCH; the VMP also at the non-wide CKKS mul's shape on `m` and at
     the "mxu" keyswitch's on a module of its own (the keyswitch path's
     30-bit basis, freed after the phase, so that the paths run as they did
-    before these cases)."""
+    before these cases); the butterfly kernels also at the CBT paths'
+    shapes on `gm` (`cbt_cases`)."""
     import torch
 
     from poulpy_tpu_torch.backends import fused, ntt, vmp, wide
@@ -748,7 +807,99 @@ def phase_kernels(m, gm, wm) -> dict:
         "fused_product_small@ckks_rotate": parent_run(product, m, rot_a, rkey, 6, k.base2k,
                                                       k.base2k, 1, rot_body),
     }
-    return check_kernels(cases, parents)
+    cbt, cbt_parents = cbt_cases(gm)
+    return check_kernels({**cases, **cbt}, {**parents, **cbt_parents})
+
+
+def cbt_cases(gm) -> tuple:
+    """The butterfly kernels of the CBT paths against their plain versions
+    (cases, parents for `check_kernels`), on `gm` (get_module(1024, 2, 28))
+    with inputs of their own; prints the instance each takes first."""
+    import torch
+
+    from poulpy_tpu_torch.backends import fused
+
+    phase_cbt_instances(gm)
+    gen = torch.Generator(device=gm.device).manual_seed(6)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=gm.device, dtype=torch.int64)
+
+    def residues(shape):
+        primes = torch.tensor(gm.basis.primes, device=gm.device)[:, None]
+        return (ints(0, 1 << 62, shape) % primes).to(torch.int32)
+
+    gn, gp, i32, i64 = gm.n, gm.nprimes, 4, 8
+    # the CBT paths (N 1024, base2k 13) at batch CBT_WIDE_BATCH: one product of
+    # the blind rotation, acc [2 columns, 2 limbs, unnormalized] × BRK [dnum 3,
+    # 2, 2, psize 4] to 2 limbs; the trace's keyswitch, the mask [1, 2 limbs] ×
+    # an automorphism key [3, 1, 2, psize 4] with the 2-limb body, to 2 limbs;
+    # one block step of 8 BRK elements [8, 3, 2, 2, 4] on acc [2, 2 limbs]
+    cb = CBT_WIDE_BATCH
+    cbt_acc = ints(-(2**22), 2**22, (cb, 2, 2, gn))
+    cbt_pmat = residues((CBT_DNUM_KEY, 2, 2, 4, gp, gn))
+    cbt_ks_a = ints(-(2**12), 2**12, (cb, 1, 2, gn))
+    cbt_ks_body = ints(-(2**12), 2**12, (cb, 2, gn))
+    cbt_ks_pmat = residues((CBT_DNUM_KEY, 1, 2, 4, gp, gn))
+    cbt_step_acc = ints(-(2**12), 2**12, (cb, 2, 2, gn))
+    cbt_brk = residues((CBT_BLOCK, CBT_DNUM_KEY, 2, 2, 4, gp, gn))
+    cbt_amounts = ints(-gn, gn + 1, (cb, CBT_BLOCK))
+    cbt_pm_k = fused.pm_kernel_layout(cbt_brk, 2)
+    cbt_rows_used = int(torch.unique(cbt_amounts & (2 * gn - 1)).numel())
+    cases = {
+        "fused_product@cbt": (
+            lambda: fused.fused_glwe_product(gm, cbt_acc, cbt_pmat, 2, CBT_BASE2K, CBT_BASE2K),
+            lambda: fused.fused_glwe_product_ref(gm, cbt_acc, cbt_pmat, 2, CBT_BASE2K,
+                                                 CBT_BASE2K),
+            bound(2 * cbt_acc.numel() * i64 + cbt_pmat[:2].numel() * i32,
+                  fused_ops(cb, 4, 8, gp, gn))),
+        "fused_product_small@cbt": (
+            lambda: fused.fused_glwe_product(gm, cbt_ks_a, cbt_ks_pmat, 2, CBT_BASE2K, CBT_BASE2K,
+                                             small=cbt_ks_body),
+            lambda: fused.fused_glwe_product_ref(gm, cbt_ks_a, cbt_ks_pmat, 2, CBT_BASE2K,
+                                                 CBT_BASE2K, small=cbt_ks_body),
+            bound((cbt_ks_a.numel() + cbt_ks_body.numel() + cb * 2 * 2 * gn) * i64
+                  + cbt_ks_pmat[:2].numel() * i32, fused_ops(cb, 2, 8, gp, gn))),
+        "br_block_step@cbt": (
+            lambda: fused.fused_br_block_step(gm, cbt_step_acc, cbt_brk, cbt_amounts, 2,
+                                              CBT_BASE2K, cbt_pm_k),
+            lambda: fused.fused_br_block_step_ref(gm, cbt_step_acc, cbt_brk, cbt_amounts, 2,
+                                                  CBT_BASE2K),
+            bound(2 * cbt_step_acc.numel() * i64 + cbt_amounts.numel() * i64
+                  + cbt_pm_k.numel() * i32 + cbt_rows_used * gp * gn * i32,
+                  fused_ops(cb, 4, 8, gp, gn, CBT_BLOCK))),
+    }
+    product, step = fused._product_launch, fused._block_step_launch
+    parents = {
+        "fused_product@cbt": parent_run(product, gm, cbt_acc, cbt_pmat, 2, CBT_BASE2K,
+                                        CBT_BASE2K),
+        "fused_product_small@cbt": parent_run(product, gm, cbt_ks_a, cbt_ks_pmat, 2, CBT_BASE2K,
+                                              CBT_BASE2K, 1, cbt_ks_body),
+        "br_block_step@cbt": parent_run(step, gm, cbt_step_acc, cbt_brk, cbt_amounts, 2,
+                                        CBT_BASE2K, cbt_pm_k),
+    }
+    return cases, parents
+
+
+def phase_cbt_instances(gm) -> None:
+    """The instance each butterfly kernel of the CBT paths takes at their
+    shapes (N 1024, P 2, acc and output 2 limbs, keys psize 4, dnum 3):
+    specialised where its `fused.LAZY_SHAPES` key has one, else the
+    runtime-shaped instance of the lazy design."""
+    from poulpy_tpu_torch.backends import fused
+
+    rows = {}
+    for name, kk, co, block in (("fused_product@cbt", 4, 2, 0),
+                                ("fused_product_small@cbt", 2, 2, 0),
+                                ("br_block_step@cbt", 4, 2, CBT_BLOCK)):
+        lay = fused.butterfly_layout(kk, co, 4, gm.nprimes, gm.n, 2, block=block,
+                                     split=not block)
+        shape = (block > 0, gm.log_n, kk, lay.cpb * 4, gm.nprimes, 4, 2)
+        rows[name] = dict(design=lay.kind, lazy_shape=list(shape), cols_per_block=lay.cpb,
+                          ciphertexts_per_block=lay.tile, smem=lay.smem,
+                          instance="specialised" if shape in fused.LAZY_SHAPES
+                          else "runtime-shaped")
+    emit(phase="cbt_instances", **rows)
 
 
 def phase_kernels_mxu(m, km, gm) -> dict:
@@ -1538,7 +1689,7 @@ def phase_gate_bench(setup, iters: int, fingerprint: int | None, route: str = "f
     return batch * iters / dt
 
 
-def profile_once(phase: str, fn, timed_ms: float) -> None:
+def profile_once(phase: str, fn, timed_ms: float) -> dict:
     """Two more calls of `fn` under torch.profiler, the first a warm-up step
     that takes the profiler's own start-up: the second's wall time, device
     busy time (the sum of kernel and copy times, CUDA activity) and the
@@ -1583,12 +1734,14 @@ def profile_once(phase: str, fn, timed_ms: float) -> None:
             break
     busy_ms = sum(ms for ms, _ in device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1][0])[:6]
-    emit(phase=phase, wall_ms=wall_ms, device_busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
-         timed_ms=timed_ms, busy_share_of_timed=busy_ms / timed_ms,
-         csrc_kernels_ms=sum(ms for ms, _ in csrc), csrc_launches=launched,
-         csrc_events=sum(c for _, c in csrc), tries=attempt,
-         device_events=sum(c for _, c in device.values()),
-         top=[dict(name=k[:90], device_ms=ms, count=c) for k, (ms, c) in top])
+    row = dict(phase=phase, wall_ms=wall_ms, device_busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
+               timed_ms=timed_ms, busy_share_of_timed=busy_ms / timed_ms,
+               csrc_kernels_ms=sum(ms for ms, _ in csrc), csrc_launches=launched,
+               csrc_events=sum(c for _, c in csrc), tries=attempt,
+               device_events=sum(c for _, c in device.values()),
+               top=[dict(name=k[:90], device_ms=ms, count=c) for k, (ms, c) in top])
+    emit(**row)
+    return row
 
 
 def ks_chain(m, c, ksk, count: int, route: str = "fused") -> int:
@@ -1971,6 +2124,253 @@ def run_gate_route_path(gate, verify_batch: int, std_n_lwe: int, iters: int,
     phase_gate_bench(setup, iters, fingerprint, route, butterfly_gates_per_s)
 
 
+def cbt_setup(n_lwe: int, block: int, device) -> dict:
+    """bench_schemes.py bench_circuit_bootstrap's set-up: Source(bytes(32))
+    draws the LWE secret (binary_block for block > 1, else binary_prob) then
+    the GLWE secret; the keys, then CBT_ITERS + 1 batches of CBT_BATCH
+    encryptions of arange(CBT_BATCH) % 2 at LWE k 13 (the last the warm-up),
+    come from Source 0x01 / 0x02; then CBT_WIDE_ITERS batches of
+    CBT_WIDE_BATCH from the same sources, and the noiseless GLWE of the
+    decrypt check."""
+    import numpy as np
+    import torch
+
+    from poulpy_tpu_torch.binfhe.circuit_bootstrapping import circuit_bootstrapping_keygen
+    from poulpy_tpu_torch.core import encryption as enc
+    from poulpy_tpu_torch.core.layouts import GLWECiphertext
+    from poulpy_tpu_torch.core.prepared import glwe_secret_prepare
+    from poulpy_tpu_torch.hal.module import get_module
+    from poulpy_tpu_torch.hal.source import Source
+
+    m = get_module(CBT_N, 2, 28, device)
+    src, xe, xa = Source(bytes(32)), Source(b"\x01" * 32), Source(b"\x02" * 32)
+    sk_lwe = src.binary_block(n_lwe, block) if block > 1 else src.binary_prob((n_lwe,))
+    sk = enc.secret_new(m, 1, src)
+    skp = glwe_secret_prepare(m, sk)
+    k, d = CBT_K_KEY, CBT_DNUM_KEY
+    key = circuit_bootstrapping_keygen(m, sk_lwe, sk, skp, CBT_BASE2K, k, d, k, d, k, d, xe, xa,
+                                       block_size=block)
+    s = torch.from_numpy(sk_lwe).to(m.device)
+
+    def lwes(batch: int, count: int):
+        pt = np.zeros((batch, 1, 1), dtype=np.int64)
+        pt[:, 0, 0] = (np.arange(batch) % 2) << (CBT_BASE2K - 2)
+        return [enc.lwe_encrypt_sk(None, pt, s, CBT_BASE2K, CBT_K_LWE, xe, xa)
+                for _ in range(count)]
+
+    ct = torch.zeros((2, 2, m.n), dtype=torch.int64)
+    ct[:, 0] = torch.from_numpy(np.random.default_rng(CBT_MSG_SEED).integers(-1, 2, (2, m.n)))
+    ct = GLWECiphertext(data=ct.to(m.device), base2k=CBT_BASE2K, k=CBT_K_RES)
+    return dict(m=m, skp=skp, key=key, lwes=lwes(CBT_BATCH, CBT_ITERS + 1),
+                wide=lwes(CBT_WIDE_BATCH, CBT_WIDE_ITERS), ct=ct)
+
+
+def cbt(m, key, lwe, extension_factor: int = 1):
+    """bench_schemes.py's CBT: to-constant, log_domain 1, GGSW k 26 dnum 2."""
+    from poulpy_tpu_torch.binfhe.circuit_bootstrapping import circuit_bootstrap
+
+    return circuit_bootstrap(m, lwe, CBT_LOG_DOMAIN, key, CBT_DNUM_RES, CBT_K_RES,
+                             extension_factor=extension_factor)
+
+
+def cbt_decrypt_errors(setup, ggsw, rows) -> list:
+    """|decrypt(ct ⊡ GGSW_row) − bit·decrypt(ct)| at the 2^-26 scale, centred
+    mod 2^26, for each row of a batch of CBT outputs of the bits arange % 2
+    (ct: the set-up's noiseless GLWE)."""
+    from poulpy_tpu_torch.core.decryption import glwe_decrypt
+    from poulpy_tpu_torch.core.external_product import glwe_external_product
+    from poulpy_tpu_torch.core.prepared import ggsw_prepare
+    from poulpy_tpu_torch.hal import vec_znx
+
+    m, ct, skp = setup["m"], setup["ct"], setup["skp"]
+    mod = 1 << CBT_K_RES
+
+    def phase(c):
+        return vec_znx.decode_vec_i64(CBT_BASE2K, CBT_K_RES, glwe_decrypt(m, c, skp).data)
+
+    want = phase(ct)
+    errs = []
+    for row in rows:
+        g = ggsw_prepare(m, ggsw.replace(data=ggsw.data[row]))
+        err = (phase(glwe_external_product(m, ct, g)) - (row % 2) * want) % mod
+        errs.append(int(((err + mod // 2) % mod - mod // 2).abs().max()))
+    return errs
+
+
+def phase_cbt_verify(name: str, setup, batch: int, extended: bool) -> None:
+    """The card's CBT of the warm-up batch's first `batch` LWEs equals the
+    port's CPU run on the same keys (tolerance 0), through the extended path
+    (extension_factor 2) too where asked; three of the GGSWs, prepared,
+    take the noiseless GLWE of m to bit·m within CBT_DECRYPT_BOUND."""
+    import torch
+
+    from poulpy_tpu_torch.hal.module import get_module
+
+    m, key = setup["m"], setup["key"]
+    cpu = torch.device("cpu")
+    lwe = setup["lwes"][-1]
+    lwe = lwe.replace(data=lwe.data[:batch])
+    mc, key_c, lwe_c = get_module(m.n, m.nprimes, 28, cpu), moved(key, cpu), moved(lwe, cpu)
+    checks, times = {}, {}
+    for ext in (1, 2) if extended else (1,):
+        sync(m.device)
+        t0 = time.perf_counter()
+        have = cbt(m, key, lwe, ext)
+        sync(m.device)
+        t1 = time.perf_counter()
+        want = cbt(mc, key_c, lwe_c, ext)
+        times[f"ext{ext}"] = dict(card_s=t1 - t0, cpu_s=time.perf_counter() - t1)
+        checks[f"card_vs_cpu_bit_exact_ext{ext}"] = bool(torch.equal(have.data.cpu(), want.data))
+        if ext == 1:
+            errs = cbt_decrypt_errors(setup, have, range(3))
+    checks["decrypt_within_bound"] = max(errs) <= CBT_DECRYPT_BOUND
+    emit(phase=f"{name}_verify", batch=batch, decrypt_err=errs, decrypt_bound=CBT_DECRYPT_BOUND,
+         seconds=times, **checks)
+    if not all(checks.values()):
+        raise SystemExit(f"{name} verify failed: {checks}")
+
+
+def cbt_stages(setup, lwe) -> dict:
+    """The CBT of `lwe` in its three stages, each a callable of the previous
+    stage's output: the blind rotation, the trace of each digit into a
+    GGLWE, the GGSW expansion."""
+    from poulpy_tpu_torch.binfhe import circuit_bootstrapping as cb
+    from poulpy_tpu_torch.binfhe.blind_rotation import blind_rotation_dispatch
+    from poulpy_tpu_torch.core.conversion import ggsw_from_gglwe
+    from poulpy_tpu_torch.core.layouts import GLWECiphertext
+
+    m, key = setup["m"], setup["key"]
+    base2k = key.brk.base2k
+    lut = cb._lookup_table(m, base2k, CBT_LOG_DOMAIN, CBT_DNUM_RES, False, 1)
+    return {
+        "blind_rotation": lambda _: GLWECiphertext(
+            data=blind_rotation_dispatch(m, lwe, lut, key.brk, key.block_size), base2k=base2k,
+            k=lut.size * base2k),
+        "trace": lambda acc: cb._gglwe_rows(m, acc, lut, CBT_LOG_DOMAIN, key.atk, CBT_DNUM_RES,
+                                            False),
+        "expansion": lambda gglwe: ggsw_from_gglwe(m, gglwe, key.tsk),
+    }
+
+
+def cbt_split(setup, lwe, timed_ms: float) -> dict:
+    """One CBT in its stages with the device synchronised between them: each
+    stage's milliseconds, share and launches, the result equal to
+    `circuit_bootstrap`'s (a line for `emit`, without the device times)."""
+    import torch
+
+    from poulpy_tpu_torch.backends import LAUNCHES
+
+    m = setup["m"]
+    x, stages = None, {}
+    for stage, fn in cbt_stages(setup, lwe).items():
+        before = dict(LAUNCHES)
+        sync(m.device)
+        t0 = time.perf_counter()
+        x = fn(x)
+        sync(m.device)
+        stages[stage] = dict(ms=(time.perf_counter() - t0) * 1e3, launches={
+            k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]})
+    total = sum(v["ms"] for v in stages.values())
+    for v in stages.values():
+        v["share"] = v["ms"] / total
+    equal = bool(torch.equal(x.data, cbt(m, setup["key"], lwe).data))
+    if not equal:
+        raise SystemExit("the staged CBT differs from circuit_bootstrap")
+    return dict(batch=lwe.data.shape[0], staged_ms=total, timed_ms=timed_ms, stages=stages,
+                staged_equals_cbt=equal)
+
+
+def cbt_split_profile(name: str, setup, lwe, split: dict) -> None:
+    """Each stage of `cbt_split` once more under the profiler (device busy
+    time, its share of the stage's unprofiled time), then the split's line."""
+    x, busy = None, 0.0
+    for stage, fn in cbt_stages(setup, lwe).items():
+        row = split["stages"][stage]
+        prof = profile_once(f"{name}_{stage}_profile", lambda f=fn, v=x: f(v), row["ms"])
+        row.update(device_busy_ms=prof["device_busy_ms"],
+                   busy_share=prof["device_busy_ms"] / row["ms"])
+        busy += prof["device_busy_ms"]
+        x = fn(x)
+    emit(phase=f"{name}_split", **split, device_busy_ms=busy,
+         device_busy_share=busy / split["staged_ms"])
+
+
+def phase_cbt_bench(name: str, setup, fingerprint: int | None) -> None:
+    """bench_schemes.py's timing at CBT_BATCH: 1 warm-up (its fingerprint),
+    CBT_ITERS runs on distinct encrypted batches ending in a host checksum;
+    then CBT_WIDE_ITERS runs at CBT_WIDE_BATCH (after a warm-up on the first
+    batch), sampled rows decrypt-checked; the split at each batch; then,
+    after every timing, a profiled CBT and the split's profiles."""
+    import torch
+
+    from poulpy_tpu_torch.backends import LAUNCHES
+
+    m, key = setup["m"], setup["key"]
+    cuda = m.device.type == "cuda"
+
+    def checksum(outs):
+        return sum(int((o.data.abs() % 65536).sum()) for o in outs)
+
+    out = cbt(m, key, setup["lwes"][-1])
+    value = checksum([out])
+    emit(phase=f"{name}_warmup", fingerprint=value, fingerprint_expected=fingerprint,
+         shape=list(out.data.shape))
+    if fingerprint is not None and value != fingerprint:
+        raise SystemExit(f"{name} warm-up: fingerprint {value} != {fingerprint}")
+    splits = {}
+    for batch, lwes in ((CBT_BATCH, setup["lwes"][:CBT_ITERS]), (CBT_WIDE_BATCH, setup["wide"])):
+        if batch == CBT_WIDE_BATCH:
+            checksum([cbt(m, key, lwes[0])])
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        before = dict(LAUNCHES)
+        sync(m.device)
+        t0 = time.perf_counter()
+        outs = [cbt(m, key, lwe) for lwe in lwes]
+        value = checksum(outs)
+        dt = time.perf_counter() - t0
+        iters = len(lwes)
+        per_cbt = {k: (LAUNCHES[k] - before[k]) / iters for k in LAUNCHES
+                   if LAUNCHES[k] != before[k]}
+        extra = {}
+        if batch == CBT_WIDE_BATCH:
+            rows = (0, 1, batch // 2 + 1, batch - 2)
+            extra = dict(decrypt_rows=rows, decrypt_err=cbt_decrypt_errors(setup, outs[-1], rows))
+        emit(phase=f"{name}_bench", batch=batch, iters=iters, cbt_per_s=batch * iters / dt,
+             ms_per_batch=dt / iters * 1e3, checksum=value, launches_per_batch=per_cbt,
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None, **extra)
+        if extra and max(extra["decrypt_err"]) > CBT_DECRYPT_BOUND:
+            raise SystemExit(f"{name}: rows {rows} decrypt {extra['decrypt_err']} away")
+        del outs
+        splits[batch] = (lwes[0], cbt_split(setup, lwes[0], dt / iters * 1e3))
+    if cuda:
+        lwe, split = splits[CBT_BATCH]
+        profile_once(f"{name}_profile", lambda: cbt(m, key, lwe), split["timed_ms"])
+    for batch, (lwe, split) in splits.items():
+        if cuda:
+            cbt_split_profile(f"{name}_b{batch}", setup, lwe, split)
+        else:
+            emit(phase=f"{name}_b{batch}_split", **split)
+
+
+def run_cbt_path(name: str, n_lwe: int, block: int, device, fingerprint: int | None,
+                 extended: bool) -> None:
+    """A circuit-bootstrapping path: set-up, verify at CBT_VERIFY_BATCH,
+    then the bench at CBT_BATCH and CBT_WIDE_BATCH."""
+    import torch
+
+    t0 = time.perf_counter()
+    setup = cbt_setup(n_lwe, block, device)
+    sync(device)
+    brk = setup["key"].brk
+    emit(phase=f"{name}_setup", n_lwe=n_lwe, block_size=block,
+         keygen_encrypt_s=time.perf_counter() - t0,
+         brk_pmats_mib=brk.pmats.numel() * brk.pmats.element_size() / 2**20,
+         allocated_gib=torch.cuda.memory_allocated() / 2**30 if device.type == "cuda" else None)
+    phase_cbt_verify(name, setup, CBT_VERIFY_BATCH, extended)
+    phase_cbt_bench(name, setup, fingerprint)
+
+
 def main() -> int:
     import torch
 
@@ -2037,6 +2437,9 @@ def main() -> int:
         "gate_fused_mxu": lambda: run_gate_route_path(on_card("gate"), GATE_VERIFY_BATCH,
                                                       STD_N_LWE, GATE_ITERS, GATE_FINGERPRINT,
                                                       "fused_mxu"),
+        "cbt": lambda: run_cbt_path("cbt", CBT_N_LWE, 1, m.device, CBT_FINGERPRINT, False),
+        "cbt_block8": lambda: run_cbt_path("cbt_block8", CBT_BLOCK8_N_LWE, CBT_BLOCK, m.device,
+                                           CBT_BLOCK8_FINGERPRINT, True),
     }
     # after each path: the set-ups it parks on the host until the MXU paths,
     # and those it leaves behind for the last time

@@ -1,11 +1,13 @@
-"""CGGI blind rotation: twin of `poulpy_tpu/binfhe/blind_rotation.py` for
-lookup tables of one polynomial.
+"""CGGI blind rotation: twin of `poulpy_tpu/binfhe/blind_rotation.py`.
 
 Standard path:      acc ← X^b·LUT;  for each LWE coefficient a_i:
                     acc += (X^{a_i} − 1)·(BRK_i ⊡ acc);  normalize once.
 Block-binary path:  for each block of `block_size` key elements, one fused
                     step acc ← normalize(acc + idft(Σ_i NTT(X^{a_i} − 1)·
                     (dft(acc) ⊡ BRK_i))).
+Extended path:      a LUT over ext polynomials (domain N·ext) as ext parts
+                    of the accumulator, each block step through the NTT and
+                    VMP kernels with the parts mixed in the NTT domain.
 
 Every ciphertext of a batch rotates by its own amounts.  On CUDA the
 standard path runs one fused product kernel per coefficient and the block
@@ -15,8 +17,7 @@ ones (`backends/fused.py`), "fused_mxu" those of the four-step int8
 transforms (`backends/fused_mxu.py`, the JAX package's
 POULPY_TPU_FUSED_MXU=1) where `br_route` allows it; "mxu" takes the
 butterfly kernels, as the JAX package's POULPY_TPU_MXU=1 does not reach the
-blind rotation.  The extended path (a LUT over several polynomials) is not
-ported.
+blind rotation.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from poulpy_tpu_torch.backends.fused import (  # noqa: F401  (the x-power tables
     fused_glwe_product,
     fused_supported,
     pm_kernel_layout,
+    xpow_tables,
 )
 from poulpy_tpu_torch.backends.fused_mxu import (
     fused_mxu_br_block_step,
@@ -40,12 +42,13 @@ from poulpy_tpu_torch.backends.fused_mxu import (
 )
 from poulpy_tpu_torch.backends.mxu import sigma_index
 from poulpy_tpu_torch.backends.mxu_product import ROUTES
-from poulpy_tpu_torch.binfhe.lut import LookupTable, _single_poly
+from poulpy_tpu_torch.binfhe.lut import LookupTable
 from poulpy_tpu_torch.core.encryption import ggsw_encrypt_sk
 from poulpy_tpu_torch.core.layouts import LWECiphertext, _Replace
 from poulpy_tpu_torch.core.prepared import GLWESecretPrepared
 from poulpy_tpu_torch.hal import dft
 from poulpy_tpu_torch.hal.module import Module
+from poulpy_tpu_torch.hal.ntt import mont_mul
 from poulpy_tpu_torch.hal.normalization import vec_znx_normalize
 from poulpy_tpu_torch.hal.vec_znx import vec_znx_rotate
 
@@ -135,6 +138,12 @@ def mod_switch_2n(two_n: int, lwe: LWECiphertext, rot_dir: str = "left"):
     return y
 
 
+def _check_one_poly(lut: LookupTable) -> None:
+    if lut.extension_factor != 1:
+        raise ValueError("a LUT over several polynomials takes the extended path "
+                         "(blind_rotation_execute_extended)")
+
+
 def _acc_init(b, lut: LookupTable, rank: int):
     """acc = (X^b·LUT, 0, …, 0): `[..., rank+1, size, N]`, b per batch element."""
     body = vec_znx_rotate(b[..., None], lut.data[0])
@@ -158,7 +167,7 @@ def blind_rotation_execute(module: Module, lwe: LWECiphertext, lut: LookupTable,
     brk.base2k) encrypting X^{-dec(lwe)}·LUT.  The accumulator stays
     unnormalized between coefficients (the butterfly product takes any
     int64; `br_route` keeps the MXU one within int32)."""
-    _single_poly(lut.extension_factor)
+    _check_one_poly(lut)
     base2k, size = brk.base2k, lut.size
     lwe_2n = mod_switch_2n(2 * module.n, lwe, lut.rot_dir)
     acc = _acc_init(lwe_2n[..., 0], lut, brk.rank)
@@ -180,7 +189,7 @@ def blind_rotation_execute_block(module: Module, lwe: LWECiphertext, lut: Lookup
                                  route: str = "fused"):
     """Block-binary CGGI path for block-binary LWE secrets (at most one set
     coefficient per block): one fused step per block of the key."""
-    _single_poly(lut.extension_factor)
+    _check_one_poly(lut)
     if brk.n_lwe % block_size:
         raise ValueError(f"n_lwe={brk.n_lwe} is not a multiple of block_size={block_size}")
     nblocks = brk.n_lwe // block_size
@@ -201,14 +210,70 @@ def blind_rotation_execute_block(module: Module, lwe: LWECiphertext, lut: Lookup
     return acc
 
 
+def blind_rotation_execute_extended(module: Module, lwe: LWECiphertext, lut: LookupTable,
+                                    brk: BlindRotationKeyPrepared, block_size: int = 1):
+    """Extended block-binary CGGI: the LUT spans ext = `extension_factor`
+    degree-N polynomials (domain N·ext), held as an accumulator axis of ext
+    parts.  For an amount q = hi·ext + lo in Z_{2N·ext}, output part i is
+    part (i − lo) mod ext times X^{hi + (i < lo)}: a gather over the part
+    axis and a rotation (by the x-power table in the NTT domain), the same
+    for every a_i.  Per block: `dft_apply`, then per key element
+    `vmp_apply`, the part mix and `dft_sub` / `dft_add`, then `idft_apply`
+    and `big_normalize`, through the NTT and VMP kernels on the card."""
+    ext = lut.extension_factor
+    n = module.n
+    base2k, size, rank = brk.base2k, lut.size, brk.rank
+    if brk.n_lwe % block_size:
+        raise ValueError(f"n_lwe={brk.n_lwe} is not a multiple of block_size={block_size}")
+    mask = 2 * n * ext - 1
+    lwe_2n = mod_switch_2n(2 * n * ext, lwe, lut.rot_dir) & mask      # two's complement, as jnp
+    batch = tuple(lwe_2n.shape[:-1])
+    parts = torch.arange(ext, device=lwe_2n.device)
+
+    def part_mix(x, pos, rotate):
+        """x [..., ext, ...], pos [...] in [0, 2N·ext): part i of the result
+        is rotate(x[(i − lo) mod ext], hi + (i < lo))."""
+        hi, lo = pos // ext, pos % ext
+        src = torch.remainder(parts - lo[..., None], ext)              # [..., ext]
+        src = src.reshape(src.shape + (1,) * (x.dim() - src.dim())).expand(x.shape)
+        return rotate(torch.gather(x, len(batch), src), hi[..., None] + (parts < lo[..., None]))
+
+    def rot_coeff(x, expo):
+        return vec_znx_rotate(expo[..., None], x)                      # x [..., ext, size, N]
+
+    t = module.tables
+    xpow = xpow_tables(module)[0]
+
+    def rot_dft(x, expo):
+        """x [..., ext, cols, size, P, N] times NTT(X^expo), pointwise."""
+        xp = xpow[expo & (2 * n - 1)]                                  # [..., ext, P, N]
+        return mont_mul(x, xp[..., :, None, None, :, :], t.p[:, None], t.qinv[:, None])
+
+    lut_parts = lut.data.expand(batch + tuple(lut.data.shape))
+    body = part_mix(lut_parts, lwe_2n[..., 0], rot_coeff)             # [..., ext, size, N]
+    zeros = torch.zeros(batch + (ext, rank, size, n), dtype=torch.int64, device=body.device)
+    acc = torch.cat([body[..., :, None, :, :], zeros], dim=-3)        # [..., ext, cols, size, N]
+    for j in range(brk.n_lwe // block_size):
+        acc_dft = dft.dft_apply(module, acc)
+        add = None
+        for i in range(j * block_size, (j + 1) * block_size):
+            vmp_res = dft.vmp_apply(module, acc_dft, brk.pmats[i])
+            term = dft.dft_sub(module, part_mix(vmp_res, lwe_2n[..., i + 1], rot_dft), vmp_res)
+            add = term if add is None else dft.dft_add(module, add, term)
+        big = dft.idft_apply(module, add)
+        big = big + dft._align_limbs(acc, big, big.shape[-2], limb_axis=-2)[0]
+        acc = dft.big_normalize(module, size, base2k, big, base2k)
+    return acc[..., 0, :, :, :]
+
+
 def blind_rotation_dispatch(module: Module, lwe: LWECiphertext, lut: LookupTable,
                             brk: BlindRotationKeyPrepared, block_size: int = 1,
                             route: str = "fused"):
-    """The block-binary path for block_size > 1 keys, else the standard one,
-    through `route`.  A LUT over several polynomials (the extended path)
-    raises."""
+    """The extended path for a LUT over several polynomials, the
+    block-binary path for block_size > 1 keys, else the standard one;
+    `route` picks the kernels of the last two."""
     if lut.extension_factor > 1:
-        raise NotImplementedError("the extended blind rotation path is not ported")
+        return blind_rotation_execute_extended(module, lwe, lut, brk, block_size)
     if block_size > 1:
         return blind_rotation_execute_block(module, lwe, lut, brk, block_size, route)
     return blind_rotation_execute(module, lwe, lut, brk, route)

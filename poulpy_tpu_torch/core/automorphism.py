@@ -3,13 +3,15 @@
 φ_p(ct): keyswitch with the automorphism key (a GGLWE of s under
 φ_{p^{-1}}(s)), then the coefficient permutation X → X^p on every column.
 The keyswitch is `glwe_keyswitch`: one fused product with the body added
-(`fused_product_small`) on the card.
+(`fused_product_small`) on the card.  A GGSW's other columns are rebuilt
+from the permuted column 0 by the GGLWE → GGSW expansion.
 """
 
 from __future__ import annotations
 
+from poulpy_tpu_torch.core.conversion import ggsw_from_gglwe
 from poulpy_tpu_torch.core.keyswitching import glwe_keyswitch
-from poulpy_tpu_torch.core.layouts import GGLWECiphertext, GLWECiphertext
+from poulpy_tpu_torch.core.layouts import GGLWECiphertext, GGSWCiphertext, GLWECiphertext
 from poulpy_tpu_torch.core.operations import glwe_add
 from poulpy_tpu_torch.core.prepared import GLWEAutomorphismKeyPrepared
 from poulpy_tpu_torch.hal.module import Module
@@ -23,11 +25,16 @@ def glwe_automorphism(module: Module, a: GLWECiphertext, key: GLWEAutomorphismKe
     return ks.replace(data=vec_znx_automorphism(key.p, ks.data))
 
 
-def ggsw_automorphism(module: Module, a, key: GLWEAutomorphismKeyPrepared, tsk):
-    """φ_p of a GGSW ciphertext: φ_p on column 0 of every gadget row, then
-    the other columns rebuilt through the GGLWE → GGSW key."""
-    raise NotImplementedError("ggsw_automorphism needs conversion.ggsw_from_gglwe and the "
-                              "GGLWE → GGSW key, which come with circuit bootstrapping")
+def ggsw_automorphism(module: Module, a: GGSWCiphertext, key: GLWEAutomorphismKeyPrepared,
+                      tsk) -> GGSWCiphertext:
+    """φ_p of a GGSW ciphertext: φ_p on column 0 of every gadget row (one
+    keyswitch batched over the rows), then the other columns rebuilt through
+    the GGLWE → GGSW key `tsk` (`conversion.ggsw_from_gglwe`)."""
+    col0 = GLWECiphertext(data=a.data[..., :, 0, :, :, :], base2k=a.base2k, k=a.k)
+    auto = glwe_automorphism(module, col0, key)
+    gglwe = GGLWECiphertext(data=auto.data[..., :, None, :, :, :], base2k=auto.base2k, k=auto.k,
+                            dsize=a.dsize)
+    return ggsw_from_gglwe(module, gglwe, tsk)
 
 
 def glwe_automorphism_key_automorphism(module: Module, a: GGLWECiphertext, a_p: int,

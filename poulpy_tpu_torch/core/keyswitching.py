@@ -1,12 +1,14 @@
-"""GLWE key switching: twin of `poulpy_tpu/core/keyswitching.py` (the
-port's part).
+"""Key switching of GLWE, GGLWE, GGSW and LWE ciphertexts: twin of
+`poulpy_tpu/core/keyswitching.py`.
 
 The mask limbs go through one fused product with the prepared key and the
 body is added to column 0 of the big accumulator before the normalization:
 one CUDA launch for a CUDA batch (`fused_glwe_product(small=…)`, or the MXU
 route that `route` asks for), the plain stage chain for a CPU one.  A key whose product bound exceeds 62 bits takes
 the wide (i128-twin) exit, `fused_glwe_product_wide` with the body as
-column 0 of its per-column `small`.
+column 0 of its per-column `small`.  The GGLWE, GGSW and LWE keyswitches
+are layers over `glwe_keyswitch` (the GGSW's rebuilds its other columns
+through `conversion.ggsw_from_gglwe`).
 """
 
 from __future__ import annotations
@@ -15,8 +17,15 @@ import torch
 
 from poulpy_tpu_torch.backends.mxu_product import glwe_product
 from poulpy_tpu_torch.backends.wide import fused_glwe_product_wide
-from poulpy_tpu_torch.core.layouts import GLWECiphertext, glwe_size
-from poulpy_tpu_torch.core.prepared import GGLWEPrepared
+from poulpy_tpu_torch.core.encryption import glwe_switching_key_encrypt_sk
+from poulpy_tpu_torch.core.layouts import (
+    GGLWECiphertext,
+    GGSWCiphertext,
+    GLWECiphertext,
+    LWECiphertext,
+    glwe_size,
+)
+from poulpy_tpu_torch.core.prepared import GGLWEPrepared, gglwe_prepare, glwe_secret_prepare
 from poulpy_tpu_torch.hal import dft
 from poulpy_tpu_torch.hal.module import Module
 from poulpy_tpu_torch.hal.normalization import vec_znx_normalize_full
@@ -71,3 +80,50 @@ def glwe_normalize(module: Module, a: GLWECiphertext, base2k: int, k: int) -> GL
     del module
     data = vec_znx_normalize_full(glwe_size(base2k, k), base2k, 0, a.data, a.base2k)
     return GLWECiphertext(data=data, base2k=base2k, k=k)
+
+
+def gglwe_keyswitch(module: Module, a: GGLWECiphertext, key: GGLWEPrepared,
+                    res_base2k: int | None = None, res_k: int | None = None) -> GGLWECiphertext:
+    """Every (row, column) sub-ciphertext of a GGLWE keyswitched, the
+    (dnum, rank_in) axes as batch axes of one `glwe_keyswitch`."""
+    if a.rank_out != key.rank_in:
+        raise ValueError(f"a GGLWE of rank_out {a.rank_out} under a key of rank_in {key.rank_in}")
+    ks = glwe_keyswitch(module, GLWECiphertext(data=a.data, base2k=a.base2k, k=a.k), key,
+                        res_base2k, res_k)
+    return GGLWECiphertext(data=ks.data, base2k=ks.base2k, k=ks.k, dsize=a.dsize)
+
+
+def ggsw_keyswitch(module: Module, a: GGSWCiphertext, key: GGLWEPrepared, tsk,
+                   res_base2k: int | None = None, res_k: int | None = None) -> GGSWCiphertext:
+    """GGSW keyswitch s_in → s_out: column 0 of every gadget row keyswitched
+    (batched over dnum), the other columns rebuilt from it through the
+    GGLWE → GGSW key `tsk` under s_out (`conversion.ggsw_from_gglwe`)."""
+    from poulpy_tpu_torch.core.conversion import ggsw_from_gglwe  # conversion imports this module
+
+    col0 = GLWECiphertext(data=a.data[..., :, 0, :, :, :], base2k=a.base2k, k=a.k)
+    ks = glwe_keyswitch(module, col0, key, res_base2k, res_k)
+    gglwe = GGLWECiphertext(data=ks.data[..., :, None, :, :, :], base2k=ks.base2k, k=ks.k,
+                            dsize=a.dsize)
+    return ggsw_from_gglwe(module, gglwe, tsk)
+
+
+def lwe_keyswitch(module: Module, a: LWECiphertext, ksk: GGLWEPrepared, n_lwe_out: int,
+                  res_base2k: int | None = None, res_k: int | None = None) -> LWECiphertext:
+    """LWE → LWE: embed into a rank-1 GLWE, keyswitch with the key between
+    the embedded LWE secrets, extract coefficient 0."""
+    from poulpy_tpu_torch.core.conversion import lwe_as_glwe, lwe_sample_extract
+
+    ks = glwe_keyswitch(module, lwe_as_glwe(module, a), ksk, res_base2k, res_k)
+    return lwe_sample_extract(ks, n_lwe_out, ks.k)
+
+
+def lwe_switching_key_encrypt_sk(module: Module, sk_lwe_in, sk_lwe_out, base2k: int, k: int,
+                                 dnum: int, source_xe, source_xa, **kw) -> GGLWEPrepared:
+    """The prepared switching key between the φ_{-1}-embedded images of two
+    LWE secrets."""
+    from poulpy_tpu_torch.core.conversion import lwe_secret_as_glwe
+
+    sk_out = glwe_secret_prepare(module, lwe_secret_as_glwe(module, sk_lwe_out))
+    ksk = glwe_switching_key_encrypt_sk(module, lwe_secret_as_glwe(module, sk_lwe_in), sk_out,
+                                        base2k, k, dnum, source_xe, source_xa, **kw)
+    return gglwe_prepare(module, ksk)

@@ -55,6 +55,11 @@ def vec_znx_mul_xp_minus_one(p, a):
     return znx.znx_rotate(p, a) - a
 
 
+def vec_znx_switch_ring(n_out: int, a):
+    """Every limb to the ring of degree `n_out` (see znx.znx_switch_ring)."""
+    return znx.znx_switch_ring(n_out, a)
+
+
 def encode_vec_i64(base2k: int, k: int, size: int, data):
     """Encode integer coefficients at torus precision 2^-k into a normalized
     `size`-limb vector: place data at limb ceil(k/base2k)-1 and normalize

@@ -56,3 +56,17 @@ def znx_automorphism(p: int, a):
     idx, sign = _automorphism_tables(n, int(p) & (2 * n - 1))
     idx = torch.from_numpy(idx).to(a.device)
     return torch.index_select(a, -1, idx) * torch.from_numpy(sign).to(a.device)
+
+
+def znx_switch_ring(n_out: int, a):
+    """Change the ring degree: downscaling keeps every (n_in/n_out)-th
+    coefficient; upscaling spreads the coefficients n_out/n_in slots apart
+    (the X → X^{n_out/n_in} embedding)."""
+    n_in = a.shape[-1]
+    if n_out == n_in:
+        return a
+    if n_out < n_in:
+        return a[..., :: n_in // n_out]
+    out = torch.zeros(a.shape[:-1] + (n_out,), dtype=a.dtype, device=a.device)
+    out[..., :: n_out // n_in] = a
+    return out

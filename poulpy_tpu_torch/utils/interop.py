@@ -2,11 +2,14 @@
 
 An object crosses as its class name plus a dict of fields: arrays as numpy,
 parameters (`base2k`, `k`, `dsize`, `dist`, …) as Python values, a nested
-layout (a CKKS ciphertext's `glwe` and `meta`, an automorphism key's `key`)
-as its own (name, fields), and a dict of layouts (a tensor key's `keys`,
-keyed by (i, j)) as a dict of (name, fields).  The field names are the JAX
-package's, so any object with one of the class names below and those
-dataclass fields converts, without this module importing JAX:
+layout (a CKKS ciphertext's `glwe` and `meta`, an automorphism key's `key`,
+a circuit-bootstrapping key's `brk`) as its own (name, fields), a dict of
+layouts (a tensor key's `keys`, keyed by (i, j); a circuit-bootstrapping
+key's `atk`, keyed by Galois element) as a dict of (name, fields), and a
+list of layouts (a circuit-bootstrapping key's `tsk`) as a list of them.
+The field names are the JAX package's, so any object with one of the class
+names below and those dataclass fields converts, without this module
+importing JAX:
 
     port_obj = from_fields(*to_fields(jax_obj), device="cuda")
     name, fields = to_fields(port_obj)      # numpy arrays, ready for jnp.asarray
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from poulpy_tpu_torch.binfhe.blind_rotation import BlindRotationKeyPrepared
+from poulpy_tpu_torch.binfhe.circuit_bootstrapping import CircuitBootstrappingKey
 from poulpy_tpu_torch.binfhe.gates import BootstrapKeys, GateParams
 from poulpy_tpu_torch.binfhe.lut import LookupTable
 from poulpy_tpu_torch.ckks.layouts import CKKSCiphertext, CKKSMeta, CKKSPlaintext
@@ -54,7 +58,8 @@ CLASSES = {
                 GGSWCiphertext, GGSWPrepared, GGLWECiphertext, GGLWEPrepared, LWECiphertext,
                 LookupTable, BlindRotationKeyPrepared, GLWETensorKeyPrepared,
                 GLWEAutomorphismKeyPrepared, CKKSMeta, CKKSCiphertext, CKKSPlaintext,
-                CKKSPlaintextVecRnx, CKKSPlaintextCstRnx, CKKSPlaintextCstZnx)
+                CKKSPlaintextVecRnx, CKKSPlaintextCstRnx, CKKSPlaintextCstZnx,
+                CircuitBootstrappingKey)
 }
 
 _ARRAY_FIELDS = ("data", "pmat", "pmats", "coeffs")
@@ -79,6 +84,8 @@ def to_fields(obj) -> tuple[str, dict]:
             v = to_fields(v)
         elif isinstance(v, dict):
             v = {key: to_fields(x) for key, x in v.items()}
+        elif isinstance(v, list):
+            v = [to_fields(x) for x in v]
         fields[f.name] = v
     return name, fields
 
@@ -106,5 +113,7 @@ def from_fields(name: str, fields: dict, device="cuda"):
             v = from_fields(*v, device=device)
         elif isinstance(v, dict):
             v = {key: from_fields(*x, device=device) for key, x in v.items()}
+        elif isinstance(v, list):
+            v = [from_fields(*x, device=device) for x in v]
         kw[f.name] = v
     return cls(**kw)

@@ -4,10 +4,10 @@ against poulpy_tpu's, bit for bit (tolerance 0).
 At N 64 on chip_smoke.py's CKKS basis (2 primes of 28 bits; base2k 17,
 ciphertext and key k 95, dnum 6): the Galois elements, the automorphism-key
 encryption, `glwe_automorphism` (through the port's keyswitch, its plain
-version here), `_add`, `_key_automorphism`, the GLWE / GGSW rotations and
-(X^p − 1)·ct, CKKS `rotate` / `rotate_by` / `conjugate` with their decoded
-slots, every function of `ckks/plaintext.py`, and the interop of the new
-layouts.
+version here), `_add`, `_key_automorphism`, `ggsw_automorphism`, the GLWE /
+GGSW rotations and (X^p − 1)·ct, CKKS `rotate` / `rotate_by` / `conjugate`
+with their decoded slots, every function of `ckks/plaintext.py`, and the
+interop of the new layouts.
 """
 
 import numpy as np
@@ -32,6 +32,7 @@ from poulpy_tpu_torch.ckks import ops as tck
 from poulpy_tpu_torch.ckks import plaintext as tpt
 from poulpy_tpu_torch.ckks.encoder import Encoder as TEncoder
 from poulpy_tpu_torch.core import automorphism as tauto
+from poulpy_tpu_torch.core import conversion as tconv
 from poulpy_tpu_torch.core import encryption as tenc
 from poulpy_tpu_torch.core import layouts as tlay
 from poulpy_tpu_torch.core import operations as tops
@@ -46,6 +47,7 @@ BASE2K, K_CT, K_KEY, DNUM, LOG_DELTA, LOG_BUDGET = 17, 95, 95, 6, 22, 30
 
 j_automorphism = jax.jit(jauto.glwe_automorphism, static_argnums=(0, 3, 4))
 j_automorphism_add = jax.jit(jauto.glwe_automorphism_add, static_argnums=0)
+j_ggsw_automorphism = jax.jit(jauto.ggsw_automorphism, static_argnums=0)
 j_gglwe_prepare = jax.jit(jprep.gglwe_prepare, static_argnums=0)
 j_mul_plain = jax.jit(jck.mul_plain, static_argnums=0)
 
@@ -146,9 +148,25 @@ def test_automorphism_key_automorphism(setup):
 
 
 def test_ggsw_automorphism_waits_for_circuit_bootstrapping(setup):
-    tm, _, _, _, keys, _ = setup
-    with pytest.raises(NotImplementedError, match="circuit bootstrapping"):
-        tauto.ggsw_automorphism(tm, None, keys["rot1"][1], None)
+    """ggsw_automorphism, which came with circuit bootstrapping: φ_5 of a
+    GGSW of X (k 68, dnum 3) through the rotation key and a GGLWE → GGSW
+    key (k 95, dnum 6) made by the port, against the JAX package's on the
+    same keys."""
+    tm, jm, sk, _, keys, _ = setup
+    skp = tprep.glwe_secret_prepare(tm, sk)
+    ptg = np.zeros(N, dtype=np.int64)
+    ptg[1] = 1
+    xe, xa = TSource(b"\x07" * 32), TSource(b"\x08" * 32)
+    ggsw = tenc.ggsw_encrypt_sk(tm, ptg, skp, BASE2K, 68, 3, xe, xa)
+    tsk = tconv.gglwe_to_ggsw_key_encrypt_sk(tm, sk, skp, BASE2K, K_KEY, DNUM, xe, xa)
+    have = tauto.ggsw_automorphism(tm, ggsw, keys["rot1"][1], tsk)
+    jtsk = [jprep.GGLWEPrepared(pmat=jnp.asarray(k.pmat.numpy()), base2k=k.base2k, k=k.k,
+                                dsize=k.dsize) for k in tsk]
+    jggsw = jlay.GGSWCiphertext(data=jnp.asarray(ggsw.data.numpy()), base2k=ggsw.base2k,
+                                k=ggsw.k, dsize=ggsw.dsize)
+    want = j_ggsw_automorphism(jm, jggsw, _jkey(keys["rot1"][1]), jtsk)
+    assert _eq(have.data, want.data) and (have.base2k, have.k, have.dsize) == (
+        want.base2k, want.k, want.dsize)
 
 
 @pytest.mark.parametrize("batched", [False, True])

@@ -107,8 +107,12 @@ def test_lookup_table_new(f_len, f_k, rot_dir):
     assert (have.drift, have.rot_dir, have.size, have.k) == (want.drift, want.rot_dir, want.size,
                                                              want.k)
     assert _eq(tlut.lookup_table_rotate(have, -7).data, jlut.lookup_table_rotate(want, -7).data)
-    with pytest.raises(NotImplementedError):
-        tlut.lookup_table_new(N_GLWE, 17, 34, f, f_k, extension_factor=2, device="cpu")
+    # the LUT over two polynomials (domain 2N) and its rotation
+    want = jlut.lookup_table_new(N_GLWE, 17, 34, f, f_k, extension_factor=2, rot_dir=rot_dir)
+    have = tlut.lookup_table_new(N_GLWE, 17, 34, f, f_k, extension_factor=2, rot_dir=rot_dir,
+                                 device="cpu")
+    assert _eq(have.data, want.data) and have.drift == want.drift
+    assert _eq(tlut.lookup_table_rotate(have, -7).data, jlut.lookup_table_rotate(want, -7).data)
 
 
 # ---- keys, encryption, blind rotation --------------------------------------------
