@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fourteen paths of the port run, each with the launch counters set to 0 just
+Sixteen paths of the port run, each with the launch counters set to 0 just
 before it and read just after:
 
 - the product path, the headline operation of bench.py: a batched GLWE ×
@@ -44,7 +44,17 @@ before it and read just after:
   log_domain 1, to-constant; cbt with a binary secret of n_lwe 574 (one
   fused product per coefficient), cbt_block8 with a block-binary one of 576
   in blocks of 8 (one block step per block); then the trace (one keyswitch
-  per level and digit) and the GGSW expansion (NTT and VMP kernels).
+  per level and digit) and the GGSW expansion (NTT and VMP kernels);
+- fheuint_add, bench_schemes.py's FheUint u32 add (after poulpy-bench
+  bdd_arithmetic.rs): N 1024 on get_module(1024, 2, 28), a block-binary LWE
+  secret of 679 in blocks of 7, base2k 15, ciphertexts k 30, CBT keys k 60
+  dnum 4, the GLWE → LWE key k 30 dnum 2, selectors k 45 dnum 3: each
+  operand's 32 bits circuit-bootstrapped in one batch (`fheuint_prepare`:
+  the GLWE → LWE keyswitch, 97 block steps, the trace, the expansion),
+  then the add's 1,584 BDD nodes, one CMux (one fused product) each;
+- blind_retrieval, on fheuint_add's keys: 256 FheUint u32 GLWEs read at an
+  encrypted 8-bit index through the streaming retriever, the CMux tree and
+  the butterfly of conditional swaps.
 
 The seven paths before the MXU paths run as they would without them: the
 three set-ups the MXU paths reuse wait on the host meanwhile; the two CBT
@@ -200,7 +210,29 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  rotation, the trace and the expansion run apart, the
                  device synchronised between them, each with its
                  launches and a profile (device busy), their result equal
-                 to the CBT's.
+                 to the CBT's;
+ 17. fheuint_add set-up from bench_schemes.py's seeds (set-up seconds; a
+                 public key, whose encryption of 0xDEADBEEF's bits on the
+                 card equals the port's CPU run and decrypts exactly); the
+                 three operands prepared (seconds per operand); the prepare
+                 of a 4-bit FheUint and the add of the 32-bit pair on the
+                 card equal the port's CPU runs; the warm-up add 255 + 30,
+                 whose fingerprint equals the JAX package's
+                 (FHEUINT_ADD_FINGERPRINT) and which decrypts to 285; 3 timed
+                 adds on bench_schemes.py's pairs, ending in a host
+                 checksum, each decrypted (adds/s, launches per add:
+                 fused_product must equal the 1,584 CMuxes, peak memory); a
+                 profiled add (device busy); each of the ten other ops on
+                 (255, 30), decrypting to Python's int semantics, one
+                 fused_product per CMux; phase 3 holds the CMux product
+                 (batch 1 and 64), the prepare's two keyswitch shapes and
+                 the block step at block 7, after a line naming the
+                 instance each takes;
+ 18. blind_retrieval  the index prepared (`fheuint_prepare`, width 8); the
+                 streaming retriever equals `blind_select` bit for bit and
+                 decrypts to the entry, the butterfly puts it at position 0
+                 and its reverse restores all 256; each timed with its
+                 launches.
 
 Only the five *_mxu paths may launch an MXU kernel.  After each path the
 NTT kernel's launches per (direction, primes, N, rows per prime, prime
@@ -271,6 +303,25 @@ CBT_BLOCK8_FINGERPRINT = 1190505081
 # fresh GLWE, whose 13-bit digits fill every coefficient, decrypts to noise
 # over the whole torus (the JAX package reads errors of 2^25 at this scale).
 CBT_MSG_SEED, CBT_DECRYPT_BOUND = 11, 2 * 293679
+# the fheuint_add and blind_retrieval paths: bench_schemes.py bench_u32_add (after
+# poulpy-bench bdd_arithmetic.rs's Add): N 1024 on get_module(1024, 2, 28), a
+# binary_block LWE secret of 679 in blocks of 7, base2k 15, rank 1, FheUint
+# ciphertexts k 30, selectors (the CBT's GGSWs) k 45 dnum 3, CBT keys k 60 dnum 4,
+# the GLWE → LWE key k 30 dnum 2; operands 255, 30 (the reference bench's) and 77
+# at width 32, the warm-up add (255, 30), the timed pairs (30, 77), (77, 255),
+# (30, 255)
+BDD_N, BDD_N_LWE, BDD_BLOCK, BDD_BASE2K = 1024, 679, 7, 15
+BDD_K_CT, BDD_K_GGSW, BDD_DNUM_GGSW, BDD_K_CBT, BDD_DNUM_CBT, BDD_DNUM_KS = 30, 45, 3, 60, 4, 2
+BDD_WIDTH, BDD_VALUES, BDD_PAIRS, BDD_VERIFY_WIDTH = 32, (255, 30, 77), ((1, 2), (2, 0), (1, 0)), 4
+# sum(|data| mod 65536) of the warm-up add at that configuration and those
+# seeds, computed by the JAX package on the CPU (tests/test_torch_bdd.py::
+# test_fheuint_add_fingerprint_full_config recomputes it); the u32 add's BDDs
+# have 1,584 nodes, one CMux (one fused_product launch) each
+FHEUINT_ADD_FINGERPRINT = 33915379
+FHEUINT_ADD_CMUXES = 1584
+# blind_retrieval: BR_ENTRIES FheUint u32 GLWEs read at an encrypted
+# BR_INDEX_WIDTH-bit index
+BR_ENTRIES, BR_INDEX_WIDTH, BR_INDEX, BR_SEED = 256, 8, 173, 21
 
 
 @dataclass(frozen=True)
@@ -369,6 +420,10 @@ PATHS = {
                        "fused_mxu_product", "fused_mxu_product_small"),
     "cbt": ("fused_product", "fused_product_small", "ntt_forward", "ntt_inverse", "vmp"),
     "cbt_block8": ("br_block_step", "fused_product_small", "ntt_forward", "ntt_inverse", "vmp"),
+    "fheuint_add": ("fused_product", "fused_product_small", "br_block_step", "ntt_forward",
+                    "ntt_inverse", "vmp"),
+    "blind_retrieval": ("fused_product", "fused_product_small", "br_block_step",
+                        "ntt_forward", "ntt_inverse", "vmp"),
 }
 
 
@@ -808,7 +863,8 @@ def phase_kernels(m, gm, wm) -> dict:
                                                       k.base2k, 1, rot_body),
     }
     cbt, cbt_parents = cbt_cases(gm)
-    return check_kernels({**cases, **cbt}, {**parents, **cbt_parents})
+    bdd, bdd_parents = bdd_cases(gm)
+    return check_kernels({**cases, **cbt, **bdd}, {**parents, **cbt_parents, **bdd_parents})
 
 
 def cbt_cases(gm) -> tuple:
@@ -819,7 +875,10 @@ def cbt_cases(gm) -> tuple:
 
     from poulpy_tpu_torch.backends import fused
 
-    phase_cbt_instances(gm)
+    # the CBT paths: N 1024, P 2, acc and output 2 limbs, keys psize 4, dnum 3
+    phase_instances(gm, "cbt_instances", (("fused_product@cbt", 4, 4, 2, 0),
+                                          ("fused_product_small@cbt", 2, 4, 2, 0),
+                                          ("br_block_step@cbt", 4, 4, 2, CBT_BLOCK)))
     gen = torch.Generator(device=gm.device).manual_seed(6)
 
     def ints(lo, hi, shape):
@@ -881,25 +940,23 @@ def cbt_cases(gm) -> tuple:
     return cases, parents
 
 
-def phase_cbt_instances(gm) -> None:
-    """The instance each butterfly kernel of the CBT paths takes at their
-    shapes (N 1024, P 2, acc and output 2 limbs, keys psize 4, dnum 3):
-    specialised where its `fused.LAZY_SHAPES` key has one, else the
-    runtime-shaped instance of the lazy design."""
+def phase_instances(gm, phase: str, rows: tuple) -> None:
+    """The instance each butterfly kernel takes at its path's shape (N and P
+    of `gm`, two output columns; `rows`: name, KK, psize, res_size, block,
+    0 for a product): specialised where its `fused.LAZY_SHAPES` key has
+    one, else the runtime-shaped instance of the lazy design."""
     from poulpy_tpu_torch.backends import fused
 
-    rows = {}
-    for name, kk, co, block in (("fused_product@cbt", 4, 2, 0),
-                                ("fused_product_small@cbt", 2, 2, 0),
-                                ("br_block_step@cbt", 4, 2, CBT_BLOCK)):
-        lay = fused.butterfly_layout(kk, co, 4, gm.nprimes, gm.n, 2, block=block,
+    out = {}
+    for name, kk, psize, res, block in rows:
+        lay = fused.butterfly_layout(kk, 2, psize, gm.nprimes, gm.n, res, block=block,
                                      split=not block)
-        shape = (block > 0, gm.log_n, kk, lay.cpb * 4, gm.nprimes, 4, 2)
-        rows[name] = dict(design=lay.kind, lazy_shape=list(shape), cols_per_block=lay.cpb,
-                          ciphertexts_per_block=lay.tile, smem=lay.smem,
-                          instance="specialised" if shape in fused.LAZY_SHAPES
-                          else "runtime-shaped")
-    emit(phase="cbt_instances", **rows)
+        shape = (block > 0, gm.log_n, kk, lay.cpb * psize, gm.nprimes, psize, res)
+        out[name] = dict(design=lay.kind, lazy_shape=list(shape), cols_per_block=lay.cpb,
+                         ciphertexts_per_block=lay.tile, smem=lay.smem,
+                         instance="specialised" if shape in fused.LAZY_SHAPES
+                         else "runtime-shaped")
+    emit(phase=phase, **out)
 
 
 def phase_kernels_mxu(m, km, gm) -> dict:
@@ -2371,6 +2428,378 @@ def run_cbt_path(name: str, n_lwe: int, block: int, device, fingerprint: int | N
     phase_cbt_bench(name, setup, fingerprint)
 
 
+def plain_semantics(op: str, a: int, b: int, w: int) -> int:
+    """Python's int semantics of each BDD op at width w (a copy of
+    tests/test_bdd_circuits.py's oracle): shift amounts are the low log2(w)
+    bits of b, slt compares signed, sra fills with the sign."""
+    mask = (1 << w) - 1
+    amt = b & ((1 << (w - 1).bit_length()) - 1)
+
+    def signed(x):
+        return x - (1 << w) if x & (1 << (w - 1)) else x
+
+    return {
+        "add": lambda: (a + b) & mask, "sub": lambda: (a - b) & mask,
+        "and": lambda: a & b, "or": lambda: a | b, "xor": lambda: a ^ b,
+        "slt": lambda: int(signed(a) < signed(b)), "sltu": lambda: int(a < b),
+        "sll": lambda: (a << amt) & mask, "srl": lambda: a >> amt,
+        "sra": lambda: (signed(a) >> amt) & mask, "identity": lambda: a,
+    }[op]()
+
+
+def cmux_count(op: str, width: int) -> int:
+    """The CMuxes `fheuint_op` evaluates: the nodes reachable from each
+    output bit's root."""
+    from poulpy_tpu_torch.binfhe.bdd import bdd_circuit
+
+    total = 0
+    for bdd in bdd_circuit(op, width):
+        seen, todo = set(), [bdd.root]
+        while todo:
+            ref = todo.pop()
+            if ref < 0 or ref in seen:
+                continue
+            seen.add(ref)
+            todo += bdd.nodes[ref][1:]
+        total += len(seen)
+    return total
+
+
+def bdd_setup(device) -> dict:
+    """bench_schemes.py bench_u32_add's set-up: Source(bytes(32)) draws the
+    block-binary LWE secret then the GLWE secret; from Source 0x03 / 0x04
+    the CBT key, the GLWE → LWE key, then the operands 255, 30 and 77 at
+    width 32; then a public key (Source 0x05 / 0x06)."""
+    import torch
+
+    from poulpy_tpu_torch.binfhe.bdd import BDDKey, fheuint_encrypt
+    from poulpy_tpu_torch.binfhe.circuit_bootstrapping import circuit_bootstrapping_keygen
+    from poulpy_tpu_torch.core import encryption as enc
+    from poulpy_tpu_torch.core.conversion import glwe_to_lwe_key_encrypt_sk
+    from poulpy_tpu_torch.core.prepared import glwe_secret_prepare
+    from poulpy_tpu_torch.hal.module import get_module
+    from poulpy_tpu_torch.hal.source import Source
+
+    m = get_module(BDD_N, 2, 28, device)
+    src, xe, xa = Source(bytes(32)), Source(b"\x03" * 32), Source(b"\x04" * 32)
+    sk_lwe = src.binary_block(BDD_N_LWE, BDD_BLOCK)
+    sk = enc.secret_new(m, 1, src)
+    skp = glwe_secret_prepare(m, sk)
+    k, d = BDD_K_CBT, BDD_DNUM_CBT
+    cbt_key = circuit_bootstrapping_keygen(m, sk_lwe, sk, skp, BDD_BASE2K, k, d, k, d, k, d, xe,
+                                           xa, block_size=BDD_BLOCK)
+    ks_lwe = glwe_to_lwe_key_encrypt_sk(m, torch.from_numpy(sk_lwe).to(m.device), sk, BDD_BASE2K,
+                                        BDD_K_CT, dnum=BDD_DNUM_KS, source_xe=xe, source_xa=xa)
+    key = BDDKey(cbt=cbt_key, ks_lwe=ks_lwe, n_lwe=BDD_N_LWE, base2k=BDD_BASE2K, k_ct=BDD_K_CT,
+                 dnum_ggsw=BDD_DNUM_GGSW, k_ggsw=BDD_K_GGSW)
+    cts = [fheuint_encrypt(m, v, BDD_WIDTH, skp, BDD_BASE2K, BDD_K_CT, xe, xa)
+           for v in BDD_VALUES]
+    return dict(m=m, sk=sk, skp=skp, key=key, cts=cts)
+
+
+def pk_encrypt(m, skp, value: int):
+    """A public key of `skp` (k 30, Source 0x05 / 0x06) and the public-key
+    encryption of `value`'s BDD_WIDTH bits at torus 1/4 (u from Source 0x0b,
+    the noise from 0x06)."""
+    import torch
+
+    from poulpy_tpu_torch.core import encryption as enc
+    from poulpy_tpu_torch.core.layouts import GLWEPlaintext
+    from poulpy_tpu_torch.hal import vec_znx
+    from poulpy_tpu_torch.hal.source import Source
+
+    xe, xa, xu = Source(b"\x05" * 32), Source(b"\x06" * 32), Source(b"\x0b" * 32)
+    pk = enc.glwe_public_key_generate(m, skp, BDD_BASE2K, BDD_K_CT, xe, xa)
+    pkp = enc.glwe_public_key_prepare(m, pk)
+    bits = torch.zeros(m.n, dtype=torch.int64)
+    bits[:BDD_WIDTH] = torch.tensor([(value >> j) & 1 for j in range(BDD_WIDTH)])
+    pt = GLWEPlaintext(data=vec_znx.encode_vec_i64(BDD_BASE2K, 2, 1, bits.to(m.device)),
+                       base2k=BDD_BASE2K, k=2)
+    return enc.glwe_encrypt_pk(m, pt, pkp, BDD_BASE2K, BDD_K_CT, xu, xe)
+
+
+def phase_bdd_verify(setup) -> None:
+    """Card == the port's CPU run: the public-key encryption (which must
+    decrypt exactly), the prepare of a BDD_VERIFY_WIDTH-bit FheUint, and
+    the add of the full-width prepared operands moved to the CPU."""
+    import torch
+
+    from poulpy_tpu_torch.binfhe.bdd import FheUint, fheuint_decrypt, fheuint_op, fheuint_prepare
+    from poulpy_tpu_torch.hal.module import get_module
+
+    m, key, skp = setup["m"], setup["key"], setup["skp"]
+    cpu = torch.device("cpu")
+    mc, key_c, skp_c = get_module(m.n, m.nprimes, 28, cpu), moved(key, cpu), moved(skp, cpu)
+    checks, seconds = {}, {}
+    pk_value = 0xDEADBEEF
+    ct = pk_encrypt(m, skp, pk_value)
+    checks["pk_card_vs_cpu_bit_exact"] = bool(torch.equal(ct.data.cpu(),
+                                                          pk_encrypt(mc, skp_c, pk_value).data))
+    checks["pk_decrypts_exactly"] = fheuint_decrypt(m, FheUint(glwe=ct, width=BDD_WIDTH),
+                                                    skp) == pk_value
+    small = FheUint(glwe=setup["cts"][0].glwe, width=BDD_VERIFY_WIDTH)
+    t0 = time.perf_counter()
+    have = fheuint_prepare(m, small, key)
+    sync(m.device)
+    t1 = time.perf_counter()
+    want = fheuint_prepare(mc, moved(small, cpu), key_c)
+    seconds["prepare"] = dict(card_s=t1 - t0, cpu_s=time.perf_counter() - t1)
+    checks["prepare_card_vs_cpu_bit_exact"] = all(
+        torch.equal(h.pmat.cpu(), w.pmat) for h, w in zip(have.bits, want.bits, strict=True))
+    pa, pb = setup["prepared"][:2]
+    t0 = time.perf_counter()
+    have = fheuint_op(m, "add", pa, pb, BDD_BASE2K, BDD_K_CT)
+    sync(m.device)
+    t1 = time.perf_counter()
+    want = fheuint_op(mc, "add", moved(pa, cpu), moved(pb, cpu), BDD_BASE2K, BDD_K_CT)
+    seconds["add"] = dict(card_s=t1 - t0, cpu_s=time.perf_counter() - t1)
+    checks["add_card_vs_cpu_bit_exact"] = bool(torch.equal(have.data.cpu(), want.data))
+    emit(phase="fheuint_add_verify", verify_width=BDD_VERIFY_WIDTH, seconds=seconds, **checks)
+    if not all(checks.values()):
+        raise SystemExit(f"fheuint_add verify failed: {checks}")
+
+
+def phase_bdd_bench(setup, fingerprint: int | None) -> None:
+    """bench_schemes.py's timing: 1 warm-up add 255 + 30 (its fingerprint,
+    decrypting to 285), 3 timed adds on its distinct pairs ending in a host
+    checksum, each decrypted; launches per add (fused_product must equal
+    the CMuxes the circuit evaluates); a profiled add; then each of the ten
+    other ops once on (255, 30), decrypted against Python's ints."""
+    import torch
+
+    from poulpy_tpu_torch.backends import LAUNCHES
+    from poulpy_tpu_torch.binfhe.bdd import FheUint, bdd_circuit, fheuint_decrypt, fheuint_op
+
+    m, skp, prepared = setup["m"], setup["skp"], setup["prepared"]
+    cuda = m.device.type == "cuda"
+
+    def op(name, a, b):
+        return fheuint_op(m, name, prepared[a], prepared[b], BDD_BASE2K, BDD_K_CT)
+
+    def value(out, width=BDD_WIDTH):
+        return fheuint_decrypt(m, FheUint(glwe=out, width=width), skp)
+
+    def checksum(outs):
+        return sum(int((o.data.abs() % 65536).sum()) for o in outs)
+
+    cmuxes = cmux_count("add", BDD_WIDTH)
+    out = op("add", 0, 1)
+    fp, got = checksum([out]), value(out)
+    emit(phase="fheuint_add_warmup", fingerprint=fp, fingerprint_expected=fingerprint,
+         decrypted=got, cmuxes=cmuxes, shape=list(out.data.shape))
+    if fingerprint is not None and fp != fingerprint:
+        raise SystemExit(f"fheuint_add warm-up: fingerprint {fp} != {fingerprint}")
+    if got != plain_semantics("add", BDD_VALUES[0], BDD_VALUES[1], BDD_WIDTH) \
+            or cmuxes != FHEUINT_ADD_CMUXES:
+        raise SystemExit(f"fheuint_add warm-up: {got}, {cmuxes} CMuxes")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    before = dict(LAUNCHES)
+    sync(m.device)
+    t0 = time.perf_counter()
+    outs = [op("add", a, b) for a, b in BDD_PAIRS]
+    total = checksum(outs)
+    dt = time.perf_counter() - t0
+    per_add = {k: (LAUNCHES[k] - before[k]) / len(BDD_PAIRS) for k in LAUNCHES
+               if LAUNCHES[k] != before[k]}
+    got = [value(o) for o in outs]
+    want = [plain_semantics("add", BDD_VALUES[a], BDD_VALUES[b], BDD_WIDTH) for a, b in BDD_PAIRS]
+    ms = dt / len(BDD_PAIRS) * 1e3
+    emit(phase="fheuint_add_bench", width=BDD_WIDTH, iters=len(BDD_PAIRS), ms_per_add=ms,
+         adds_per_s=1e3 / ms, checksum=total, decrypted=got, expected=want,
+         launches_per_add=per_add, cmuxes=cmuxes,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None)
+    if got != want:
+        raise SystemExit(f"fheuint_add: the timed adds decrypt to {got}, not {want}")
+    if cuda and per_add.get("fused_product") != cmuxes:
+        raise SystemExit(f"fheuint_add: {per_add.get('fused_product')} fused_product launches "
+                         f"per add, not one per CMux ({cmuxes})")
+    del outs
+    if cuda:
+        profile_once("fheuint_add_profile", lambda: op("add", 0, 1), ms)
+    rows = {}
+    for name in ("sub", "and", "or", "xor", "slt", "sltu", "sll", "srl", "sra", "identity"):
+        before = dict(LAUNCHES)
+        sync(m.device)
+        t0 = time.perf_counter()
+        out = op(name, 0, 1)
+        sync(m.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        got = value(out, len(bdd_circuit(name, BDD_WIDTH)))
+        want = plain_semantics(name, BDD_VALUES[0], BDD_VALUES[1], BDD_WIDTH)
+        rows[name] = dict(ms=ms, decrypted=got, expected=want, cmuxes=cmux_count(name, BDD_WIDTH),
+                          fused_product=LAUNCHES["fused_product"] - before["fused_product"])
+    emit(phase="fheuint_ops", width=BDD_WIDTH, operands=list(BDD_VALUES[:2]), ops=rows)
+    wrong = [k for k, v in rows.items() if v["decrypted"] != v["expected"]
+             or (cuda and v["fused_product"] != v["cmuxes"])]
+    if wrong:
+        raise SystemExit(f"fheuint ops wrong at width {BDD_WIDTH}: {wrong}")
+
+
+def run_fheuint_add_path(device, fingerprint: int | None) -> dict:
+    """The u32 add path: set-up (seconds), the three operands prepared
+    (seconds per operand), verify, bench.  Returns the set-up for the
+    blind_retrieval path."""
+    import torch
+
+    from poulpy_tpu_torch.binfhe.bdd import fheuint_prepare
+
+    t0 = time.perf_counter()
+    setup = bdd_setup(device)
+    sync(device)
+    setup_s = time.perf_counter() - t0
+    brk = setup["key"].cbt.brk
+    emit(phase="fheuint_add_setup", n_lwe=BDD_N_LWE, block_size=BDD_BLOCK,
+         keygen_encrypt_s=setup_s,
+         brk_pmats_mib=brk.pmats.numel() * brk.pmats.element_size() / 2**20,
+         allocated_gib=torch.cuda.memory_allocated() / 2**30 if device.type == "cuda" else None)
+    seconds = []
+    setup["prepared"] = []
+    for ct in setup["cts"]:
+        t0 = time.perf_counter()
+        setup["prepared"].append(fheuint_prepare(setup["m"], ct, setup["key"]))
+        sync(device)
+        seconds.append(time.perf_counter() - t0)
+    emit(phase="fheuint_prepare", width=BDD_WIDTH, seconds_per_operand=seconds)
+    phase_bdd_verify(setup)
+    phase_bdd_bench(setup, fingerprint)
+    return setup
+
+
+def run_blind_retrieval_path(setup) -> None:
+    """On the u32 add path's keys: a table of BR_ENTRIES FheUint u32 GLWEs
+    (values from default_rng(BR_SEED), encrypted from Source 0x07 / 0x08),
+    read at the encrypted BR_INDEX_WIDTH-bit index BR_INDEX (encrypted from
+    Source 0x09 / 0x0a, prepared by `fheuint_prepare`): the streaming
+    retriever equals `blind_select` bit for bit and decrypts to the entry;
+    the butterfly puts it at position 0 and its reverse restores every
+    position; each with its milliseconds and launches."""
+    import numpy as np
+
+    from poulpy_tpu_torch.backends import LAUNCHES
+    from poulpy_tpu_torch.binfhe import blind_retrieval as br
+    from poulpy_tpu_torch.binfhe.bdd import (
+        FheUint,
+        blind_select,
+        fheuint_decrypt,
+        fheuint_encrypt,
+        fheuint_prepare,
+    )
+    from poulpy_tpu_torch.hal.source import Source
+
+    m, skp, key = setup["m"], setup["skp"], setup["key"]
+    values = [int(v) for v in np.random.default_rng(BR_SEED).integers(0, 2**32, BR_ENTRIES)]
+    xe, xa = Source(b"\x07" * 32), Source(b"\x08" * 32)
+    t0 = time.perf_counter()
+    table = [fheuint_encrypt(m, v, BDD_WIDTH, skp, BDD_BASE2K, BDD_K_CT, xe, xa).glwe
+             for v in values]
+    idx = fheuint_encrypt(m, BR_INDEX, BR_INDEX_WIDTH, skp, BDD_BASE2K, BDD_K_CT,
+                          Source(b"\x09" * 32), Source(b"\x0a" * 32))
+    sync(m.device)
+    encrypt_s = time.perf_counter() - t0
+
+    def value(glwe):
+        return fheuint_decrypt(m, FheUint(glwe=glwe, width=BDD_WIDTH), skp)
+
+    rows = {}
+
+    def timed(name, fn):
+        before = dict(LAUNCHES)
+        sync(m.device)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(m.device)
+        rows[name] = dict(ms=(time.perf_counter() - t0) * 1e3, launches={
+            k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]})
+        return out
+
+    sel = timed("prepare_index", lambda: fheuint_prepare(m, idx, key))
+    stream = timed("retriever", lambda: br.GLWEBlindRetriever(BR_ENTRIES).retrieve(m, table, sel))
+    flat = timed("blind_select", lambda: blind_select(m, sel, table))
+    res = timed("blind_retrieval", lambda: br.glwe_blind_retrieval(m, table, sel))
+    back = timed("blind_retrieval_rev", lambda: br.glwe_blind_retrieval_rev(m, res, sel))
+    want = values[BR_INDEX]
+    checks = dict(retriever_equals_blind_select=bool((stream.data == flat.data).all()),
+                  retriever_decrypts=value(stream) == want,
+                  retrieval_position_0=value(res[0]) == want,
+                  rev_restores_every_position=[value(c) for c in back] == values)
+    emit(phase="blind_retrieval", entries=BR_ENTRIES, index_width=BR_INDEX_WIDTH, index=BR_INDEX,
+         entry=want, encrypt_s=encrypt_s, **rows, **checks)
+    if not all(checks.values()):
+        raise SystemExit(f"blind_retrieval failed: {checks}")
+
+
+def bdd_cases(gm) -> tuple:
+    """The butterfly kernels of the u32 add path against their plain
+    versions (cases, parents for `check_kernels`), on `gm` (get_module(1024,
+    2, 28)) with inputs of their own; prints the instance each takes first:
+    the CMux product (a ciphertext of 2 limbs by a selector of dnum 3, psize
+    3) unbatched as the evaluator calls it and stacked at batch 64; the
+    GLWE → LWE keyswitch of `fheuint_prepare` at batch 32 (2 limbs, key
+    dnum 2, psize 2, with the body); the CBT trace's keyswitch at batch 32
+    (3 limbs, key dnum 4, psize 4); the block step of 7 key elements at
+    batch 32 (accumulator of 3 limbs, key dnum 4, psize 4)."""
+    import torch
+
+    from poulpy_tpu_torch.backends import fused
+
+    gen = torch.Generator(device=gm.device).manual_seed(7)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=gm.device, dtype=torch.int64)
+
+    def residues(shape):
+        primes = torch.tensor(gm.basis.primes, device=gm.device)[:, None]
+        return (ints(0, 1 << 62, shape) % primes).to(torch.int32)
+
+    gn, gp, i32, i64, b2k = gm.n, gm.nprimes, 4, 8, BDD_BASE2K
+    phase_instances(gm, "bdd_instances", (("fused_product@cmux", 4, 3, 2, 0),
+                                          ("fused_product_small@fheuint_ks", 2, 2, 2, 0),
+                                          ("fused_product_small@fheuint_trace", 3, 4, 3, 0),
+                                          ("br_block_step@fheuint", 6, 4, 3, BDD_BLOCK)))
+    cmux_pmat = residues((BDD_DNUM_GGSW, 2, 2, 3, gp, gn))
+    cmux1 = ints(-(2**15), 2**15, (2, 2, gn))
+    cmux64 = ints(-(2**15), 2**15, (64, 2, 2, gn))
+    ks_a, ks_body = ints(-(2**14), 2**14, (32, 1, 2, gn)), ints(-(2**14), 2**14, (32, 2, gn))
+    ks_pmat = residues((BDD_DNUM_KS, 1, 2, 2, gp, gn))
+    tr_a, tr_body = ints(-(2**14), 2**14, (32, 1, 3, gn)), ints(-(2**14), 2**14, (32, 3, gn))
+    tr_pmat = residues((BDD_DNUM_CBT, 1, 2, 4, gp, gn))
+    acc = ints(-(2**14), 2**14, (32, 2, 3, gn))
+    brk = residues((BDD_BLOCK, BDD_DNUM_CBT, 2, 2, 4, gp, gn))
+    amounts = ints(-gn, gn + 1, (32, BDD_BLOCK))
+    pm_k = fused.pm_kernel_layout(brk, 3)
+    rows_used = int(torch.unique(amounts & (2 * gn - 1)).numel())
+    product, step = fused._product_launch, fused._block_step_launch
+    args = {
+        "fused_product@cmux": (cmux1, cmux_pmat, 2, None),
+        "fused_product@cmux64": (cmux64, cmux_pmat, 2, None),
+        "fused_product_small@fheuint_ks": (ks_a, ks_pmat, 2, ks_body),
+        "fused_product_small@fheuint_trace": (tr_a, tr_pmat, 3, tr_body),
+    }
+    cases, parents = {}, {}
+    for name, (a, pmat, res, body) in args.items():
+        B = a.numel() // (a.shape[-3] * a.shape[-2] * gn)
+        kk, mdim = a.shape[-3] * min(pmat.shape[0], a.shape[-2]), 2 * pmat.shape[3]
+        out_bytes = B * 2 * res * gn * i64
+        body_bytes = 0 if body is None else body.numel() * i64
+        cases[name] = (
+            lambda a=a, pmat=pmat, res=res, body=body: fused.fused_glwe_product(
+                gm, a, pmat, res, b2k, b2k, small=body),
+            lambda a=a, pmat=pmat, res=res, body=body: fused.fused_glwe_product_ref(
+                gm, a, pmat, res, b2k, b2k, small=body),
+            bound(a.numel() * i64 + body_bytes + out_bytes
+                  + pmat[:min(pmat.shape[0], a.shape[-2])].numel() * i32,
+                  fused_ops(B, kk, mdim, gp, gn)))
+        parents[name] = parent_run(product, gm, a, pmat, res, b2k, b2k, 1, body)
+    cases["br_block_step@fheuint"] = (
+        lambda: fused.fused_br_block_step(gm, acc, brk, amounts, 3, b2k, pm_k),
+        lambda: fused.fused_br_block_step_ref(gm, acc, brk, amounts, 3, b2k),
+        bound(2 * acc.numel() * i64 + amounts.numel() * i64 + pm_k.numel() * i32
+              + rows_used * gp * gn * i32, fused_ops(32, 6, 8, gp, gn, BDD_BLOCK)))
+    parents["br_block_step@fheuint"] = parent_run(step, gm, acc, brk, amounts, 3, b2k, pm_k)
+    return cases, parents
+
+
 def main() -> int:
     import torch
 
@@ -2440,13 +2869,16 @@ def main() -> int:
         "cbt": lambda: run_cbt_path("cbt", CBT_N_LWE, 1, m.device, CBT_FINGERPRINT, False),
         "cbt_block8": lambda: run_cbt_path("cbt_block8", CBT_BLOCK8_N_LWE, CBT_BLOCK, m.device,
                                            CBT_BLOCK8_FINGERPRINT, True),
+        "fheuint_add": lambda: shared.update(bdd=run_fheuint_add_path(m.device,
+                                                                      FHEUINT_ADD_FINGERPRINT)),
+        "blind_retrieval": lambda: run_blind_retrieval_path(shared["bdd"]),
     }
     # after each path: the set-ups it parks on the host until the MXU paths,
     # and those it leaves behind for the last time
     park = {"product": ("bench",), "gate": ("gate",), "keyswitch": ("keyswitch",)}
     last_use = {f"product_{ROUTES[-1]}": ("verify", "bench"),
                 f"keyswitch_{ROUTES[-1]}": ("keyswitch",), "ckks_rotate": ("ckks",),
-                "gate_fused_mxu": ("gate",)}
+                "gate_fused_mxu": ("gate",), "blind_retrieval": ("bdd",)}
     launches = dict.fromkeys(LAUNCHES, 0)
     ntt_rows = Counter()
     for path, run in runs.items():

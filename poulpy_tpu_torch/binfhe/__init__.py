@@ -1,1 +1,2 @@
-"""Gate bootstrapping: lookup tables, CGGI blind rotation and boolean gates."""
+"""Gate bootstrapping (lookup tables, CGGI blind rotation, boolean gates),
+circuit bootstrapping, BDD arithmetic on FheUint and blind retrieval."""

@@ -1,5 +1,5 @@
-"""Secret-key encryption for GLWE / GGLWE / GGSW / LWE, the secret key and
-the tensor (relinearization) key.
+"""Secret-key encryption for GLWE / GGLWE / GGSW / LWE, the secret key, the
+tensor (relinearization) key and GLWE public-key encryption.
 
 Twin of `poulpy_tpu/core/encryption.py` (the port's part).  Randomness is
 drawn on the host from the ChaCha8 `Source`, whole tensors at once and in
@@ -49,16 +49,21 @@ class NoiseInfos:
 
 def secret_new(module: Module, rank: int, source: Source, dist: str = "ternary_prob",
                **kw) -> GLWESecret:
-    """Sample a GLWE secret: `ternary_prob` (keyword `prob`, default 0.5) or
-    `ternary_hw` (keyword `hw`, the Hamming weight of each column).  The
-    binary distributions of the JAX package are not ported."""
+    """Sample a GLWE secret: `ternary_prob` / `binary_prob` (keyword `prob`,
+    default 0.5), `ternary_hw` (keyword `hw`, the Hamming weight of each
+    column) or `binary_block` (keyword `block_size`: in each block at most
+    one 1); `ValueError` for any other name."""
     n = module.n
     if dist == "ternary_prob":
         data = source.ternary_prob((rank, n), kw.get("prob", 0.5))
     elif dist == "ternary_hw":
         data = np.stack([source.ternary_hw(n, kw["hw"]) for _ in range(rank)])
+    elif dist == "binary_prob":
+        data = source.binary_prob((rank, n), kw.get("prob", 0.5))
+    elif dist == "binary_block":
+        data = np.stack([source.binary_block(n, kw["block_size"]) for _ in range(rank)])
     else:
-        raise NotImplementedError(f"secret distribution {dist!r} is not ported")
+        raise ValueError(dist)
     return GLWESecret(data=torch.from_numpy(data).to(module.device), dist=dist)
 
 
@@ -223,3 +228,46 @@ def ggsw_encrypt_sk(module: Module, pt, sk: GLWESecretPrepared, base2k: int, k: 
     ]
     data = torch.stack(cols, dim=-4)  # [..., dnum, rank+1, rank+1, size, N]
     return GGSWCiphertext(data=data, base2k=base2k, k=k, dsize=dsize)
+
+
+# ---- public-key encryption --------------------------------------------------------------
+
+def glwe_public_key_generate(module: Module, sk: GLWESecretPrepared, base2k: int, k: int,
+                             source_xe: Source, source_xa: Source, **kw) -> GLWECiphertext:
+    """The public key: an encryption of zero under `sk`."""
+    return glwe_encrypt_sk(module, None, sk, base2k, k, source_xe, source_xa, **kw)
+
+
+def glwe_public_key_prepare(module: Module, pk: GLWECiphertext):
+    """The DFT of every column of the public key, `[cols, size, P, N]`."""
+    return dft.dft_apply(module, pk.data)
+
+
+def glwe_encrypt_pk(module: Module, pt: GLWEPlaintext | None, pk_prepared, pk_base2k: int,
+                    pk_k: int, source_xu: Source, source_xe: Source,
+                    sigma: float = DEFAULT_SIGMA_XE, bound: float = DEFAULT_BOUND_XE,
+                    u_dist: str = "ternary_prob") -> GLWECiphertext:
+    """Public-key encryption: an ephemeral u from `source_xu` (`u_dist`
+    ternary_prob or binary_prob), then per column i ct_i = norm(iDFT(u ⊙
+    pk_i) + e_i), the noise drawn per column and added on the big
+    accumulator's noise limb, and pt (zero-padded or cut to its limbs)
+    added to column 0 before the normalization."""
+    size = glwe_size(pk_base2k, pk_k)
+    n = module.n
+    if u_dist == "ternary_prob":
+        u = source_xu.ternary_prob((n,))
+    elif u_dist == "binary_prob":
+        u = source_xu.binary_prob((n,))
+    else:
+        raise ValueError(u_dist)
+    u_dft = dft.svp_prepare(module, torch.from_numpy(u).to(module.device))
+    limb, scale = NoiseInfos(k=pk_k, sigma=sigma, bound=bound).target_limb_and_scale(pk_base2k)
+    cols = []
+    for i in range(pk_prepared.shape[-4]):
+        big = dft.idft_apply(module, dft.svp_apply(module, pk_prepared[..., i, :, :, :], u_dft))
+        e = source_xe.normal_f64((n,), sigma * scale, bound * scale).astype(np.int64)
+        big[..., limb, :] += torch.from_numpy(e).to(module.device)  # big is a fresh tensor
+        if pt is not None and i == 0:
+            big = big + dft._align_limbs(pt.data, big, big.shape[-2], limb_axis=-2)[0]
+        cols.append(dft.big_normalize(module, size, pk_base2k, big, pk_base2k))
+    return GLWECiphertext(data=torch.stack(cols, dim=-3), base2k=pk_base2k, k=pk_k)

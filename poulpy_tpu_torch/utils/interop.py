@@ -3,10 +3,12 @@
 An object crosses as its class name plus a dict of fields: arrays as numpy,
 parameters (`base2k`, `k`, `dsize`, `dist`, …) as Python values, a nested
 layout (a CKKS ciphertext's `glwe` and `meta`, an automorphism key's `key`,
-a circuit-bootstrapping key's `brk`) as its own (name, fields), a dict of
-layouts (a tensor key's `keys`, keyed by (i, j); a circuit-bootstrapping
-key's `atk`, keyed by Galois element) as a dict of (name, fields), and a
-list of layouts (a circuit-bootstrapping key's `tsk`) as a list of them.
+a circuit-bootstrapping key's `brk`, a FheUint's `glwe`, a BDD key's `cbt`,
+`ks_lwe` and `ks_glwe`) as its own (name, fields), a dict of layouts (a
+tensor key's `keys`, keyed by (i, j); a circuit-bootstrapping key's `atk`,
+keyed by Galois element) as a dict of (name, fields), a list of layouts (a
+circuit-bootstrapping key's `tsk`, a prepared FheUint's `bits`) as a list of
+them, and a missing optional layout (`ks_glwe`) as None.
 The field names are the JAX package's, so any object with one of the class
 names below and those dataclass fields converts, without this module
 importing JAX:
@@ -25,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from poulpy_tpu_torch.binfhe.bdd import BDDKey, FheUint, FheUintPrepared
 from poulpy_tpu_torch.binfhe.blind_rotation import BlindRotationKeyPrepared
 from poulpy_tpu_torch.binfhe.circuit_bootstrapping import CircuitBootstrappingKey
 from poulpy_tpu_torch.binfhe.gates import BootstrapKeys, GateParams
@@ -59,7 +62,7 @@ CLASSES = {
                 LookupTable, BlindRotationKeyPrepared, GLWETensorKeyPrepared,
                 GLWEAutomorphismKeyPrepared, CKKSMeta, CKKSCiphertext, CKKSPlaintext,
                 CKKSPlaintextVecRnx, CKKSPlaintextCstRnx, CKKSPlaintextCstZnx,
-                CircuitBootstrappingKey)
+                CircuitBootstrappingKey, BDDKey, FheUint, FheUintPrepared)
 }
 
 _ARRAY_FIELDS = ("data", "pmat", "pmats", "coeffs")

@@ -9,11 +9,13 @@ tests/test_binfhe.py uses them.  Every comparison is `np.array_equal`
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from poulpy_tpu.binfhe import blind_rotation as jbr
@@ -55,16 +57,34 @@ def _params(pkg, nprimes, bits, block):
                           block_size=block)
 
 
+@functools.partial(jax.jit, static_argnums=0)
+def _j_keys(params):
+    keys, sk = jgates.keygen(params)
+    return keys.brk, keys.to_lwe, keys.lut, sk
+
+
+def _j_keygen(params):
+    """The JAX package's `gates.keygen` under jax.jit (its eager key
+    preparation compiles for most of a minute per basis on the CPU; the
+    draws happen while tracing, as in the eager call), its BootstrapKeys
+    rebuilt around the jitted keys."""
+    brk, to_lwe, lut, sk = _j_keys(params)
+    module = jgates.Module(params.n_glwe, params.nprimes, params.prime_bits)
+    return jgates.BootstrapKeys(module=module, params=params, brk=brk, to_lwe=to_lwe,
+                                lut=lut), np.asarray(sk)
+
+
 @pytest.fixture(scope="module", params=[(b, blk) for b in BASES for blk in (BLOCK, 1)],
                 ids=lambda p: f"P{p[0][0]}-{p[0][1]}bit-block{p[1]}")
 def gate_runs(request):
     """keygen → encrypt_bit → gate_nand in both packages from the same seeds."""
     (nprimes, bits), block = request.param
     out = {}
-    for name, pkg, src, kw in (("jax", jgates, JSource, {}),
-                               ("torch", tgates, TSource, {"device": "cpu"})):
+    for name, pkg, src, keygen in (("jax", jgates, JSource, _j_keygen),
+                                   ("torch", tgates, TSource,
+                                    functools.partial(tgates.keygen, device="cpu"))):
         params = _params(pkg, nprimes, bits, block)
-        keys, sk = pkg.keygen(params, **kw)
+        keys, sk = keygen(params)
         c1 = pkg.encrypt_bit(params, BITS1, sk, src(b"\x05" * 32), src(b"\x06" * 32))
         c2 = pkg.encrypt_bit(params, BITS2, sk, src(b"\x07" * 32), src(b"\x08" * 32))
         out[name] = dict(params=params, keys=keys, sk=sk, c1=c1, c2=c2,

@@ -45,6 +45,11 @@ BITS = [28, 30]
 j_secret_prepare = jax.jit(jprep.glwe_secret_prepare, static_argnums=0)
 j_ggsw_prepare = jax.jit(jprep.ggsw_prepare, static_argnums=0)
 j_gglwe_prepare = jax.jit(jprep.gglwe_prepare, static_argnums=0)
+# the JAX package's eager dft compiles for seconds per shape and its GLWE → LWE key
+# prepares eagerly; under jit each compiles once (the key's Sources static: their
+# draws happen while tracing, as in the eager call)
+j_dft_apply = jax.jit(jdft.dft_apply, static_argnums=0)
+j_to_lwe_key = jax.jit(jconv.glwe_to_lwe_key_encrypt_sk, static_argnums=(0, 3, 4, 5, 6, 7))
 
 
 def _eq(have, want):
@@ -206,11 +211,11 @@ def _ks_run(pkg: str, bits: int, dsize: int) -> dict:
     their keyswitch; an LWE secret, its GLWE → LWE key, LWE encryptions."""
     if pkg == "jax":
         m, S, enc, ks, conv, dec = j_get_module(N, 2, bits), JSource, jenc, jks, jconv, jdec
-        lay, vz, hdft = jlay, jvz, jdft
+        lay, vz, dft_apply, to_lwe_key = jlay, jvz, j_dft_apply, j_to_lwe_key
         sprep, gprep, arr = j_secret_prepare, j_gglwe_prepare, jnp.asarray
     else:
         m, S, enc, ks, conv, dec = t_get_module(N, 2, bits, "cpu"), TSource, tenc, tks, tconv, tdec
-        lay, vz, hdft = tlay, tvz, tdft
+        lay, vz, dft_apply, to_lwe_key = tlay, tvz, tdft.dft_apply, tconv.glwe_to_lwe_key_encrypt_sk
         sprep, gprep, arr = tprep.glwe_secret_prepare, tprep.gglwe_prepare, torch.as_tensor
     src = S(b"\x09" * 32)
     xe, xa = src.branch()[1], src.branch()[1]
@@ -227,7 +232,7 @@ def _ks_run(pkg: str, bits: int, dsize: int) -> dict:
                            k=K_PT)
     out["ct"] = enc.glwe_encrypt_sk(m, pt, sprep(m, out["sk1"]), BASE2K, K_CT, xe, xa,
                                     batch_shape=(2,))
-    a_dft = hdft.dft_apply(m, out["ct"].data[..., 1:, :, :])
+    a_dft = dft_apply(m, out["ct"].data[..., 1:, :, :])
     out["prod_dft"] = ks.gglwe_product_dft(m, a_dft, out["kskp"])
     out["ks"] = ks.glwe_keyswitch(m, out["ct"], out["kskp"])
     out["ks_13"] = ks.glwe_keyswitch(m, ks.glwe_normalize(m, out["ct"], 13, K_CT),
@@ -238,8 +243,7 @@ def _ks_run(pkg: str, bits: int, dsize: int) -> dict:
     sk_lwe = src.binary_prob((N_LWE,))
     out["sk_lwe"] = sk_lwe
     out["sk_emb"] = conv.lwe_secret_as_glwe(m, arr(sk_lwe))
-    out["to_lwe"] = conv.glwe_to_lwe_key_encrypt_sk(m, arr(sk_lwe), out["sk2"], BASE2K, K_KEY,
-                                                    dnum, xe, xa)
+    out["to_lwe"] = to_lwe_key(m, arr(sk_lwe), out["sk2"], BASE2K, K_KEY, dnum, xe, xa)
     lwe_pt = np.zeros((3, 2, 1), dtype=np.int64)
     lwe_pt[:, 0, 0] = [-3 << 12, 5 << 12, 0]
     out["lwe"] = enc.lwe_encrypt_sk(None, arr(lwe_pt), arr(sk_lwe), BASE2K, 34, xe, xa)
@@ -290,3 +294,71 @@ def test_glwe_to_lwe_key_and_sample_extract(ks_runs):
     assert _eq(t["to_lwe"].pmat, j["to_lwe"].pmat)
     assert _eq(t["extract"].data, j["extract"].data) and t["extract"].n_lwe == N_LWE
     assert _eq(t["extract_dec"], j["extract_dec"])
+
+
+# ---- secret distributions and public-key encryption --------------------------------------
+
+@pytest.mark.parametrize("dist,kw", [("binary_prob", {}), ("binary_prob", {"prob": 0.2}),
+                                     ("binary_block", {"block_size": 8}),
+                                     ("binary_block", {"block_size": 16})])
+def test_secret_new_binary(dist, kw):
+    """The binary distributions draw what the JAX package draws, rank 2 (the
+    block one a block at a time per column); an unknown name raises
+    ValueError in both."""
+    have = tenc.secret_new(t_get_module(N, 2, 28, "cpu"), 2, TSource(b"\x08" * 32), dist, **kw)
+    want = jenc.secret_new(j_get_module(N, 2, 28), 2, JSource(b"\x08" * 32), dist, **kw)
+    assert _eq(have.data, want.data) and have.dist == want.dist == dist
+    assert set(np.unique(have.data.numpy())) <= {0, 1}
+    if dist == "binary_block":
+        assert (have.data.numpy().reshape(2, -1, kw["block_size"]).sum(-1) <= 1).all()
+    with pytest.raises(ValueError):
+        tenc.secret_new(t_get_module(N, 2, 28, "cpu"), 1, TSource(b"\x08" * 32), "gaussian")
+
+
+j_pk_prepare = jax.jit(jenc.glwe_public_key_prepare, static_argnums=0)
+j_encrypt_pk = jax.jit(jenc.glwe_encrypt_pk, static_argnames=(
+    "module", "pk_base2k", "pk_k", "source_xu", "source_xe", "u_dist"))
+
+
+def _pk_run(pkg: str, bits: int, u_dist: str) -> dict:
+    """A public key of k K_KEY, its DFT and encryptions of a message and of
+    zero through it (u from Source 0x0b, as tests/test_core.py draws it)."""
+    if pkg == "jax":
+        m, S, enc, lay, vz, sprep, arr = (j_get_module(N, 2, bits), JSource, jenc, jlay, jvz,
+                                          j_secret_prepare, jnp.asarray)
+        pk_prepare, encrypt_pk = j_pk_prepare, j_encrypt_pk
+    else:
+        m, S, enc, lay, vz, arr = t_get_module(N, 2, bits, "cpu"), TSource, tenc, tlay, tvz, \
+            torch.as_tensor
+        sprep, pk_prepare, encrypt_pk = (tprep.glwe_secret_prepare, tenc.glwe_public_key_prepare,
+                                         tenc.glwe_encrypt_pk)
+    src, xe, xa, xu = S(b"\x08" * 32), S(b"\x09" * 32), S(b"\x0a" * 32), S(b"\x0b" * 32)
+    out = {"skp": sprep(m, enc.secret_new(m, 1, src))}
+    out["pk"] = enc.glwe_public_key_generate(m, out["skp"], BASE2K, K_KEY, xe, xa)
+    out["pkp"] = pk_prepare(m, out["pk"])
+    out["data"] = np.random.default_rng(4).integers(-(2**15), 2**15, size=N, dtype=np.int64)
+    pt = lay.GLWEPlaintext(data=vz.encode_vec_i64(BASE2K, K_PT, 2, arr(out["data"])),
+                           base2k=BASE2K, k=K_PT)
+    out["ct"] = encrypt_pk(m, pt, out["pkp"], BASE2K, K_KEY, xu, xe, u_dist=u_dist)
+    out["zero"] = encrypt_pk(m, None, out["pkp"], BASE2K, K_KEY, xu, xe, u_dist=u_dist)
+    out["m"] = m
+    return out
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("u_dist", ["ternary_prob", "binary_prob"])
+def test_public_key_encryption(bits, u_dist):
+    """glwe_public_key_generate / _prepare / glwe_encrypt_pk equal the JAX
+    package's (the plaintext of 2 limbs padded to the key's 4), and the
+    ciphertext decrypts to the message within 2 (tests/test_core.py's
+    bound); an unknown u_dist raises ValueError."""
+    j, t = _pk_run("jax", bits, u_dist), _pk_run("torch", bits, u_dist)
+    for name in ("pk", "ct", "zero"):
+        assert _eq(t[name].data, j[name].data), name
+        assert (t[name].base2k, t[name].k) == (j[name].base2k, j[name].k) == (BASE2K, K_KEY)
+    assert _eq(t["pkp"], j["pkp"])
+    got = tvz.decode_vec_i64(BASE2K, K_PT, tdec.glwe_decrypt(t["m"], t["ct"], t["skp"]).data)
+    assert np.abs(got.numpy() - t["data"]).max() <= 2
+    with pytest.raises(ValueError):
+        tenc.glwe_encrypt_pk(t["m"], None, t["pkp"], BASE2K, K_KEY, TSource(b"\x0b" * 32),
+                             TSource(b"\x09" * 32), u_dist="gaussian")
