@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Sixteen paths of the port run, each with the launch counters set to 0 just
+Seventeen paths of the port run, each with the launch counters set to 0 just
 before it and read just after:
 
 - the product path, the headline operation of bench.py: a batched GLWE ×
@@ -54,7 +54,15 @@ before it and read just after:
   then the add's 1,584 BDD nodes, one CMux (one fused product) each;
 - blind_retrieval, on fheuint_add's keys: 256 FheUint u32 GLWEs read at an
   encrypted 8-bit index through the streaming retriever, the CMux tree and
-  the butterfly of conditional swaps.
+  the butterfly of conditional swaps;
+- compressed_gate, the gate path's configuration with its keys shipped
+  seed-compressed: the client draws gates.keygen's stream with the
+  compressed BRK and GLWE → LWE key in place of the direct ones and
+  serializes them in the JAX package's wire format; the server reads them
+  onto the card, regenerates the masks (host ChaCha8 draws, one upload) and
+  prepares the keys (NTT kernel), then one NAND at batch 1024 (block steps,
+  the `small` keyswitch) and the noise of the decompressed GGSWs (the NTT
+  kernels both ways).
 
 The seven paths before the MXU paths run as they would without them: the
 three set-ups the MXU paths reuse wait on the host meanwhile; the two CBT
@@ -232,7 +240,24 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  streaming retriever equals `blind_select` bit for bit and
                  decrypts to the entry, the butterfly puts it at position 0
                  and its reverse restores all 256; each timed with its
-                 launches.
+                 launches;
+ 19. compressed_gate  the client's compressed keygen (seconds, beside the
+                 secrets'), serialize (seconds; the BRK blob, the switching
+                 key's and the full GGSW stack's bytes), the BRK blob's
+                 blake2b-8 equal to the JAX package's
+                 (COMPRESSED_BRK_BLOB_DIGEST); the server's deserialize onto
+                 the card and decompress + prepare (seconds), the BRK's
+                 decompress again step by step (host draws, upload, assembly,
+                 `vmp_prepare` with its ntt_forward launches and shapes),
+                 equal to the whole call; the decompressed keys equal to the
+                 direct keygen with each branched child (its seconds); one
+                 NAND at batch 1024 on the gate path's bits: truth, the JAX
+                 package's fingerprint (COMPRESSED_GATE_FINGERPRINT), its
+                 br_block_step launches equal to phase 7's per NAND, then 3
+                 timed NANDs; `ggsw_noise` of the decompressed GGSWs of LWE
+                 coefficients 0 and 567 (every row, columns 0 and 1) on the
+                 card equal to the port's CPU run, their log2 std beside the
+                 fresh-encryption level; peak device memory.
 
 Only the five *_mxu paths may launch an MXU kernel.  After each path the
 NTT kernel's launches per (direction, primes, N, rows per prime, prime
@@ -322,6 +347,18 @@ FHEUINT_ADD_CMUXES = 1584
 # blind_retrieval: BR_ENTRIES FheUint u32 GLWEs read at an encrypted
 # BR_INDEX_WIDTH-bit index
 BR_ENTRIES, BR_INDEX_WIDTH, BR_INDEX, BR_SEED = 256, 8, 173, 21
+# compressed_gate: the gate path's configuration and gates.keygen's stream of
+# draws, with seed-compressed keys in place of the direct ones, shipped in the
+# JAX package's wire format.  blake2b-8 of the BRK blob, and sum(|data| mod
+# 65536) of one NAND at batch 1024 on the decompressed keys (the gate path's
+# bits and encryptions), computed by the JAX package on the CPU
+# (tests/test_torch_compressed.py::test_compressed_gate_constants_full_config
+# recomputes them)
+COMPRESSED_BRK_BLOB_DIGEST = 12522800189733129592
+COMPRESSED_GATE_FINGERPRINT = 38185105306
+# the noise read: the decompressed GGSWs of these LWE coefficients, every row,
+# columns 0 and 1
+NOISE_COEFFS, NOISE_SIGMA = (0, 567), 3.2
 
 
 @dataclass(frozen=True)
@@ -424,7 +461,15 @@ PATHS = {
                     "ntt_inverse", "vmp"),
     "blind_retrieval": ("fused_product", "fused_product_small", "br_block_step",
                         "ntt_forward", "ntt_inverse", "vmp"),
+    "compressed_gate": ("ntt_forward", "ntt_inverse", "br_block_step", "fused_product_small"),
 }
+
+
+def card_label() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    query = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
+    return subprocess.run(query, capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
 
 
 def emit(**row):
@@ -1695,9 +1740,9 @@ def phase_gate_verify(setup, std_params, batch: int, route: str = "fused") -> No
 
 
 def phase_gate_bench(setup, iters: int, fingerprint: int | None, route: str = "fused",
-                     butterfly_gates_per_s: float | None = None) -> float:
+                     butterfly_gates_per_s: float | None = None) -> tuple[float, dict]:
     """1 warm-up NAND (fingerprint, truth) + `iters` timed chained NANDs
-    through `route`; returns the gates/s."""
+    through `route`; returns the gates/s and the launches per NAND."""
     import numpy as np
     import torch
 
@@ -1743,7 +1788,7 @@ def phase_gate_bench(setup, iters: int, fingerprint: int | None, route: str = "f
     if device.type == "cuda":
         profile_once(f"{name}_profile", lambda: gates.gate_nand(keys, out, c2, route=route),
                      dt / iters * 1e3)
-    return batch * iters / dt
+    return batch * iters / dt, per_nand
 
 
 def profile_once(phase: str, fn, timed_ms: float) -> dict:
@@ -2155,8 +2200,9 @@ def run_rotate_path(setup, batch: int, iters: int, fingerprints: dict | None) ->
 
 def run_gate_path(device, n_lwe: int, batch: int, verify_batch: int, std_n_lwe: int,
                   iters: int, fingerprint: int | None) -> tuple:
-    """The gate path: set-up, gate_verify, gate_bench.  Returns the set-up
-    and the bench's gates/s, for the MXU gate path."""
+    """The gate path: set-up, gate_verify, gate_bench.  Returns the set-up,
+    the bench's gates/s and its launches per NAND, for the MXU gate path and
+    the compressed gate path."""
     from poulpy_tpu_torch.binfhe.gates import GateParams
 
     t0 = time.perf_counter()
@@ -2166,7 +2212,7 @@ def run_gate_path(device, n_lwe: int, batch: int, verify_batch: int, std_n_lwe: 
     emit(phase="gate_setup", batch=batch, keygen_encrypt_s=time.perf_counter() - t0,
          brk_pmats_mib=brk.pmats.numel() * brk.pmats.element_size() / 2**20)
     phase_gate_verify(setup, GateParams(n_lwe=std_n_lwe, block_size=1), verify_batch)
-    return setup, phase_gate_bench(setup, iters, fingerprint)
+    return (setup, *phase_gate_bench(setup, iters, fingerprint))
 
 
 def run_gate_route_path(gate, verify_batch: int, std_n_lwe: int, iters: int,
@@ -2176,7 +2222,7 @@ def run_gate_route_path(gate, verify_batch: int, std_n_lwe: int, iters: int,
     beside the butterfly's gates/s and a profiled NAND."""
     from poulpy_tpu_torch.binfhe.gates import GateParams
 
-    setup, butterfly_gates_per_s = gate
+    setup, butterfly_gates_per_s, _ = gate
     phase_gate_verify(setup, GateParams(n_lwe=std_n_lwe, block_size=1), verify_batch, route)
     phase_gate_bench(setup, iters, fingerprint, route, butterfly_gates_per_s)
 
@@ -2800,6 +2846,241 @@ def bdd_cases(gm) -> tuple:
     return cases, parents
 
 
+def blob_digest(blob: bytes) -> int:
+    """blake2b-8 of a blob's bytes, read little-endian (as `digest_u64`)."""
+    import hashlib
+
+    return int.from_bytes(hashlib.blake2b(blob, digest_size=8).digest(), "little")
+
+
+def compressed_gate_client(params, device) -> dict:
+    """The client: gates.keygen's stream of draws (two child sources, the LWE
+    secret, the GLWE secret) with the seed-compressed BRK and GLWE → LWE key
+    in place of the direct ones, each serialized; the seconds of each step."""
+    import torch
+
+    from poulpy_tpu_torch.binfhe.blind_rotation import blind_rotation_key_encrypt_sk_compressed
+    from poulpy_tpu_torch.core import compressed, encryption
+    from poulpy_tpu_torch.core.prepared import glwe_secret_prepare
+    from poulpy_tpu_torch.hal.module import get_module
+    from poulpy_tpu_torch.hal.source import Source
+    from poulpy_tpu_torch.utils.serialization import serialize_layout
+
+    m = get_module(params.n_glwe, params.nprimes, params.prime_bits, device)
+    t0 = time.perf_counter()
+    src = Source(bytes(32))
+    xe, xa = src.branch()[1], src.branch()[1]
+    sk_lwe = torch.from_numpy(src.binary_block(params.n_lwe, params.block_size)).to(m.device)
+    sk_glwe = encryption.secret_new(m, 1, src)
+    skp = glwe_secret_prepare(m, sk_glwe)
+    sync(m.device)
+    t1 = time.perf_counter()
+    brk_c = blind_rotation_key_encrypt_sk_compressed(m, sk_lwe, skp, params.base2k, params.k_brk,
+                                                     params.dnum_brk, xe, xa)
+    ksk_c = compressed.glwe_to_lwe_key_encrypt_sk_compressed(m, sk_lwe, sk_glwe, params.base2k,
+                                                             params.k_ksk, params.dnum_ksk, xe, xa)
+    sync(m.device)
+    t2 = time.perf_counter()
+    brk_blob, ksk_blob = serialize_layout(brk_c), serialize_layout(ksk_c)
+    t3 = time.perf_counter()
+    return dict(m=m, sk_lwe=sk_lwe, sk_glwe=sk_glwe, skp=skp, brk_blob=brk_blob,
+                ksk_blob=ksk_blob, secrets_s=t1 - t0, keygen_s=t2 - t1, serialize_s=t3 - t2)
+
+
+def compressed_gate_server(params, brk_blob: bytes, ksk_blob: bytes, device) -> tuple:
+    """The server: both blobs read onto `device`, the BRK decompressed and
+    prepared, the switching key decompressed and prepared, the keygen's LUT.
+    Returns (BootstrapKeys, the BRK as read, the seconds of each step)."""
+    from poulpy_tpu_torch.binfhe import gates
+    from poulpy_tpu_torch.binfhe.blind_rotation import (
+        BlindRotationKeyCompressed,
+        blind_rotation_key_decompress,
+    )
+    from poulpy_tpu_torch.core.compressed import GGLWECompressed, gglwe_decompress
+    from poulpy_tpu_torch.core.prepared import gglwe_prepare
+    from poulpy_tpu_torch.hal.module import get_module
+    from poulpy_tpu_torch.utils.serialization import deserialize_layout
+
+    m = get_module(params.n_glwe, params.nprimes, params.prime_bits, device)
+    t0 = time.perf_counter()
+    brk_c = deserialize_layout(brk_blob, BlindRotationKeyCompressed, m.device)
+    ksk_c = deserialize_layout(ksk_blob, GGLWECompressed, m.device)
+    sync(m.device)
+    t1 = time.perf_counter()
+    brk = blind_rotation_key_decompress(m, brk_c)
+    sync(m.device)
+    t2 = time.perf_counter()
+    to_lwe = gglwe_prepare(m, gglwe_decompress(m, ksk_c))
+    sync(m.device)
+    t3 = time.perf_counter()
+    keys = gates.BootstrapKeys(module=m, params=params, brk=brk, to_lwe=to_lwe,
+                               lut=gates._sign_lut(params, m.device))
+    return keys, brk_c, dict(deserialize_s=t1 - t0, brk_decompress_s=t2 - t1,
+                             ksk_decompress_s=t3 - t2)
+
+
+def compressed_decompress_split(m, ggsw_c) -> tuple:
+    """The BRK's decompress again, step by step, the device synchronised
+    between steps: the host's ChaCha8 draws, their upload, the GGSW's
+    assembly, `vmp_prepare` (its NTT launches and shapes).  Returns (the
+    GGSW, its pmats, the seconds and counts)."""
+    import torch
+
+    from poulpy_tpu_torch.backends import LAUNCHES, NTT_ROWS
+    from poulpy_tpu_torch.core import compressed
+    from poulpy_tpu_torch.hal import dft
+
+    t0 = time.perf_counter()
+    mask = compressed._mask_digits(ggsw_c.seed, ggsw_c.base2k, compressed._ggsw_mask_shape(ggsw_c))
+    t1 = time.perf_counter()
+    draws, nbytes = mask.size, mask.nbytes
+    mask = torch.from_numpy(mask).to(m.device)
+    sync(m.device)
+    t2 = time.perf_counter()
+    ggsw = compressed._ggsw_assemble(m, ggsw_c, mask)
+    del mask
+    sync(m.device)
+    t3 = time.perf_counter()
+    launches, rows = LAUNCHES["ntt_forward"], Counter(NTT_ROWS)
+    pmats = dft.vmp_prepare(m, ggsw.data)
+    sync(m.device)
+    t4 = time.perf_counter()
+    shapes = [[*shape, k] for shape, k in sorted((Counter(NTT_ROWS) - rows).items())]
+    return ggsw, pmats, dict(draws_s=t1 - t0, draws=draws, upload_s=t2 - t1, upload_bytes=nbytes,
+                             assemble_s=t3 - t2, vmp_prepare_s=t4 - t3,
+                             vmp_prepare_ntt_forward=LAUNCHES["ntt_forward"] - launches,
+                             vmp_prepare_ntt_shapes=shapes)
+
+
+def phase_compressed_noise(params, m, ggsw, sk_lwe, skp) -> None:
+    """`ggsw_noise` of the decompressed GGSWs of the LWE coefficients
+    NOISE_COEFFS, every row, columns 0 and 1, on the card and in the port's
+    CPU run on the same rows: the same Stats; their log2 std beside the
+    fresh-encryption level noise.log2_std(noise.var_sigma(3.2, k))."""
+    import dataclasses
+
+    import torch
+
+    from poulpy_tpu_torch.core import noise
+    from poulpy_tpu_torch.hal.module import get_module
+
+    idx = list(NOISE_COEFFS)
+    rows = ggsw.replace(data=ggsw.data[idx])
+    pt = torch.zeros((len(idx), m.n), dtype=torch.int64, device=m.device)
+    pt[:, 0] = sk_lwe[idx]
+    cpu = torch.device("cpu")
+    mc = get_module(params.n_glwe, params.nprimes, params.prime_bits, cpu)
+    reads, equal = [], True
+    for row in range(ggsw.dnum):
+        for col in range(2):
+            card = noise.ggsw_noise(m, rows, row, col, pt, skp)
+            host = noise.ggsw_noise(mc, moved(rows, cpu), row, col, pt.cpu(), moved(skp, cpu))
+            equal &= card == host
+            reads.append(dict(row=row, col=col, **dataclasses.asdict(card),
+                              log2_std=card.log2_std, log2_max=card.log2_max))
+    fresh = noise.log2_std(noise.var_sigma(NOISE_SIGMA, ggsw.k))
+    emit(phase="compressed_gate_noise", coefficients=idx, k=ggsw.k, fresh_log2_std=fresh,
+         card_equals_cpu=bool(equal), reads=reads)
+    if not equal:
+        raise SystemExit("compressed_gate: the card's ggsw_noise differs from the CPU run's")
+
+
+def run_compressed_gate_path(device, digest: int | None, fingerprint: int | None,
+                             gate_per_nand: dict | None) -> None:
+    """The compressed_gate path at the gate path's configuration: the client
+    makes and serializes the compressed keys (beside the direct keygen with
+    the branched children, which the decompressed keys must equal); the
+    server reads them onto the card, decompresses and prepares them; one
+    NAND at batch GATE_BATCH on them (truth, fingerprint, block steps per
+    NAND equal to the gate path's), then 3 timed; the noise read."""
+    import numpy as np
+    import torch
+
+    from poulpy_tpu_torch.backends import LAUNCHES
+    from poulpy_tpu_torch.binfhe import gates
+    from poulpy_tpu_torch.binfhe.blind_rotation import blind_rotation_key_encrypt_sk
+    from poulpy_tpu_torch.core.conversion import glwe_to_lwe_key_encrypt_sk
+    from poulpy_tpu_torch.hal.source import Source
+    from poulpy_tpu_torch.utils.serialization import serialize_layout
+
+    def peak_gib(reset: bool = True) -> float | None:
+        """Peak device memory since the last reset, then reset."""
+        if device.type != "cuda":
+            return None
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if reset:
+            torch.cuda.reset_peak_memory_stats()
+        return peak
+
+    card = card_label() if device.type == "cuda" else "cpu"
+    params = gates.GateParams(n_lwe=GATE_N_LWE, block_size=GATE_BLOCK)
+    peak_gib()
+    client = compressed_gate_client(params, device)
+    m, sk_lwe = client["m"], client["sk_lwe"]
+    brk_digest = blob_digest(client["brk_blob"])
+    peaks = {"client": peak_gib()}
+    keys, brk_c, server = compressed_gate_server(params, client["brk_blob"], client["ksk_blob"],
+                                                 device)
+    peaks["server"] = peak_gib(reset=False)
+    ggsw, pmats, split = compressed_decompress_split(m, brk_c.ggsw)
+    full_bytes = len(serialize_layout(ggsw))
+    emit(phase="compressed_gate_keys", card=card, brk_blob_bytes=len(client["brk_blob"]),
+         ksk_blob_bytes=len(client["ksk_blob"]), full_ggsw_blob_bytes=full_bytes,
+         brk_blob_digest=brk_digest, brk_blob_digest_expected=digest,
+         secrets_s=client["secrets_s"], compressed_keygen_s=client["keygen_s"],
+         serialize_s=client["serialize_s"], **server, brk_decompress_split=split)
+    checks = {"brk_blob_digest": digest is None or brk_digest == digest,
+              "split_equals_decompress": bool(torch.equal(pmats, keys.brk.pmats))}
+    del pmats
+
+    # the direct keygen with each branched child in place of xa
+    src = Source(bytes(32))
+    xe, xa = src.branch()[1], src.branch()[1]
+    sync(m.device)
+    t0 = time.perf_counter()
+    brk = blind_rotation_key_encrypt_sk(m, sk_lwe, client["skp"], params.base2k, params.k_brk,
+                                        params.dnum_brk, xe, xa.branch()[1])
+    to_lwe = glwe_to_lwe_key_encrypt_sk(m, sk_lwe, client["sk_glwe"], params.base2k,
+                                        params.k_ksk, params.dnum_ksk, xe, xa.branch()[1])
+    sync(m.device)
+    direct_s = time.perf_counter() - t0
+    checks["brk_equals_direct"] = bool(torch.equal(keys.brk.pmats, brk.pmats))
+    checks["ksk_equals_direct"] = bool(torch.equal(keys.to_lwe.pmat, to_lwe.pmat))
+    del brk, to_lwe
+
+    b1 = np.random.default_rng(0).integers(0, 2, GATE_BATCH)
+    b2 = np.random.default_rng(1).integers(0, 2, GATE_BATCH)
+    xe, xa = Source(b"\x05" * 32), Source(b"\x06" * 32)
+    c1 = gates.encrypt_bit(params, b1, sk_lwe, xe, xa)
+    c2 = gates.encrypt_bit(params, b2, sk_lwe, xe, xa)
+    before = dict(LAUNCHES)
+    out = gates.gate_nand(keys, c1, c2)
+    value = int((out.data.abs() % 65536).sum())
+    per_nand = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    checks["nand_truth"] = bool(np.array_equal(gates.decrypt_bit(out, sk_lwe), 1 - (b1 & b2)))
+    checks["fingerprint"] = fingerprint is None or value == fingerprint
+    if gate_per_nand is not None:
+        checks["block_steps_per_nand_equal_gate_path"] = (
+            per_nand.get("br_block_step") == gate_per_nand.get("br_block_step"))
+    sync(m.device)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        out = gates.gate_nand(keys, out, c2)
+    sync(m.device)
+    ms_per_nand = (time.perf_counter() - t0) / 3 * 1e3
+    emit(phase="compressed_gate_nand", card=card, batch=GATE_BATCH, fingerprint=value,
+         fingerprint_expected=fingerprint, launches_per_nand=per_nand,
+         gate_path_launches_per_nand=gate_per_nand, ms_per_nand=ms_per_nand,
+         direct_keygen_s=direct_s, compressed_keygen_s=client["keygen_s"],
+         brk_kernel_layouts_cached=sorted(map(str, keys.brk.__dict__.get("_pm_kernel", {}))))
+    phase_compressed_noise(params, m, ggsw, sk_lwe, client["skp"])
+    emit(phase="compressed_gate_checks", card=card, **checks,
+         peak_mem_gib_client=peaks["client"], peak_mem_gib_server=peaks["server"],
+         peak_mem_gib_after=peak_gib())
+    if not all(checks.values()):
+        raise SystemExit(f"compressed_gate failed: {checks}")
+
+
 def main() -> int:
     import torch
 
@@ -2815,9 +3096,7 @@ def main() -> int:
                                            reset_launches, wide)
     from poulpy_tpu_torch.hal.module import get_module
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = card_label()
     print(smi, flush=True)
     emit(phase="device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda)
@@ -2844,9 +3123,9 @@ def main() -> int:
         # the verify set-up waits on the host while the bench runs
         "product": lambda: shared.update(verify=moved(phase_verify(m), torch.device("cpu")),
                                          bench=phase_bench(m)),
-        "gate": lambda: shared.update(gate=run_gate_path(
+        "gate": lambda: shared.update(gate=(gate := run_gate_path(
             m.device, GATE_N_LWE, GATE_BATCH, GATE_VERIFY_BATCH, STD_N_LWE, GATE_ITERS,
-            GATE_FINGERPRINT)),
+            GATE_FINGERPRINT)), gate_per_nand=gate[2]),
         "keyswitch": lambda: shared.update(keyswitch=phase_keyswitch(m.device, KS_N)),
         "ckks_wide": lambda: run_ckks_path("ckks_wide", CKKS_WIDE, m.device, CKKS_BATCH,
                                            CKKS_ITERS, CKKS_WIDE_FINGERPRINT),
@@ -2872,6 +3151,9 @@ def main() -> int:
         "fheuint_add": lambda: shared.update(bdd=run_fheuint_add_path(m.device,
                                                                       FHEUINT_ADD_FINGERPRINT)),
         "blind_retrieval": lambda: run_blind_retrieval_path(shared["bdd"]),
+        "compressed_gate": lambda: run_compressed_gate_path(
+            m.device, COMPRESSED_BRK_BLOB_DIGEST, COMPRESSED_GATE_FINGERPRINT,
+            shared["gate_per_nand"]),
     }
     # after each path: the set-ups it parks on the host until the MXU paths,
     # and those it leaves behind for the last time

@@ -43,6 +43,11 @@ from poulpy_tpu_torch.backends.fused_mxu import (
 from poulpy_tpu_torch.backends.mxu import sigma_index
 from poulpy_tpu_torch.backends.mxu_product import ROUTES
 from poulpy_tpu_torch.binfhe.lut import LookupTable
+from poulpy_tpu_torch.core.compressed import (
+    GGSWCompressed,
+    ggsw_decompress,
+    ggsw_encrypt_sk_compressed,
+)
 from poulpy_tpu_torch.core.encryption import ggsw_encrypt_sk
 from poulpy_tpu_torch.core.layouts import LWECiphertext, _Replace
 from poulpy_tpu_torch.core.prepared import GLWESecretPrepared
@@ -71,6 +76,15 @@ class BlindRotationKeyPrepared(_Replace):
     @property
     def rank(self) -> int:
         return self.pmats.shape[-4] - 1
+
+
+@dataclass(frozen=True)
+class BlindRotationKeyCompressed(_Replace):
+    """Seeded BRK: one GGSWCompressed batched over the n_lwe coefficients,
+    (rank+1)× smaller for transport; decompress and prepare on the card."""
+
+    ggsw: GGSWCompressed
+    dist: str = "binary_prob"
 
 
 def brk_kernel_layout(brk: BlindRotationKeyPrepared, rmax: int, sigma=None) -> torch.Tensor:
@@ -109,13 +123,35 @@ def blind_rotation_key_encrypt_sk(module: Module, sk_lwe, sk_glwe: GLWESecretPre
                                   base2k: int, k: int, dnum: int, source_xe, source_xa,
                                   dsize: int = 1, **kw) -> BlindRotationKeyPrepared:
     """BRK: GGSW(s_lwe[i]) for every i, batched through one encryption call."""
+    ggsw = ggsw_encrypt_sk(module, _brk_plaintext(module, sk_lwe), sk_glwe, base2k, k, dnum,
+                           source_xe, source_xa, dsize=dsize, **kw)
+    return BlindRotationKeyPrepared(pmats=dft.vmp_prepare(module, ggsw.data), base2k=base2k,
+                                    k=k, dsize=dsize)
+
+
+def _brk_plaintext(module: Module, sk_lwe):
     sk_lwe = torch.as_tensor(sk_lwe, dtype=torch.int64).to(module.device)
     pt = torch.zeros((sk_lwe.shape[-1], module.n), dtype=torch.int64, device=module.device)
     pt[:, 0] = sk_lwe
-    ggsw = ggsw_encrypt_sk(module, pt, sk_glwe, base2k, k, dnum, source_xe, source_xa,
-                           dsize=dsize, **kw)
-    return BlindRotationKeyPrepared(pmats=dft.vmp_prepare(module, ggsw.data), base2k=base2k,
-                                    k=k, dsize=dsize)
+    return pt
+
+
+def blind_rotation_key_encrypt_sk_compressed(module: Module, sk_lwe, sk_glwe: GLWESecretPrepared,
+                                             base2k: int, k: int, dnum: int, source_xe,
+                                             source_xa, dsize: int = 1,
+                                             **kw) -> BlindRotationKeyCompressed:
+    """The BRK's GGSWs, seeded: bodies + one seed branched from `source_xa`."""
+    ggsw = ggsw_encrypt_sk_compressed(module, _brk_plaintext(module, sk_lwe), sk_glwe, base2k, k,
+                                      dnum, source_xe, source_xa, dsize=dsize, **kw)
+    return BlindRotationKeyCompressed(ggsw=ggsw)
+
+
+def blind_rotation_key_decompress(module: Module,
+                                  key: BlindRotationKeyCompressed) -> BlindRotationKeyPrepared:
+    """Regenerate the mask columns, then prepare (the NTT kernel on the card)."""
+    ggsw = ggsw_decompress(module, key.ggsw)
+    return BlindRotationKeyPrepared(pmats=dft.vmp_prepare(module, ggsw.data), base2k=ggsw.base2k,
+                                    k=ggsw.k, dsize=ggsw.dsize, dist=key.dist)
 
 
 def mod_switch_2n(two_n: int, lwe: LWECiphertext, rot_dir: str = "left"):

@@ -76,14 +76,18 @@ def keygen(params: GateParams, seed: bytes = bytes(32),
                                         params.base2k, params.k_brk, params.dnum_brk, xe, xa)
     to_lwe = glwe_to_lwe_key_encrypt_sk(module, sk_lwe, sk_glwe, params.base2k, params.k_ksk,
                                         params.dnum_ksk, xe, xa)
-    # sign LUT: 1/8 on every coefficient; the negacyclic wrap makes
-    # coefficient 0 of X^{-phase}·LUT equal ±1/8
+    return BootstrapKeys(module=module, params=params, brk=brk, to_lwe=to_lwe,
+                         lut=_sign_lut(params, module.device)), sk_lwe
+
+
+def _sign_lut(params: GateParams, device) -> LookupTable:
+    """The gates' LUT: 1/8 on every coefficient; the negacyclic wrap makes
+    coefficient 0 of X^{-phase}·LUT equal ±1/8."""
     data = torch.zeros((1, glwe_size(params.base2k, params.k_ct), params.n_glwe),
-                       dtype=torch.int64, device=module.device)
+                       dtype=torch.int64, device=device)
     data[0, 0, :] = 1 << (params.base2k - 3)
-    lut = LookupTable(data=vec_znx_normalize(params.base2k, data), base2k=params.base2k,
-                      k=params.k_ct)
-    return BootstrapKeys(module=module, params=params, brk=brk, to_lwe=to_lwe, lut=lut), sk_lwe
+    return LookupTable(data=vec_znx_normalize(params.base2k, data), base2k=params.base2k,
+                       k=params.k_ct)
 
 
 def encrypt_bit(params: GateParams, bits, sk_lwe, source_xe: Source,

@@ -33,6 +33,7 @@ from poulpy_tpu_torch.hal.ntt import (
     to_residues,
 )
 from poulpy_tpu_torch.hal.wide import garner_lift_wide, vec_znx_normalize_full_wide
+from poulpy_tpu_torch.hal.znx import znx_automorphism
 
 
 def dft_limbs(a_size: int, step: int, offset: int, res_size: int | None):
@@ -180,6 +181,11 @@ def big_sub(a, b, res_size: int | None = None):
         res_size = max(a.shape[-2], b.shape[-2])
     a, b = _align_limbs(a, b, res_size, limb_axis=-2)
     return a - b
+
+
+def big_automorphism(p: int, a):
+    """X → X^p on every limb of a big accumulator."""
+    return znx_automorphism(p, a)
 
 
 def big_normalize(module: Module, res_size: int, res_base2k: int, a_big, a_base2k: int,

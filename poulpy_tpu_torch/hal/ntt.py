@@ -48,6 +48,16 @@ def sub_mod(a, b, p):
     return torch.where(d < 0, d + p, d)
 
 
+def neg_mod(a, p):
+    p = torch.as_tensor(p, device=a.device).to(a.dtype)
+    return torch.where(a == 0, a, p - a)
+
+
+def mul_mod(a, b, p):
+    """Plain (a·b) mod p for 0 ≤ a, b < p < 2^30 (not Montgomery)."""
+    return torch.remainder(a * b, p)
+
+
 def fold_mod(acc, p, qinv, r2):
     """Non-negative int64 accumulator (< 2^59) → [0, p), division-free:
     one REDC, then ·R²·R^{-1}."""

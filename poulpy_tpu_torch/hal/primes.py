@@ -195,3 +195,14 @@ class PrimeBasis:
             out[i] = h % p
             h //= p
         return out
+
+
+def required_nprimes(base2k: int, log_n: int, log_rows: int = 7) -> int:
+    """Number of ~30-bit primes for exact VMP / convolution accumulation:
+    the basis modulus must exceed twice the bound N · 2^(base2k-1) ·
+    2^(base2k-1) · 2^log_rows on one accumulated output coefficient."""
+    need_bits = 2 * base2k - 2 + log_n + log_rows + 2
+    count = 1
+    while PrimeBasis(ntt_primes(count)).modulus <= (1 << need_bits):
+        count += 1
+    return count

@@ -1,7 +1,7 @@
 """Z[X]/(X^N+1) coefficient-domain kernels ("znx").
 
-Twin of `poulpy_tpu/hal/znx.py` (the part the port needs): int64 tensors
-whose last axis is N, broadcasting over leading axes.
+Twin of `poulpy_tpu/hal/znx.py`: int64 tensors whose last axis is N,
+broadcasting over leading axes, with jnp's wrapping int64.
 """
 
 from __future__ import annotations
@@ -10,6 +10,33 @@ import functools
 
 import numpy as np
 import torch
+
+
+def znx_add(a, b):
+    return a + b
+
+
+def znx_sub(a, b):
+    return a - b
+
+
+def znx_negate(a):
+    return -a
+
+
+def znx_zero_like(a):
+    return torch.zeros_like(a)
+
+
+def znx_mul_power_of_two(k: int, a):
+    """a · 2^k with wrapping int64 semantics; a negative k is an arithmetic
+    right shift.  Shifts of 64 bits or more give what jnp's do: 0 to the
+    left, the sign to the right."""
+    if k == 0:
+        return a
+    if k > 0:
+        return a << k if k < 64 else torch.zeros_like(a)
+    return a >> min(-k, 63)
 
 
 def znx_rotate(p, a):

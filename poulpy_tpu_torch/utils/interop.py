@@ -4,11 +4,13 @@ An object crosses as its class name plus a dict of fields: arrays as numpy,
 parameters (`base2k`, `k`, `dsize`, `dist`, …) as Python values, a nested
 layout (a CKKS ciphertext's `glwe` and `meta`, an automorphism key's `key`,
 a circuit-bootstrapping key's `brk`, a FheUint's `glwe`, a BDD key's `cbt`,
-`ks_lwe` and `ks_glwe`) as its own (name, fields), a dict of layouts (a
+`ks_lwe` and `ks_glwe`, a compressed blind-rotation key's `ggsw`) as its own
+(name, fields), a dict of layouts (a
 tensor key's `keys`, keyed by (i, j); a circuit-bootstrapping key's `atk`,
 keyed by Galois element) as a dict of (name, fields), a list of layouts (a
 circuit-bootstrapping key's `tsk`, a prepared FheUint's `bits`) as a list of
-them, and a missing optional layout (`ks_glwe`) as None.
+them, a missing optional layout (`ks_glwe`) as None, and the seed of a
+compressed layout (`core/compressed.py`) as its bytes.
 The field names are the JAX package's, so any object with one of the class
 names below and those dataclass fields converts, without this module
 importing JAX:
@@ -28,7 +30,10 @@ import numpy as np
 import torch
 
 from poulpy_tpu_torch.binfhe.bdd import BDDKey, FheUint, FheUintPrepared
-from poulpy_tpu_torch.binfhe.blind_rotation import BlindRotationKeyPrepared
+from poulpy_tpu_torch.binfhe.blind_rotation import (
+    BlindRotationKeyCompressed,
+    BlindRotationKeyPrepared,
+)
 from poulpy_tpu_torch.binfhe.circuit_bootstrapping import CircuitBootstrappingKey
 from poulpy_tpu_torch.binfhe.gates import BootstrapKeys, GateParams
 from poulpy_tpu_torch.binfhe.lut import LookupTable
@@ -37,6 +42,12 @@ from poulpy_tpu_torch.ckks.plaintext import (
     CKKSPlaintextCstRnx,
     CKKSPlaintextCstZnx,
     CKKSPlaintextVecRnx,
+)
+from poulpy_tpu_torch.core.compressed import (
+    GGLWECompressed,
+    GGSWCompressed,
+    GLWECompressed,
+    LWECompressed,
 )
 from poulpy_tpu_torch.core.layouts import (
     GGLWECiphertext,
@@ -62,10 +73,11 @@ CLASSES = {
                 LookupTable, BlindRotationKeyPrepared, GLWETensorKeyPrepared,
                 GLWEAutomorphismKeyPrepared, CKKSMeta, CKKSCiphertext, CKKSPlaintext,
                 CKKSPlaintextVecRnx, CKKSPlaintextCstRnx, CKKSPlaintextCstZnx,
-                CircuitBootstrappingKey, BDDKey, FheUint, FheUintPrepared)
+                CircuitBootstrappingKey, BDDKey, FheUint, FheUintPrepared, GLWECompressed,
+                GGLWECompressed, GGSWCompressed, LWECompressed, BlindRotationKeyCompressed)
 }
 
-_ARRAY_FIELDS = ("data", "pmat", "pmats", "coeffs")
+_ARRAY_FIELDS = ("data", "pmat", "pmats", "coeffs", "body")
 _KEYS = ("brk", "to_lwe", "lut")          # the keys of a BootstrapKeys
 
 

@@ -20,6 +20,7 @@ from poulpy_tpu.hal import znx as jznx
 from poulpy_tpu.hal.module import get_module as j_get_module
 from poulpy_tpu.hal.primes import PrimeBasis as JBasis
 from poulpy_tpu.hal.primes import ntt_primes as j_ntt_primes
+from poulpy_tpu.hal.primes import required_nprimes as j_required_nprimes
 from poulpy_tpu.hal.source import Source as JSource
 from poulpy_tpu_torch.hal import dft as tdft
 from poulpy_tpu_torch.hal import normalization as tnorm
@@ -29,6 +30,7 @@ from poulpy_tpu_torch.hal import znx as tznx
 from poulpy_tpu_torch.hal.module import get_module as t_get_module
 from poulpy_tpu_torch.hal.primes import PrimeBasis as TBasis
 from poulpy_tpu_torch.hal.primes import ntt_primes as t_ntt_primes
+from poulpy_tpu_torch.hal.primes import required_nprimes as t_required_nprimes
 from poulpy_tpu_torch.hal.source import Source as TSource
 
 BASES = [(2, 28), (2, 30)]
@@ -320,6 +322,92 @@ def test_dft_sub_copy_and_align(bits):
         assert all(_eq(h, w) for h, w in zip(have, want))
 
 
+# ---- the rest of hal: primes, modular, znx, vec_znx, dft ----------------------------
+
+@pytest.mark.parametrize("base2k,log_n,log_rows", [(17, 11, 7), (17, 10, 3), (13, 10, 7),
+                                                   (52, 11, 7), (30, 16, 10), (5, 4, 0)])
+def test_required_nprimes(base2k, log_n, log_rows):
+    assert t_required_nprimes(base2k, log_n, log_rows) == j_required_nprimes(base2k, log_n,
+                                                                           log_rows)
+
+
+@pytest.mark.parametrize("bits", [28, 30])
+def test_neg_mod_and_mul_mod(bits):
+    rng = np.random.default_rng(11)
+    for p in t_ntt_primes(2, 1 << bits):
+        a = np.concatenate([[0, 1, p - 1], rng.integers(0, p, 200)])
+        b = np.concatenate([[p - 1, 0, p - 1], rng.integers(0, p, 200)])
+        for dt in (np.int32, np.int64):
+            assert _eq(tntt.neg_mod(torch.from_numpy(a.astype(dt)), p),
+                       jntt.neg_mod(jnp.asarray(a.astype(dt)), p))
+        assert _eq(tntt.mul_mod(torch.from_numpy(a), torch.from_numpy(b), p),
+                   jntt.mul_mod(jnp.asarray(a), jnp.asarray(b), p))
+        assert np.array_equal(tntt.mul_mod(torch.from_numpy(a), torch.from_numpy(b), p).numpy(),
+                              [int(x) * int(y) % p for x, y in zip(a, b)])
+
+
+@pytest.mark.parametrize("k", [0, 1, 17, 63, 64, 70, -1, -17, -63, -64, -70])
+def test_znx_arithmetic(k):
+    """add / sub / negate / zero_like and · 2^k, wrapping int64 at the extremes."""
+    rng = np.random.default_rng(12)
+    a = np.concatenate([np.broadcast_to(I64_EXTREMES[:, None], (11, N)),
+                        rng.integers(-(2**63), 2**63 - 1, (3, N), dtype=np.int64)])
+    b = a[::-1].copy()
+    ta, tb, ja, jb = torch.from_numpy(a), torch.from_numpy(b), jnp.asarray(a), jnp.asarray(b)
+    assert _eq(tznx.znx_mul_power_of_two(k, ta), jznx.znx_mul_power_of_two(k, ja))
+    assert _eq(tznx.znx_add(ta, tb), jznx.znx_add(ja, jb))
+    assert _eq(tznx.znx_sub(ta, tb), jznx.znx_sub(ja, jb))
+    assert _eq(tznx.znx_negate(ta), jznx.znx_negate(ja))
+    assert _eq(tznx.znx_zero_like(ta), jznx.znx_zero_like(ja))
+
+
+@pytest.mark.parametrize("base2k,k,res_size", [(17, 5, None), (17, 20, 4), (13, 3, 2),
+                                               (17, 0, 5), (30, 41, 3)])
+def test_vec_znx_shifts_and_normalize_op(base2k, k, res_size):
+    a = np.random.default_rng(13).integers(-(2**40), 2**40, (2, 3, N))
+    ta, ja = torch.from_numpy(a), jnp.asarray(a)
+    assert _eq(tvz.vec_znx_lsh(base2k, k, ta, res_size), jvz.vec_znx_lsh(base2k, k, ja, res_size))
+    assert _eq(tvz.vec_znx_rsh(base2k, k, ta, res_size), jvz.vec_znx_rsh(base2k, k, ja, res_size))
+    assert _eq(tvz.vec_znx_normalize_op(base2k, ta, res_size),
+               jvz.vec_znx_normalize_op(base2k, ja, res_size))
+
+
+@pytest.mark.parametrize("n_out", [N // 2, N // 4, 8])
+def test_vec_znx_split_and_merge_rings(n_out):
+    a = np.random.default_rng(14).integers(-(2**20), 2**20, (2, 3, N))
+    parts = tvz.vec_znx_split_ring(n_out, torch.from_numpy(a))
+    assert _eq(parts, jvz.vec_znx_split_ring(n_out, jnp.asarray(a)))
+    assert _eq(tvz.vec_znx_merge_rings(parts), jvz.vec_znx_merge_rings(jnp.asarray(parts.numpy())))
+
+
+@pytest.mark.parametrize("base2k,k,size", [(17, 34, 3), (17, 100, 6), (13, 90, 7), (52, 150, 3),
+                                           (17, 51, 3), (30, 121, 5)])
+def test_encode_decode_vec_i128(base2k, k, size):
+    """Python ints past 64 bits, both signs, encoded then decoded exactly;
+    the encoding equals the JAX package's limbs and decodes to the same ints,
+    values past the torus's range included."""
+    rng = np.random.default_rng(k)
+    data = [int.from_bytes(rng.bytes(32), "little", signed=True) >> (258 - k) for _ in range(16)]
+    data += [0, -1, 1, (1 << (k - 2)) - 1, -(1 << (k - 2))]
+    have = tvz.encode_vec_i128(base2k, k, size, data, device="cpu")
+    want = jvz.encode_vec_i128(base2k, k, size, data)
+    assert _eq(have, want)
+    assert tvz.decode_vec_i128(base2k, k, have) == jvz.decode_vec_i128(base2k, k, want) == data
+    # the torus wraps mod 2^k: both packages alike
+    wrap = [(1 << (k - 1)) - 1, -(1 << (k - 1)), 1 << (k + 3)]
+    have = tvz.encode_vec_i128(base2k, k, size, wrap, device="cpu")
+    assert _eq(have, jvz.encode_vec_i128(base2k, k, size, wrap))
+    assert tvz.decode_vec_i128(base2k, k, have) == jvz.decode_vec_i128(
+        base2k, k, jvz.encode_vec_i128(base2k, k, size, wrap))
+
+
+@pytest.mark.parametrize("p", [-1, 5, 2 * N - 3])
+def test_big_automorphism(p):
+    a = np.random.default_rng(15).integers(-(2**62), 2**62, (2, 4, N))
+    assert _eq(tdft.big_automorphism(p, torch.from_numpy(a)),
+               jdft.big_automorphism(p, jnp.asarray(a)))
+
+
 def test_module_defaults_to_the_card():
     """Without a device argument the port asks for the card, and raises on a
     machine without one instead of handing back a CPU module."""
@@ -334,4 +422,6 @@ def test_module_defaults_to_the_card():
         Module(64, 2, 28)
     with pytest.raises(RuntimeError, match="CUDA"):
         NttTables(TBasis(t_ntt_primes(2, 1 << 28)), 64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tvz.encode_vec_i128(17, 34, 3, [1])
     assert t_get_module(64, 2, 28, "cpu").device == torch.device("cpu")
