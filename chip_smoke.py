@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seventeen paths of the port run, each with the launch counters set to 0 just
+Eighteen paths of the port run, each with the launch counters set to 0 just
 before it and read just after:
 
 - the product path, the headline operation of bench.py: a batched GLWE ×
@@ -62,13 +62,20 @@ before it and read just after:
   onto the card, regenerates the masks (host ChaCha8 draws, one upload) and
   prepares the keys (NTT kernel), then one NAND at batch 1024 (block steps,
   the `small` keyswitch) and the noise of the decompressed GGSWs (the NTT
-  kernels both ways).
+  kernels both ways);
+- mesh, the multi-card layer (`poulpy_tpu_torch/parallel/`) at the rank
+  count of one card: one NCCL process group of world 1 in this process, the
+  (dp, tp) mesh over it, and on the set-ups of the product, gate, ckks and
+  cbt paths (parked on the host after their last earlier use): the four dp
+  entry points on `module_with_mesh`, the prime-, ring- and key-sharded
+  builders at tp, sp and kp 1, and the rank-local steps of 2-way layouts.
 
 The seven paths before the MXU paths run as they would without them: the
 three set-ups the MXU paths reuse wait on the host meanwhile; the two CBT
 paths follow the MXU paths, and the MXU kernels' checks (3′, with their
 float64 plain versions and cuBLAS yardstick) and the large-N checks come
-last.  Each set-up is freed after its last use.
+last; the mesh path runs after the last of the others.  Each set-up is
+freed after its last use.
 
 Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
 
@@ -258,6 +265,26 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  coefficients 0 and 567 (every row, columns 0 and 1) on the
                  card equal to the port's CPU run, their log2 std beside the
                  fresh-encryption level; peak device memory.
+ 20. mesh        an NCCL group of world 1 (FileStore in a temporary
+                 directory; every mesh axis's group on NCCL) and make_mesh()
+                 on it; through module_with_mesh: the product's 1 + 30
+                 chained products at B = 16384 (checksum 6596757198292), the
+                 NAND of sharded_gate_bootstrap_fn at batch 1024
+                 (GATE_FINGERPRINT), the ckks pair's mul + rescale(5) at batch
+                 256 (CKKS_FINGERPRINT) and the cbt path's warm-up batch of
+                 32 (CBT_FINGERPRINT), each output a DTensor placed Shard(0)
+                 on dp, each timed against the mesh-less call in turns; the
+                 prime-sharded product (tp 1) and the ring-sharded one (sp 1)
+                 at batch 1024 and the key-sharded block blind rotation (kp 1)
+                 on the gate's keys at batch 1024, each equal to its mesh-less
+                 path and issuing, per op, the JAX package's collectives (one
+                 all_gather; four all_to_alls; one all_reduce per block step),
+                 counted in parallel/collectives.py; then, for tp 2 and kp 2,
+                 ranks 0 and 1's local steps on the card at full width (the
+                 residues of one prime before the all_gather through the NTT
+                 and VMP kernels at P 1; the first block step's NTT-domain
+                 update of four members before the all_reduce) equal to the
+                 same steps on the CPU, batch 64; peak device memory.
 
 Only the five *_mxu paths may launch an MXU kernel.  After each path the
 NTT kernel's launches per (direction, primes, N, rows per prime, prime
@@ -462,6 +489,8 @@ PATHS = {
     "blind_retrieval": ("fused_product", "fused_product_small", "br_block_step",
                         "ntt_forward", "ntt_inverse", "vmp"),
     "compressed_gate": ("ntt_forward", "ntt_inverse", "br_block_step", "fused_product_small"),
+    "mesh": ("ntt_forward", "ntt_inverse", "vmp", "fused_product", "fused_product_small",
+             "br_block_step"),
 }
 
 
@@ -2457,9 +2486,10 @@ def phase_cbt_bench(name: str, setup, fingerprint: int | None) -> None:
 
 
 def run_cbt_path(name: str, n_lwe: int, block: int, device, fingerprint: int | None,
-                 extended: bool) -> None:
+                 extended: bool) -> dict:
     """A circuit-bootstrapping path: set-up, verify at CBT_VERIFY_BATCH,
-    then the bench at CBT_BATCH and CBT_WIDE_BATCH."""
+    then the bench at CBT_BATCH and CBT_WIDE_BATCH.  Returns the set-up (for
+    the mesh path)."""
     import torch
 
     t0 = time.perf_counter()
@@ -2472,6 +2502,7 @@ def run_cbt_path(name: str, n_lwe: int, block: int, device, fingerprint: int | N
          allocated_gib=torch.cuda.memory_allocated() / 2**30 if device.type == "cuda" else None)
     phase_cbt_verify(name, setup, CBT_VERIFY_BATCH, extended)
     phase_cbt_bench(name, setup, fingerprint)
+    return setup
 
 
 def plain_semantics(op: str, a: int, b: int, w: int) -> int:
@@ -3081,6 +3112,298 @@ def run_compressed_gate_path(device, digest: int | None, fingerprint: int | None
         raise SystemExit(f"compressed_gate failed: {checks}")
 
 
+# the mesh path: the batch of each 2-way local step, held against the CPU
+MESH_LOCAL_BATCH, MESH_SHARDED_BATCH, MESH_REPS = 64, 1024, 3
+
+
+def timed_turns(fns: dict, reps: int, device) -> dict:
+    """Milliseconds per call of each of `fns` (name → callable), timed in
+    turns a, b, b, a after one untimed call of each (each turn `reps` calls,
+    the device synchronised around it), the mean of its two turns."""
+    names = list(fns)
+    ms = {k: [] for k in names}
+    for fn in fns.values():
+        fn()
+    for name in names + names[::-1]:
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fns[name]()
+        sync(device)
+        ms[name].append((time.perf_counter() - t0) / reps * 1e3)
+    return {k: sum(v) / len(v) for k, v in ms.items()}
+
+
+def full(x):
+    """A DTensor gathered whole (at world 1 its one shard); a tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def checksum(data) -> int:
+    return int((full(data).abs() % 65536).sum())
+
+
+def mesh_output(phase: str, data, mesh) -> None:
+    """Raise unless `data` is a DTensor on `mesh` placed Shard(0) on dp."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    want = [Shard(0)] + [Replicate()] * (mesh.ndim - 1)
+    if not (isinstance(data, DTensor) and data.device_mesh == mesh
+            and list(data.placements) == want):
+        raise SystemExit(f"{phase}: the output is {type(data).__name__} "
+                         f"{getattr(data, 'placements', None)}, not a DTensor placed {want}")
+
+
+def phase_mesh_dp(mesh, setups: dict, label: str) -> None:
+    """The four dp checks through module_with_mesh on the earlier paths'
+    set-ups, each reproducing its path's checksum or fingerprint, each timed
+    against the mesh-less path in the same run (the cost of the DTensor
+    wrap), no collective issued."""
+    import torch
+
+    from poulpy_tpu_torch.binfhe import gates
+    from poulpy_tpu_torch.core.external_product import glwe_external_product
+    from poulpy_tpu_torch.hal.module import module_with_mesh
+    from poulpy_tpu_torch.parallel import COLLECTIVES, reset_collectives
+    from poulpy_tpu_torch.parallel.sharded import sharded_gate_bootstrap_fn
+
+    reset_collectives()
+    # product: 1 warm-up + ITERS chained products at B = 16384, in turns
+    ct, ggswp = setups["bench"]
+    m = get_bench_module(ct.data.device)
+    mm = module_with_mesh(m, mesh)
+    chains = {}
+
+    def chain(module):
+        def run():
+            out = glwe_external_product(module, ct, ggswp)
+            for _ in range(ITERS):
+                out = glwe_external_product(module, out, ggswp)
+            chains[module is mm] = out
+        return run
+
+    ms = timed_turns({"mesh": chain(mm), "mesh_less": chain(m)}, 1, m.device)
+    out = chains[True].data
+    mesh_output("mesh_dp_product", out, mesh)
+    value = checksum(out)
+    emit(phase="mesh_dp_product", card=label, batch=BATCH, iters=ITERS,
+         ms_per_iter=ms["mesh"] / (ITERS + 1), mesh_less_ms_per_iter=ms["mesh_less"] / (ITERS + 1),
+         wrap_share=ms["mesh"] / ms["mesh_less"] - 1, checksum=value, checksum_expected=CHECKSUM,
+         equal_to_mesh_less=bool(torch.equal(full(out), chains[False].data)))
+    if value != CHECKSUM:
+        raise SystemExit(f"mesh_dp_product: checksum {value} != {CHECKSUM}")
+    del chains, out
+
+    # gate: NAND at batch 1024 through sharded_gate_bootstrap_fn
+    keys, _, _, _, c1, c2 = setups["gate"][0]
+    nand = sharded_gate_bootstrap_fn(keys, mesh, "nand")
+    out = nand(c1.data, c2.data)
+    mesh_output("mesh_dp_gate", out, mesh)
+    value = checksum(out)
+    ms = timed_turns({"mesh": lambda: nand(c1.data, c2.data),
+                      "mesh_less": lambda: gates.gate_nand(keys, c1, c2)}, MESH_REPS, m.device)
+    emit(phase="mesh_dp_gate", card=label, batch=c1.data.shape[0], ms=ms["mesh"],
+         mesh_less_ms=ms["mesh_less"], wrap_share=ms["mesh"] / ms["mesh_less"] - 1,
+         fingerprint=value, fingerprint_expected=GATE_FINGERPRINT)
+    if value != GATE_FINGERPRINT:
+        raise SystemExit(f"mesh_dp_gate: fingerprint {value} != {GATE_FINGERPRINT}")
+
+    # CKKS: mul + rescale(5) of the pair broadcast to CKKS_BATCH rows
+    cm, _, tsk, _, _, (a, b), _ = setups["ckks"]
+    cmm = module_with_mesh(cm, mesh)
+    shape = (CKKS_BATCH,) + tuple(a.glwe.data.shape)
+    a, b = (c.replace(glwe=c.glwe.replace(data=c.glwe.data.expand(shape).contiguous()))
+            for c in (a, b))
+    out = ckks_mul(cmm, a, b, tsk, CKKS)
+    mesh_output("mesh_dp_ckks", out.glwe.data, mesh)
+    data = full(out.glwe.data)
+    value = int((data[0].abs() % 65536).sum())
+    rows_equal = bool((data == data[:1]).all())
+    ms = timed_turns({"mesh": lambda: ckks_mul(cmm, a, b, tsk, CKKS),
+                      "mesh_less": lambda: ckks_mul(cm, a, b, tsk, CKKS)}, MESH_REPS, m.device)
+    emit(phase="mesh_dp_ckks", card=label, batch=CKKS_BATCH, ms=ms["mesh"],
+         mesh_less_ms=ms["mesh_less"], wrap_share=ms["mesh"] / ms["mesh_less"] - 1,
+         fingerprint=value, fingerprint_expected=CKKS_FINGERPRINT, rows_equal=rows_equal,
+         log_delta=out.meta.log_delta, log_budget=out.meta.log_budget)
+    if value != CKKS_FINGERPRINT or not rows_equal:
+        raise SystemExit(f"mesh_dp_ckks: fingerprint {value}, rows equal {rows_equal}")
+
+    # CBT: the cbt path's warm-up batch of CBT_BATCH
+    s = setups["cbt"]
+    bm, key, lwe = s["m"], s["key"], s["lwes"][-1]
+    bmm = module_with_mesh(bm, mesh)
+    out = cbt(bmm, key, lwe).data
+    mesh_output("mesh_dp_cbt", out, mesh)
+    value = checksum(out)
+    ms = timed_turns({"mesh": lambda: cbt(bmm, key, lwe), "mesh_less": lambda: cbt(bm, key, lwe)},
+                     1, m.device)
+    emit(phase="mesh_dp_cbt", card=label, batch=CBT_BATCH, ms=ms["mesh"],
+         mesh_less_ms=ms["mesh_less"], wrap_share=ms["mesh"] / ms["mesh_less"] - 1,
+         fingerprint=value, fingerprint_expected=CBT_FINGERPRINT, collectives=dict(COLLECTIVES))
+    if value != CBT_FINGERPRINT or any(COLLECTIVES.values()):
+        raise SystemExit(f"mesh_dp_cbt: fingerprint {value}, collectives {COLLECTIVES}")
+
+
+def get_bench_module(device):
+    from poulpy_tpu_torch.hal.module import get_module
+
+    return get_module(N, NPRIMES, PRIME_BITS, device)
+
+
+def sharded_check(phase: str, label: str, device, run, plain, per_op: dict) -> None:
+    """`run()` (a sharded builder's call, returning a DTensor) equal to
+    `plain()` (the mesh-less path) with the collectives `per_op` per call,
+    each timed in turns; on the card, then, `run` once under the profiler
+    (where its device time goes)."""
+    import torch
+
+    from poulpy_tpu_torch.parallel import COLLECTIVES, reset_collectives
+
+    reset_collectives()
+    have = full(run())
+    counts = dict(COLLECTIVES)
+    equal = bool(torch.equal(have, plain()))
+    ms = timed_turns({"sharded": run, "mesh_less": plain}, MESH_REPS, device)
+    emit(phase=phase, card=label, equal_to_mesh_less=equal, collectives_per_op=counts,
+         collectives_expected=per_op, ms=ms["sharded"], mesh_less_ms=ms["mesh_less"],
+         shape=list(have.shape))
+    if not equal or {k: v for k, v in counts.items() if v} != per_op:
+        raise SystemExit(f"{phase}: equal {equal}, collectives {counts} (expected {per_op})")
+    if device.type == "cuda":
+        profile_once(f"{phase}_profile", run, ms["sharded"])
+
+
+def phase_mesh_sharded(mesh, setups: dict, label: str) -> None:
+    """tp 1, sp 1 and kp 1 at world 1 over NCCL: each builder equal to the
+    mesh-less path at batch MESH_SHARDED_BATCH, with the collectives the
+    JAX package's design issues per op."""
+    from poulpy_tpu_torch.binfhe.blind_rotation import blind_rotation_execute_block
+    from poulpy_tpu_torch.core.external_product import glwe_external_product
+    from poulpy_tpu_torch.parallel.mesh import mesh_from_ranks
+    from poulpy_tpu_torch.parallel.sharded import (
+        sharded_blind_rotation_block_fn,
+        sharded_external_product_fn,
+        sharded_external_product_ring_fn,
+    )
+
+    ct, ggswp = setups["bench"]
+    m = get_bench_module(ct.data.device)
+    ct = ct.replace(data=ct.data[:MESH_SHARDED_BATCH])
+    res_size = ct.data.shape[-2]
+
+    def product():
+        return glwe_external_product(m, ct, ggswp).data
+
+    tp = sharded_external_product_fn(m, mesh, BASE2K, res_size, ggswp.base2k)
+    sharded_check("mesh_tp1", label, m.device, lambda: tp(ct.data, ggswp.pmat), product,
+                  {"all_gather": 1})
+    ring = sharded_external_product_ring_fn(m, mesh_from_ranks(m.device, (1, 1), ("dp", "sp")),
+                                            BASE2K, res_size, ggswp.base2k)
+    sharded_check("mesh_sp1", label, m.device, lambda: ring(ct.data, ggswp.pmat), product,
+                  {"all_to_all": 4})
+    keys, _, _, _, c1, _ = setups["gate"][0]
+    block = keys.params.block_size
+    kp = sharded_blind_rotation_block_fn(keys.module, mesh_from_ranks(m.device, (1, 1),
+                                                                      ("dp", "kp")),
+                                         keys.lut, keys.brk, block)
+    sharded_check("mesh_kp1", label, m.device, lambda: kp(c1),
+                  lambda: blind_rotation_execute_block(keys.module, c1, keys.lut, keys.brk, block),
+                  {"all_reduce": keys.brk.n_lwe // block})
+
+
+def phase_mesh_local(setups: dict, label: str) -> None:
+    """The rank-local steps of 2-way layouts on the card at full width: for
+    tp 2, rank r's residues of its prime before the all_gather; for kp 2,
+    rank r's NTT-domain update of the first block step before the
+    all_reduce; each equal to the same step on the CPU through the plain
+    versions (no collective is emulated)."""
+    import torch
+
+    from poulpy_tpu_torch.backends import LAUNCHES, NTT_ROWS
+    from poulpy_tpu_torch.hal import dft
+    from poulpy_tpu_torch.hal.module import get_module
+    from poulpy_tpu_torch.parallel.sharded import (
+        kp_block_update,
+        kp_members,
+        local_module,
+        prime_slice,
+        tp_local_residues,
+    )
+
+    cpu = torch.device("cpu")
+    ct, ggswp = setups["bench"]
+    m = get_bench_module(ct.data.device)
+    mc = get_bench_module(cpu)
+    data = ct.data[:MESH_LOCAL_BATCH]
+    keys, _, _, _, c1, _ = setups["gate"][0]
+    gm, block = keys.module, keys.params.block_size
+    gmc = get_module(gm.n, gm.nprimes, keys.params.prime_bits, cpu)
+    lwe = c1.replace(data=c1.data[:MESH_LOCAL_BATCH])
+    lut_c, brk_c, lwe_c = moved(keys.lut, cpu), moved(keys.brk, cpu), moved(lwe, cpu)
+    checks = {}
+    before = dict(LAUNCHES)
+    for r in range(2):
+        lo, hi = prime_slice(m.nprimes, 2, r)
+        pm = ggswp.pmat[..., lo:hi, :]
+        have = tp_local_residues(local_module(m, lo, hi), data, pm)
+        want = tp_local_residues(local_module(mc, lo, hi), data.cpu(), pm.cpu())
+        checks[f"tp2_rank{r}"] = bool(torch.equal(have.cpu(), want))
+        acc, a_loc, pm_loc = kp_members(gm, lwe, keys.lut, keys.brk, block, 2, r)
+        have = kp_block_update(gm, dft.dft_apply(gm, acc), a_loc[0], pm_loc[0])
+        acc, a_loc, pm_loc = kp_members(gmc, lwe_c, lut_c, brk_c, block, 2, r)
+        want = kp_block_update(gmc, dft.dft_apply(gmc, acc), a_loc[0], pm_loc[0])
+        checks[f"kp2_rank{r}"] = bool(torch.equal(have.cpu(), want))
+    launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    one_prime = sorted([*shape, k] for shape, k in NTT_ROWS.items() if shape[1] == 1)
+    emit(phase="mesh_local", card=label, batch=MESH_LOCAL_BATCH, **checks, launches=launches,
+         ntt_launches_at_one_prime=one_prime)
+    if not all(checks.values()) or (m.device.type == "cuda" and not one_prime):
+        raise SystemExit(f"mesh_local: {checks}, NTT launches at P 1: {one_prime}")
+
+
+def run_mesh_path(setups: dict, device) -> None:
+    """The mesh path: one process group in this process (world 1, the rank
+    count of one card: NCCL on the card, gloo for a CPU rehearsal; a
+    FileStore in a temporary directory), the (dp, tp) mesh over it, then the
+    dp checks, the sharded builders at world 1 and the 2-way rank-local
+    steps; peak device memory of the phase."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from poulpy_tpu_torch.hal.ntt import canonical_device
+    from poulpy_tpu_torch.parallel import make_mesh
+    from poulpy_tpu_torch.parallel.collectives import BACKENDS
+
+    device = canonical_device(device)
+    cuda = device.type == "cuda"
+    label = card_label() if cuda else "cpu"
+    if cuda:
+        torch.cuda.set_device(device)
+        torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(BACKENDS[device.type],
+                                store=dist.FileStore(str(Path(tmp) / "store"), 1),
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh(device=device)
+            emit(phase="mesh_group", card=label, backend=dist.get_backend(),
+                 world_size=dist.get_world_size(), mesh=dict(zip(mesh.mesh_dim_names,
+                                                                 mesh.shape)),
+                 axis_backends={a: dist.get_backend(mesh.get_group(a))
+                                for a in mesh.mesh_dim_names})
+            phase_mesh_dp(mesh, setups, label)
+            phase_mesh_sharded(mesh, setups, label)
+            phase_mesh_local(setups, label)
+        finally:
+            dist.destroy_process_group()
+    emit(phase="mesh_memory", card=label,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None)
+
+
 def main() -> int:
     import torch
 
@@ -3145,7 +3468,8 @@ def main() -> int:
         "gate_fused_mxu": lambda: run_gate_route_path(on_card("gate"), GATE_VERIFY_BATCH,
                                                       STD_N_LWE, GATE_ITERS, GATE_FINGERPRINT,
                                                       "fused_mxu"),
-        "cbt": lambda: run_cbt_path("cbt", CBT_N_LWE, 1, m.device, CBT_FINGERPRINT, False),
+        "cbt": lambda: shared.update(cbt=run_cbt_path("cbt", CBT_N_LWE, 1, m.device,
+                                                      CBT_FINGERPRINT, False)),
         "cbt_block8": lambda: run_cbt_path("cbt_block8", CBT_BLOCK8_N_LWE, CBT_BLOCK, m.device,
                                            CBT_BLOCK8_FINGERPRINT, True),
         "fheuint_add": lambda: shared.update(bdd=run_fheuint_add_path(m.device,
@@ -3154,13 +3478,17 @@ def main() -> int:
         "compressed_gate": lambda: run_compressed_gate_path(
             m.device, COMPRESSED_BRK_BLOB_DIGEST, COMPRESSED_GATE_FINGERPRINT,
             shared["gate_per_nand"]),
+        "mesh": lambda: run_mesh_path({key: on_card(key)
+                                       for key in ("bench", "gate", "ckks", "cbt")}, m.device),
     }
     # after each path: the set-ups it parks on the host until the MXU paths,
     # and those it leaves behind for the last time
-    park = {"product": ("bench",), "gate": ("gate",), "keyswitch": ("keyswitch",)}
-    last_use = {f"product_{ROUTES[-1]}": ("verify", "bench"),
-                f"keyswitch_{ROUTES[-1]}": ("keyswitch",), "ckks_rotate": ("ckks",),
-                "gate_fused_mxu": ("gate",), "blind_retrieval": ("bdd",)}
+    park = {"product": ("bench",), "gate": ("gate",), "keyswitch": ("keyswitch",),
+            "ckks_rotate": ("ckks",), f"product_{ROUTES[-1]}": ("bench",),
+            "gate_fused_mxu": ("gate",), "cbt": ("cbt",)}
+    last_use = {f"product_{ROUTES[-1]}": ("verify",),
+                f"keyswitch_{ROUTES[-1]}": ("keyswitch",), "blind_retrieval": ("bdd",),
+                "mesh": ("bench", "gate", "ckks", "cbt")}
     launches = dict.fromkeys(LAUNCHES, 0)
     ntt_rows = Counter()
     for path, run in runs.items():

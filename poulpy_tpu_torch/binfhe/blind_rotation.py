@@ -56,6 +56,7 @@ from poulpy_tpu_torch.hal.module import Module
 from poulpy_tpu_torch.hal.ntt import mont_mul
 from poulpy_tpu_torch.hal.normalization import vec_znx_normalize
 from poulpy_tpu_torch.hal.vec_znx import vec_znx_rotate
+from poulpy_tpu_torch.parallel.auto import dp_shard
 
 
 @dataclass(frozen=True)
@@ -202,7 +203,12 @@ def blind_rotation_execute(module: Module, lwe: LWECiphertext, lut: LookupTable,
     """Standard CGGI path: GLWE data `[..., rank+1, size, N]` (base2k =
     brk.base2k) encrypting X^{-dec(lwe)}·LUT.  The accumulator stays
     unnormalized between coefficients (the butterfly product takes any
-    int64; `br_route` keeps the MXU one within int32)."""
+    int64; `br_route` keeps the MXU one within int32).  On a mesh-attached
+    module the batch runs dp-sharded (parallel/auto.py), as on the two
+    other paths."""
+    if module.mesh is not None:
+        return dp_shard(module, lambda l: blind_rotation_execute(
+            module.local, l, lut, brk, route), lwe)
     _check_one_poly(lut)
     base2k, size = brk.base2k, lut.size
     lwe_2n = mod_switch_2n(2 * module.n, lwe, lut.rot_dir)
@@ -225,6 +231,9 @@ def blind_rotation_execute_block(module: Module, lwe: LWECiphertext, lut: Lookup
                                  route: str = "fused"):
     """Block-binary CGGI path for block-binary LWE secrets (at most one set
     coefficient per block): one fused step per block of the key."""
+    if module.mesh is not None:
+        return dp_shard(module, lambda l: blind_rotation_execute_block(
+            module.local, l, lut, brk, block_size, route), lwe)
     _check_one_poly(lut)
     if brk.n_lwe % block_size:
         raise ValueError(f"n_lwe={brk.n_lwe} is not a multiple of block_size={block_size}")
@@ -256,6 +265,9 @@ def blind_rotation_execute_extended(module: Module, lwe: LWECiphertext, lut: Loo
     for every a_i.  Per block: `dft_apply`, then per key element
     `vmp_apply`, the part mix and `dft_sub` / `dft_add`, then `idft_apply`
     and `big_normalize`, through the NTT and VMP kernels on the card."""
+    if module.mesh is not None:
+        return dp_shard(module, lambda l: blind_rotation_execute_extended(
+            module.local, l, lut, brk, block_size), lwe)
     ext = lut.extension_factor
     n = module.n
     base2k, size, rank = brk.base2k, lut.size, brk.rank

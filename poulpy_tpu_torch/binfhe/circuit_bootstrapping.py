@@ -1,5 +1,5 @@
 """Circuit bootstrapping, LWE → GGSW: twin of
-`poulpy_tpu/binfhe/circuit_bootstrapping.py` (without the mesh).
+`poulpy_tpu/binfhe/circuit_bootstrapping.py`.
 
 One blind rotation with a multi-digit LUT leaves all gadget digits of the
 message `gap` coefficients apart; per digit a trace isolates coefficient 0
@@ -39,6 +39,7 @@ from poulpy_tpu_torch.core.packing import glwe_pack, glwe_trace, trace_galois_el
 from poulpy_tpu_torch.core.prepared import GLWEAutomorphismKeyPrepared, gglwe_prepare
 from poulpy_tpu_torch.hal.module import Module
 from poulpy_tpu_torch.hal.source import Source
+from poulpy_tpu_torch.parallel.auto import dp_shard
 
 
 @dataclass(frozen=True)
@@ -126,7 +127,12 @@ def circuit_bootstrap(module: Module, lwe: LWECiphertext, log_domain: int,
     (to-exponent), with dnum_res gadget rows.  `extension_factor` spreads
     the LUT over that many polynomials (domain N·ext); `key.block_size`
     routes the blind rotation through the block path.  `k_res` is the
-    JAX package's parameter: the output's k is the LUT's, dnum_res·base2k."""
+    JAX package's parameter: the output's k is the LUT's, dnum_res·base2k.
+    On a mesh-attached module the batch runs dp-sharded (parallel/auto.py)."""
+    if module.mesh is not None:
+        return dp_shard(module, lambda l: circuit_bootstrap(
+            module.local, l, log_domain, key, dnum_res, k_res, to_exponent,
+            extension_factor), lwe)
     del k_res
     base2k = key.brk.base2k
     lut = _lookup_table(module, base2k, log_domain, dnum_res, to_exponent, extension_factor)

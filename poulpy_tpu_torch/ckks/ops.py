@@ -53,6 +53,7 @@ from poulpy_tpu_torch.hal import dft, vec_znx
 from poulpy_tpu_torch.hal.module import Module
 from poulpy_tpu_torch.hal.ntt import canonical_device
 from poulpy_tpu_torch.hal.wide import wadd, wfrom_i64
+from poulpy_tpu_torch.parallel.auto import dp_shard
 
 
 class CKKSError(ValueError):
@@ -210,7 +211,12 @@ def mul(module: Module, a: CKKSCiphertext, b: CKKSCiphertext, tensor_key,
     """ct × ct with relinearization.  The torus product A·B (the exact
     bivariate convolution of the operands cut to their effective precision)
     is landed at the new scale by one power-of-two offset inside the final
-    normalization: the bit-shift rescale that replaces RNS modulus switching."""
+    normalization: the bit-shift rescale that replaces RNS modulus switching.
+    On a mesh-attached module both operands' batch runs dp-sharded
+    (parallel/auto.py)."""
+    if module.mesh is not None:
+        return dp_shard(module, lambda a_, b_: mul(module.local, a_, b_, tensor_key, res_k),
+                        a, b)
     ga, gb = a.glwe, b.glwe
     if ga.base2k != gb.base2k:
         raise PlaintextBase2KMismatch("mul", ga.base2k, gb.base2k)

@@ -18,6 +18,7 @@ from poulpy_tpu_torch.core.prepared import GGSWPrepared
 from poulpy_tpu_torch.hal import dft
 from poulpy_tpu_torch.hal.module import Module
 from poulpy_tpu_torch.hal.normalization import vec_znx_normalize_full
+from poulpy_tpu_torch.parallel.auto import dp_shard
 
 
 def glwe_external_product(module: Module, a: GLWECiphertext, ggsw: GGSWPrepared,
@@ -28,7 +29,11 @@ def glwe_external_product(module: Module, a: GLWECiphertext, ggsw: GGSWPrepared,
     VMP and exit as four launches) or "fused_mxu" (the four-step transforms
     in one fused launch), each where the JAX package's conditions allow it
     (`backends.mxu_product.mxu_route`); a wide product always takes the wide
-    exit."""
+    exit.  On a mesh-attached module the batch runs dp-sharded
+    (parallel/auto.py)."""
+    if module.mesh is not None:
+        return dp_shard(module, lambda a_: glwe_external_product(
+            module.local, a_, ggsw, res_base2k, res_k, route), a)
     res_base2k = a.base2k if res_base2k is None else res_base2k
     res_k = a.k if res_k is None else res_k
     res_size = glwe_size(res_base2k, res_k)

@@ -29,6 +29,7 @@ from poulpy_tpu_torch.core.prepared import GGLWEPrepared, gglwe_prepare, glwe_se
 from poulpy_tpu_torch.hal import dft
 from poulpy_tpu_torch.hal.module import Module
 from poulpy_tpu_torch.hal.normalization import vec_znx_normalize_full
+from poulpy_tpu_torch.parallel.auto import dp_shard
 
 
 def gglwe_product_dft(module: Module, a_dft, key: GGLWEPrepared):
@@ -54,7 +55,11 @@ def glwe_keyswitch(module: Module, a: GLWECiphertext, key: GGLWEPrepared,
                    res_base2k: int | None = None, res_k: int | None = None,
                    route: str = "fused") -> GLWECiphertext:
     """res = normalize(idft(gglwe_product(dft(a[1:]), key)) + a[0] at column 0).
-    `route` as in `external_product.glwe_external_product`."""
+    `route` as in `external_product.glwe_external_product`; on a
+    mesh-attached module the batch runs dp-sharded (parallel/auto.py)."""
+    if module.mesh is not None:
+        return dp_shard(module, lambda a_: glwe_keyswitch(
+            module.local, a_, key, res_base2k, res_k, route), a)
     res_base2k = a.base2k if res_base2k is None else res_base2k
     res_k = a.k if res_k is None else res_k
     res_size = glwe_size(res_base2k, res_k)

@@ -14,30 +14,36 @@ from __future__ import annotations
 
 import torch
 
+# torch.bitwise_*_shift rather than `<<` / `>>`: on a DTensor (a batch
+# sharded over a mesh, parallel/) the operators by a Python int return their
+# input unchanged, the functions shift.
+_shl = torch.bitwise_left_shift
+_sar = torch.bitwise_right_shift
+
 
 def get_digit(base2k: int, x):
     """Sign-extended low `base2k` bits of x."""
     sh = 64 - base2k
-    return (x << sh) >> sh
+    return _sar(_shl(x, sh), sh)
 
 
 def get_carry(base2k: int, x, digit):
     """(x - digit) >> base2k, arithmetic."""
-    return (x - digit) >> base2k
+    return _sar(x - digit, base2k)
 
 
 def first_step(base2k: int, lsh: int, a):
     k = base2k - lsh
     digit = get_digit(k, a)
     carry = get_carry(k, a, digit)
-    return digit << lsh, carry
+    return _shl(digit, lsh), carry
 
 
 def middle_step(base2k: int, lsh: int, a, c):
     k = base2k - lsh
     digit = get_digit(k, a)
     carry = get_carry(k, a, digit)
-    digit_plus_c = (digit << lsh) + c
+    digit_plus_c = _shl(digit, lsh) + c
     x1 = get_digit(base2k, digit_plus_c)
     return x1, carry + get_carry(base2k, digit_plus_c, x1)
 
@@ -45,7 +51,7 @@ def middle_step(base2k: int, lsh: int, a, c):
 def final_step(base2k: int, lsh: int, a, c):
     """Top limb; the outgoing carry is dropped (mod 1)."""
     k = base2k - lsh
-    return get_digit(base2k, (get_digit(k, a) << lsh) + c)
+    return get_digit(base2k, _shl(get_digit(k, a), lsh) + c)
 
 
 def vec_znx_normalize(base2k: int, a, lsh: int = 0):
@@ -69,7 +75,7 @@ def _shl_wrap(x, s: int):
     """x << s with wrapping i64 semantics for any s ≥ 0 (s ≥ 64 → 0)."""
     if s >= 64:
         return torch.zeros_like(x)
-    return x << s
+    return _shl(x, s)
 
 
 def _window(d, t: int, kr: int):
@@ -78,7 +84,7 @@ def _window(d, t: int, kr: int):
     def ash(x, s: int):
         if s >= 0:
             return _shl_wrap(x, s)
-        return x >> min(-s, 63)
+        return _sar(x, min(-s, 63))
 
     return ash(d, t) - _shl_wrap(ash(d, t - kr), kr)
 

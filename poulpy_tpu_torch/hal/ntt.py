@@ -140,10 +140,8 @@ class NttTables:
         self.logn = n.bit_length() - 1
         self.device = canonical_device(device)
 
-        def dev(a):
-            return torch.as_tensor(np.asarray(a, dtype=np.int64)).to(self.device)
-
         psi, psi_inv, n_inv = _host_tables(basis.primes, n)
+        dev = self._upload
         self.psi_brv = dev(psi)              # [P, N] Montgomery
         self.psi_inv_brv = dev(psi_inv)      # [P, N] Montgomery
         self.n_inv = dev(n_inv)              # [P]    Montgomery
@@ -151,11 +149,31 @@ class NttTables:
         self.qinv = dev(basis.qinv_arr)
         self.r2 = dev(basis.r2_arr)
         self.two40_mod_p = dev(basis.two40_mod_p_arr)
+        self._crt_constants()
+
+    def _upload(self, a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int64)).to(self.device)
+
+    def _crt_constants(self) -> None:
+        basis, dev = self.basis, self._upload
         self.garner_inv_mont = dev(basis.garner_inv_mont)      # [P]
         self.garner_pprod_mont = dev(basis.garner_pprod_mont)  # [P, P]
         self.garner_weight = dev(basis.garner_weight_u64)      # [P] wrapping
         self.modulus_u64 = dev(basis.modulus_u64)              # scalar
         self.half_digits = dev(basis.half_digits)              # [P]
+
+    def sliced(self, lo: int, hi: int) -> "NttTables":
+        """The tables of primes lo … hi − 1 on the same device: the per-prime
+        rows (twiddles, N^{-1}, p, the Montgomery and reduction constants)
+        are views of these tables' rows, the CRT constants those of the
+        sub-basis (a rank's primes under prime sharding, parallel/sharded.py)."""
+        t = object.__new__(NttTables)
+        t.basis = PrimeBasis(self.basis.primes[lo:hi])
+        t.n, t.logn, t.device = self.n, self.logn, self.device
+        for name in ("psi_brv", "psi_inv_brv", "n_inv", "p", "qinv", "r2", "two40_mod_p"):
+            setattr(t, name, getattr(self, name)[lo:hi])
+        t._crt_constants()
+        return t
 
 
 # --------------------------------------------------------------------------
