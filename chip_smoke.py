@@ -102,6 +102,18 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  both wide product designs' instances, both NTT designs'
                  and fused_product_tile.cu's (registers, stack frame,
                  spills);
+  2′. native     the g++ build of the native host tier
+                 (poulpy_tpu_torch/native/kernels.cpp: g++'s version, the
+                 build seconds, the host CPU), then each of its entry
+                 points against its plain version on the same inputs,
+                 tolerance 0, both timed on the host clock: the ChaCha8
+                 keystream against hal/source.py's numpy blocks at block
+                 counters 0, 12345 and 2^33 (and 2^20 blocks against
+                 plain_keystream), znx rotate and automorphism,
+                 normalization and the NTT both ways against the port's
+                 torch functions at N 1024 and 2048 (the int64 extremes
+                 among the inputs), the i128 convolution against a Python
+                 big-int product; one line {"native": [...]};
   3. kernels     each CUDA kernel against its plain PyTorch version on the same
                  CUDA inputs at its path's shapes, tolerance 0, with its time,
                  the plain version's time and the bound (the least time the
@@ -290,9 +302,11 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  blake2b-8 equal to the JAX package's
                  (COMPRESSED_BRK_BLOB_DIGEST); the server's deserialize onto
                  the card and decompress + prepare (seconds), the BRK's
-                 decompress again step by step (host draws, upload, assembly,
-                 `vmp_prepare` with its ntt_forward launches and shapes),
-                 equal to the whole call; the decompressed keys equal to the
+                 decompress again step by step (host draws through the
+                 native keystream, upload, assembly, `vmp_prepare` with its
+                 ntt_forward launches and shapes), equal to the whole call,
+                 then the same draw once through the plain keystream (its
+                 seconds; the same digits); the decompressed keys equal to the
                  direct keygen with each branched child (its seconds); one
                  NAND at batch 1024 on the gate path's bits: truth, the JAX
                  package's fingerprint (COMPRESSED_GATE_FINGERPRINT), its
@@ -1675,6 +1689,141 @@ def phase_ptxas() -> None:
                                    "br_step")):
             emit(phase="ptxas", entry=name, registers=int(regs), stack_frame=int(stack),
                  spill_stores=int(stores), spill_loads=int(loads))
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean milliseconds of `fn()` on the host clock over `reps` runs after
+    one warm-up."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def bigint_product(a, b) -> list:
+    """The exact negacyclic product of two int64 rows, in Python ints."""
+    import numpy as np
+
+    full = np.convolve(a.astype(object), b.astype(object))
+    return [int(v) for v in full[: a.size] - np.append(full[a.size:], 0)]
+
+
+def native_cases() -> list:
+    """(name, JAX package line it twins, plain version, shape, native call,
+    plain call, whether the two outputs are equal) of every entry point of
+    the native host tier, at N 1024 and 2048 (the keystream at block
+    counters 0, 12345 and 2^33, timed at 2^20 blocks)."""
+    import numpy as np
+    import torch
+
+    from poulpy_tpu_torch import native
+    from poulpy_tpu_torch.hal import normalization, ntt, source, znx
+    from poulpy_tpu_torch.hal.module import get_module
+
+    extremes = np.array([0, 1, -1, 2**62, -(2**62), 2**63 - 1, -(2**63), 2**40 - 1, -(2**40)],
+                        dtype=np.int64)
+
+    def ints(seed: int, shape: tuple):
+        x = np.random.default_rng(seed).integers(-(2**63), 2**63 - 1, shape, dtype=np.int64,
+                                                 endpoint=True)
+        x.reshape(-1, shape[-1])[0, : extremes.size] = extremes
+        return x
+
+    def same(x, y) -> bool:
+        y = y.numpy() if isinstance(y, torch.Tensor) else y
+        return x.shape == y.shape and bool(np.array_equal(x, y))
+
+    jx = "poulpy_tpu/native/kernels.cpp"
+    key = np.random.default_rng(7).integers(0, 2**32, 8, dtype=np.uint32)
+    cases = [("chacha8_blocks", f"{jx}:42", "hal/source.py _chacha_blocks", [c0, 4096, 16],
+              lambda c0=c0: native.chacha8_blocks(key, c0, 4096),
+              lambda c0=c0: source._chacha_blocks(key, c0, 4096), same)
+             for c0 in (0, 12345, 2**33)]
+    cases.append(("chacha8_blocks", f"{jx}:42", "hal/source.py plain_keystream",
+                  [0, 1 << 20, 16], lambda: native.chacha8_blocks(key, 0, 1 << 20),
+                  lambda: source.plain_keystream(key, 0, 1 << 20), same))
+    for n in (1024, 2048):
+        a = ints(n, (64, n))
+        ta = torch.from_numpy(a)
+        for p in (5, n - 1, -(n + 3)):
+            cases.append(("znx_rotate", f"{jx}:70", "hal/znx.py znx_rotate", [64, n, p],
+                          lambda a=a, p=p: native.znx_rotate(p, a),
+                          lambda ta=ta, p=p: znx.znx_rotate(p, ta), same))
+        for p in (3, 2 * n - 1):
+            cases.append(("znx_automorphism", f"{jx}:85", "hal/znx.py znx_automorphism",
+                          [64, n, p], lambda a=a, p=p: native.znx_automorphism(p, a),
+                          lambda ta=ta, p=p: znx.znx_automorphism(p, ta), same))
+        v = ints(n + 1, (16, 4, n))
+        tv = torch.from_numpy(v)
+        for lsh in (0, 3):
+            cases.append(("vec_znx_normalize", f"{jx}:117",
+                          "hal/normalization.py vec_znx_normalize", [16, 4, n, 17, lsh],
+                          lambda v=v, lsh=lsh: native.vec_znx_normalize(17, v, lsh),
+                          lambda tv=tv, lsh=lsh: normalization.vec_znx_normalize(17, tv, lsh),
+                          same))
+        t = get_module(n, 2, 28, "cpu").tables
+        psi, psi_inv, n_inv = ntt._host_tables(t.basis.primes, n)
+        rng = np.random.default_rng(n + 2)
+        x = np.stack([rng.integers(0, p, (16, n)) for p in t.basis.primes], axis=1)
+        tx = torch.from_numpy(x)
+        fwd = ntt.ntt_forward(t, tx)
+        prime = [(int(p), int(t.basis.qinv_arr[i])) for i, p in enumerate(t.basis.primes)]
+        cases.append(("ntt_forward", f"{jx}:204", "hal/ntt.py ntt_forward", [16, 2, n],
+                      lambda x=x, psi=psi, prime=prime: np.stack(
+                          [native.ntt_forward(psi[i], p, q, x[:, i])
+                           for i, (p, q) in enumerate(prime)], axis=1),
+                      lambda t=t, tx=tx: ntt.ntt_forward(t, tx), same))
+        xf = fwd.numpy()
+        cases.append(("ntt_inverse", f"{jx}:230", "hal/ntt.py ntt_inverse", [16, 2, n],
+                      lambda xf=xf, psi_inv=psi_inv, n_inv=n_inv, prime=prime: np.stack(
+                          [native.ntt_inverse(psi_inv[i], int(n_inv[i]), p, q, xf[:, i])
+                           for i, (p, q) in enumerate(prime)], axis=1),
+                      lambda t=t, fwd=fwd: ntt.ntt_inverse(t, fwd), same))
+        a1 = ints(n + 3, (1, n))
+        b1 = np.random.default_rng(n + 4).integers(-(2**40), 2**40, (1, n), dtype=np.int64)
+        cases.append(("negacyclic_conv_i128", f"{jx}:177", "Python big-int product", [1, n],
+                      lambda a1=a1, b1=b1: [[(int(h) << 64) | int(lo) for h, lo in zip(
+                          *(r[0] for r in native.negacyclic_conv_i128(a1, b1)))]],
+                      lambda a1=a1, b1=b1: [bigint_product(a1[0], b1[0])],
+                      lambda x, y: x == y))
+        a2 = np.random.default_rng(n + 5).integers(-(2**40), 2**40, n, dtype=np.int64)
+        cases.append(("negacyclic_mul_exact", f"{jx}:155", "Python big-int product", [n],
+                      lambda a2=a2, b1=b1: native.negacyclic_mul_exact(a2, b1[0]),
+                      lambda a2=a2, b1=b1: bigint_product(a2, b1[0]), lambda x, y: x == y))
+    return cases
+
+
+def phase_native() -> None:
+    """The native host tier: its g++ build on this host (the compiler's
+    version, the seconds, the host CPU), then each entry point against its
+    plain version on the same inputs, tolerance 0, both timed on the host
+    clock; one line {"native": [...]}.  Exits non-zero on any difference."""
+    import os
+
+    from poulpy_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.library()
+    seconds = time.perf_counter() - t0
+    version = subprocess.run([native.CXX, "--version"], capture_output=True, text=True,
+                             check=True).stdout.splitlines()[0]
+    cpu = native.host_cpu()
+    emit(phase="native_build", compiler=version, flags=list(native.FLAGS), seconds=seconds,
+         built=native.build_info["built"], cpu=cpu["model"], machine=cpu["machine"],
+         cpus=os.cpu_count(), library=str(Path(native.build_info["path"]).relative_to(ROOT)))
+    rows, failed = [], []
+    for name, replaces, plain, shape, run, run_plain, equal in native_cases():
+        ok = equal(run(), run_plain())
+        rows.append(dict(name=name, route="cpp", source="poulpy_tpu_torch/native/kernels.cpp",
+                         replaces=replaces, plain=plain, shape=shape, equal=ok,
+                         max_abs_err=0 if ok else None, ms=host_ms(run, 3),
+                         plain_ms=host_ms(run_plain, 3), cpu=cpu["model"]))
+        if not ok:
+            failed.append((name, shape))
+    print(json.dumps({"native": rows}), flush=True)
+    if failed:
+        raise SystemExit(f"native entry points differ from their plain versions: {failed}")
 
 
 def phase_ntt_shapes(tally: Counter) -> None:
@@ -3369,20 +3518,26 @@ def compressed_gate_server(params, brk_blob: bytes, ksk_blob: bytes, device) -> 
 
 def compressed_decompress_split(m, ggsw_c) -> tuple:
     """The BRK's decompress again, step by step, the device synchronised
-    between steps: the host's ChaCha8 draws, their upload, the GGSW's
-    assembly, `vmp_prepare` (its NTT launches and shapes).  Returns (the
-    GGSW, its pmats, the seconds and counts)."""
+    between steps: the host's ChaCha8 draws (through the native keystream,
+    as the decompress draws them), their upload, the GGSW's assembly,
+    `vmp_prepare` (its NTT launches and shapes); then the same draw once
+    through the plain keystream, which must give the same digits.  Returns
+    (the GGSW, its pmats, the seconds and counts)."""
+    from unittest import mock
+
+    import numpy as np
     import torch
 
+    from poulpy_tpu_torch import native
     from poulpy_tpu_torch.backends import LAUNCHES, NTT_ROWS
     from poulpy_tpu_torch.core import compressed
-    from poulpy_tpu_torch.hal import dft
+    from poulpy_tpu_torch.hal import dft, source
 
+    shape = compressed._ggsw_mask_shape(ggsw_c)
     t0 = time.perf_counter()
-    mask = compressed._mask_digits(ggsw_c.seed, ggsw_c.base2k, compressed._ggsw_mask_shape(ggsw_c))
+    digits = compressed._mask_digits(ggsw_c.seed, ggsw_c.base2k, shape)
     t1 = time.perf_counter()
-    draws, nbytes = mask.size, mask.nbytes
-    mask = torch.from_numpy(mask).to(m.device)
+    mask = torch.from_numpy(digits).to(m.device)
     sync(m.device)
     t2 = time.perf_counter()
     ggsw = compressed._ggsw_assemble(m, ggsw_c, mask)
@@ -3393,11 +3548,20 @@ def compressed_decompress_split(m, ggsw_c) -> tuple:
     pmats = dft.vmp_prepare(m, ggsw.data)
     sync(m.device)
     t4 = time.perf_counter()
-    shapes = [[*shape, k] for shape, k in sorted((Counter(NTT_ROWS) - rows).items())]
-    return ggsw, pmats, dict(draws_s=t1 - t0, draws=draws, upload_s=t2 - t1, upload_bytes=nbytes,
+    ntt_shapes = [[*rows_shape, k] for rows_shape, k in sorted((Counter(NTT_ROWS) - rows).items())]
+    with mock.patch.object(native, "chacha8_blocks", source.plain_keystream):
+        t5 = time.perf_counter()
+        plain = compressed._mask_digits(ggsw_c.seed, ggsw_c.base2k, shape)
+        plain_s = time.perf_counter() - t5
+    plain_equal = bool(np.array_equal(plain, digits))
+    draws, nbytes = digits.size, digits.nbytes
+    del plain, digits
+    return ggsw, pmats, dict(draws_s=t1 - t0, keystream="native", plain_keystream_draws_s=plain_s,
+                             plain_keystream_equal=plain_equal, draws=draws, mask_shape=list(shape),
+                             upload_s=t2 - t1, upload_bytes=nbytes,
                              assemble_s=t3 - t2, vmp_prepare_s=t4 - t3,
                              vmp_prepare_ntt_forward=LAUNCHES["ntt_forward"] - launches,
-                             vmp_prepare_ntt_shapes=shapes)
+                             vmp_prepare_ntt_shapes=ntt_shapes)
 
 
 def phase_compressed_noise(params, m, ggsw, sk_lwe, skp) -> None:
@@ -3444,6 +3608,7 @@ def run_compressed_gate_path(device, digest: int | None, fingerprint: int | None
     import numpy as np
     import torch
 
+    from poulpy_tpu_torch import native
     from poulpy_tpu_torch.backends import LAUNCHES
     from poulpy_tpu_torch.binfhe import gates
     from poulpy_tpu_torch.binfhe.blind_rotation import blind_rotation_key_encrypt_sk
@@ -3472,13 +3637,15 @@ def run_compressed_gate_path(device, digest: int | None, fingerprint: int | None
     peaks["server"] = peak_gib(reset=False)
     ggsw, pmats, split = compressed_decompress_split(m, brk_c.ggsw)
     full_bytes = len(serialize_layout(ggsw))
-    emit(phase="compressed_gate_keys", card=card, brk_blob_bytes=len(client["brk_blob"]),
+    emit(phase="compressed_gate_keys", card=card, host_cpu=native.host_cpu()["model"],
+         brk_blob_bytes=len(client["brk_blob"]),
          ksk_blob_bytes=len(client["ksk_blob"]), full_ggsw_blob_bytes=full_bytes,
          brk_blob_digest=brk_digest, brk_blob_digest_expected=digest,
          secrets_s=client["secrets_s"], compressed_keygen_s=client["keygen_s"],
          serialize_s=client["serialize_s"], **server, brk_decompress_split=split)
     checks = {"brk_blob_digest": digest is None or brk_digest == digest,
-              "split_equals_decompress": bool(torch.equal(pmats, keys.brk.pmats))}
+              "split_equals_decompress": bool(torch.equal(pmats, keys.brk.pmats)),
+              "plain_keystream_draw_equal": split["plain_keystream_equal"]}
     del pmats
 
     # the direct keygen with each branched child in place of xa
@@ -3846,6 +4013,7 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t0, built=_lib.build_info["built"],
          library=str(Path(_lib.build_info["path"]).relative_to(ROOT)))
     phase_ptxas()
+    phase_native()
 
     m = get_module(N, NPRIMES, PRIME_BITS, "cuda")
     gm = get_module(1024, 2, 28, "cuda")          # GateParams' n_glwe, nprimes, prime_bits

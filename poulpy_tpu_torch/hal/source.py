@@ -1,4 +1,4 @@
-"""Deterministic ChaCha8 randomness source (numpy, host side).
+"""Deterministic ChaCha8 randomness source (host side).
 
 Twin of `poulpy_tpu/hal/source.py`: the same ChaCha8Rng keystream (constant
 "expand 32-byte k", 8 key words, 64-bit block counter from 0, stream 0),
@@ -6,15 +6,20 @@ consumed word by word in the same order, with the same refill rule
 (`max(4, ceil(words/16))` fresh blocks, leftover words carried over), so
 every draw equals the JAX package's bit for bit.
 
-Blocks are generated word-major (`[16, blocks]`, each state word a
-contiguous row) and at most `_CHUNK_BLOCKS` at a time, so a draw of 10^8
-words keeps its temporaries bounded by the chunk.  Neither changes the
-stream.
+Every refill draws its blocks through the native host tier
+(`native.chacha8_blocks`, C++), written straight into the source's buffer;
+a failed build of that library raises.  `plain_keystream` is the numpy
+version the tests hold it against: blocks generated word-major
+(`[16, blocks]`, each state word a contiguous row) and at most
+`_CHUNK_BLOCKS` at a time, so a draw of 10^8 words keeps its temporaries
+bounded by the chunk.  Neither changes the stream.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from poulpy_tpu_torch import native
 
 _CONSTANTS = np.array([0x61707865, 0x3320646E, 0x79622D32, 0x6B206574], dtype=np.uint32)
 
@@ -63,6 +68,18 @@ def _chacha_blocks(key_words: np.ndarray, counter: int, nblocks: int) -> np.ndar
     return x.T
 
 
+def plain_keystream(key_words: np.ndarray, counter: int, nblocks: int,
+                    out: np.ndarray | None = None) -> np.ndarray:
+    """The plain version of `native.chacha8_blocks`: the same [nblocks, 16]
+    uint32 blocks, `_CHUNK_BLOCKS` at a time, written into `out` when given."""
+    if out is None:
+        out = np.empty((nblocks, 16), dtype=np.uint32)
+    for b0 in range(0, nblocks, _CHUNK_BLOCKS):
+        nb = min(_CHUNK_BLOCKS, nblocks - b0)
+        out[b0 : b0 + nb] = _chacha_blocks(key_words, counter + b0, nb)
+    return out
+
+
 class Source:
     """Deterministic pseudorandom source (a ChaCha8 keystream from a 32-byte seed)."""
 
@@ -82,10 +99,8 @@ class Source:
         left = self._buf[self._pos :]
         buf = np.empty(left.size + 16 * nblocks, dtype=np.uint32)
         buf[: left.size] = left
-        fresh = buf[left.size :].reshape(nblocks, 16)
-        for b0 in range(0, nblocks, _CHUNK_BLOCKS):
-            nb = min(_CHUNK_BLOCKS, nblocks - b0)
-            fresh[b0 : b0 + nb] = _chacha_blocks(self._key, self._counter + b0, nb)
+        native.chacha8_blocks(self._key, self._counter, nblocks,
+                              out=buf[left.size :].reshape(nblocks, 16))
         self._counter += nblocks
         self._buf = buf
         self._pos = 0

@@ -116,8 +116,12 @@ def test_source_stream(monkeypatch, native, seed):
 
 
 def test_source_large_draw_crosses_chunks(monkeypatch):
+    """The plain keystream's chunk loop (the refills draw through it here in
+    place of the native keystream) across chunk boundaries."""
+    from poulpy_tpu_torch import native
     from poulpy_tpu_torch.hal import source
 
+    monkeypatch.setattr(native, "chacha8_blocks", source.plain_keystream)
     monkeypatch.setattr(source, "_CHUNK_BLOCKS", 7)
     t, j = TSource(b"\x02" * 32), JSource(b"\x02" * 32)
     for count in (3, 1000, 17):
