@@ -12,7 +12,8 @@ just before it and read just after:
 - the gate path, bench_full.py's gate bootstrap: GateParams(n_lwe=568,
   block_size=8) (N 1024, base2k 17, k_ct 34, BRK k 68 dnum 4, KSK k 51
   dnum 2, get_module(1024, 2, 28)) at batch 1024: block-binary blind
-  rotation, GLWE → LWE keyswitch, sample extraction;
+  rotation (71 blocks: 35 chained launches of two block steps, then one
+  single step), GLWE → LWE keyswitch, sample extraction;
 - the keyswitch path, bench_full.py's keyswitch: N = 2048,
   get_module(2048, 2) (30-bit primes), ciphertext k 51, key k 68, dnum 3;
 - the ckks_wide path, bench_full.py's bench_ckks_mul_wide (the reference's
@@ -44,14 +45,16 @@ just before it and read just after:
   log_domain 1, to-constant; cbt with a binary secret of n_lwe 574 (one
   folded step per coefficient: the fused product with the rotate-and-
   subtract in its exit), cbt_block8 with a block-binary one of 576
-  in blocks of 8 (one block step per block); then the trace (one keyswitch
-  per level and digit) and the GGSW expansion (NTT and VMP kernels);
+  in blocks of 8 (36 chained launches of two block steps); then the trace
+  (one keyswitch per level and digit) and the GGSW expansion (NTT and VMP
+  kernels);
 - fheuint_add, bench_schemes.py's FheUint u32 add (after poulpy-bench
   bdd_arithmetic.rs): N 1024 on get_module(1024, 2, 28), a block-binary LWE
   secret of 679 in blocks of 7, base2k 15, ciphertexts k 30, CBT keys k 60
   dnum 4, the GLWE → LWE key k 30 dnum 2, selectors k 45 dnum 3: each
   operand's 32 bits circuit-bootstrapped in one batch (`fheuint_prepare`:
-  the GLWE → LWE keyswitch, 97 block steps, the trace, the expansion),
+  the GLWE → LWE keyswitch, 97 block steps in 48 chained launches and a
+  single one, the trace, the expansion),
   then the add's 1,584 BDD nodes, one CMux (one fused product) each;
 - blind_retrieval, on fheuint_add's keys: 256 FheUint u32 GLWEs read at an
   encrypted 8-bit index through the streaming retriever, the CMux tree and
@@ -133,7 +136,11 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  `small` form and the block step at the CBT paths' shapes,
                  batch 1024, after a line naming the instance each takes,
                  specialised or runtime-shaped, the `small` form's against
-                 the runtime-shaped instance it replaces); the NTT, the butterfly
+                 the runtime-shaped instance it replaces); the chain of two
+                 block steps in one launch (br_block_chain) at the gate's,
+                 the CBT's and fheuint_prepare's shapes, then at the gate's
+                 timed in turns beside two single launches of the same key
+                 elements (br_block_chain_ab); the NTT, the butterfly
                  product and block step, both tensor kernels and the wide
                  product (the lazy design, which the paths run) and the
                  VMP (the tile design) also against their parent design,
@@ -210,7 +217,8 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  sum(|data| mod 65536) must equal GATE_FINGERPRINT (the JAX
                  package's value on the CPU) and whose bits must be right,
                  then 5 timed chained NANDs out ← NAND(out, c2), ending in a
-                 host checksum, decrypted against host-tracked bits;
+                 host checksum, decrypted against host-tracked bits; the
+                 block-step launches per NAND (35 chained, 1 single);
   8. keyswitch   keyswitch path: the keyswitch kernel equals the plain
                  keyswitch at batch 8 and decrypts exactly; 16 chained
                  single-ciphertext keyswitches; 1 + 10 chained keyswitches at
@@ -271,7 +279,8 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  launches and a profile (device busy), their result equal
                  to the CBT's; the standard path's blind rotation (also on
                  the "mxu" route) launches one fused_br_step per LWE
-                 coefficient and nothing else of csrc/, and its profile
+                 coefficient and nothing else of csrc/, block 8's 36
+                 br_block_chain launches and nothing else, and the former's profile
                  holds no per-step glue (at most CBT_BR_GLUE_EVENTS device
                  events besides the steps);
  17. fheuint_add set-up from bench_schemes.py's seeds (set-up seconds; a
@@ -310,7 +319,7 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  direct keygen with each branched child (its seconds); one
                  NAND at batch 1024 on the gate path's bits: truth, the JAX
                  package's fingerprint (COMPRESSED_GATE_FINGERPRINT), its
-                 br_block_step launches equal to phase 7's per NAND, then 3
+                 block-step launches equal to phase 7's per NAND, then 3
                  timed NANDs; `ggsw_noise` of the decompressed GGSWs of LWE
                  coefficients 0 and 567 (every row, columns 0 and 1) on the
                  card equal to the port's CPU run, their log2 std beside the
@@ -533,6 +542,7 @@ KERNELS = {
     "fused_product_small64": ("poulpy_tpu_torch/csrc/fused_product.cu", _FUSED),
     "fused_br_step": ("poulpy_tpu_torch/csrc/fused_product_tile.cu", _FUSED),
     "br_block_step": ("poulpy_tpu_torch/csrc/br_block_step.cu", _FUSED),
+    "br_block_chain": ("poulpy_tpu_torch/csrc/br_block_step.cu", _FUSED),
     "tensor_product": ("poulpy_tpu_torch/csrc/tensor_product.cu",
                        "poulpy_tpu/backends/pallas_fused.py:1403"),
     "wide_product": ("poulpy_tpu_torch/csrc/wide_product.cu", f"{_WIDE}:496"),
@@ -544,12 +554,15 @@ KERNELS = {
     "fused_mxu_product_small": ("poulpy_tpu_torch/csrc/fused_mxu.cu", _FUSED_MXU),
     "fused_mxu_br_block_step": ("poulpy_tpu_torch/csrc/fused_mxu.cu", _FUSED_MXU),
 }
+# the kernels of the block blind rotation's steps (block_launches)
+BLOCK_STEP_KERNELS = ("br_block_step", "br_block_chain", "fused_mxu_br_block_step")
 MXU_KERNELS = ("mxu_forward", "mxu_inverse", "garner_exit", "fused_mxu_product",
                "fused_mxu_product_small", "fused_mxu_br_block_step")
 # the kernels each path must launch
 PATHS = {
     "product": ("ntt_forward", "ntt_inverse", "vmp", "fused_product"),
-    "gate": ("ntt_forward", "fused_br_step", "fused_product_small", "br_block_step"),
+    "gate": ("ntt_forward", "fused_br_step", "fused_product_small", "br_block_step",
+             "br_block_chain"),
     "keyswitch": ("ntt_forward", "fused_product_small"),
     "ckks_wide": ("wide_tensor", "wide_product"),
     "ckks": ("ntt_forward", "ntt_inverse", "vmp"),
@@ -560,15 +573,18 @@ PATHS = {
     "keyswitch_mxu": ("fused_product_small", "mxu_forward", "vmp", "mxu_inverse",
                       "garner_exit"),
     "keyswitch_fused_mxu": ("fused_product_small", "fused_mxu_product_small"),
-    "gate_fused_mxu": ("br_block_step", "fused_br_step", "fused_mxu_br_block_step",
+    "gate_fused_mxu": ("br_block_step", "br_block_chain", "fused_br_step",
+                       "fused_mxu_br_block_step",
                        "fused_mxu_product", "fused_mxu_product_small"),
     "cbt": ("fused_br_step", "fused_product_small", "ntt_forward", "ntt_inverse", "vmp"),
-    "cbt_block8": ("br_block_step", "fused_product_small", "ntt_forward", "ntt_inverse", "vmp"),
-    "fheuint_add": ("fused_product", "fused_product_small", "br_block_step", "ntt_forward",
-                    "ntt_inverse", "vmp"),
+    "cbt_block8": ("br_block_chain", "fused_product_small", "ntt_forward", "ntt_inverse",
+                   "vmp"),
+    "fheuint_add": ("fused_product", "fused_product_small", "br_block_step", "br_block_chain",
+                    "ntt_forward", "ntt_inverse", "vmp"),
     "blind_retrieval": ("fused_product", "fused_product_small", "br_block_step",
-                        "ntt_forward", "ntt_inverse", "vmp"),
-    "compressed_gate": ("ntt_forward", "ntt_inverse", "br_block_step", "fused_product_small"),
+                        "br_block_chain", "ntt_forward", "ntt_inverse", "vmp"),
+    "compressed_gate": ("ntt_forward", "ntt_inverse", "br_block_step", "br_block_chain",
+                        "fused_product_small"),
     "cbt_fused_mxu": ("fused_mxu_product", "fused_mxu_product_small", "ntt_forward",
                       "ntt_inverse", "vmp"),
     "cbt_block8_fused_mxu": ("fused_mxu_br_block_step", "fused_mxu_product_small", "ntt_forward",
@@ -580,7 +596,7 @@ PATHS = {
                "mxu_forward", "vmp", "mxu_inverse", "garner_exit"),
     "examples": (),
     "mesh": ("ntt_forward", "ntt_inverse", "vmp", "fused_product", "fused_product_small",
-             "fused_br_step", "br_block_step"),
+             "fused_br_step", "br_block_step", "br_block_chain"),
 }
 # the paths that may launch an MXU kernel: the *_mxu paths, and two that run
 # every route in turn
@@ -830,6 +846,7 @@ def phase_kernels(m, gm, wm) -> dict:
     import torch
 
     from poulpy_tpu_torch.backends import fused, ntt, vmp, wide
+    from poulpy_tpu_torch.binfhe.blind_rotation import BR_STEPS
     from poulpy_tpu_torch.hal.module import Module
 
     km = Module(KS_N, 2, 30, m.device)
@@ -863,6 +880,11 @@ def phase_kernels(m, gm, wm) -> dict:
     amounts = ints(-gn, gn + 1, (GATE_BATCH, GATE_BLOCK))
     pm_k = fused.pm_kernel_layout(brk, 2)
     rows_used = int(torch.unique(amounts & (2 * gn - 1)).numel())
+    # the gate path's chained launch: BR_STEPS block steps of 8 BRK elements each
+    chain_brk = residues(gm, (BR_STEPS * GATE_BLOCK, 4, 2, 2, 4, gp, gn))
+    chain_amounts = ints(-gn, gn + 1, (GATE_BATCH, BR_STEPS * GATE_BLOCK))
+    chain_pm_k = fused.pm_kernel_layout(chain_brk, 2)
+    chain_rows_used = int(torch.unique(chain_amounts & (2 * gn - 1)).numel())
     # the wide CKKS mul (2 limbs of 52 bits, tensor key dnum 2, psize 3, P 5):
     # the tensor step on both ciphertexts, then the relinearization of its
     # 2 digits [ci 1, 2 rows] × [rows 2, ci 1, co 2, psize 3] with the 3 lin
@@ -958,6 +980,14 @@ def phase_kernels(m, gm, wm) -> dict:
             bound(2 * acc.numel() * i64 + amounts.numel() * i64 + pm_k.numel() * i32
                   + rows_used * gp * gn * i32,
                   fused_ops(GATE_BATCH, 4, 8, gp, gn, GATE_BLOCK))),
+        "br_block_chain": (
+            lambda: fused.fused_br_block_step(gm, acc, chain_brk, chain_amounts, 2, BASE2K,
+                                              chain_pm_k, BR_STEPS),
+            lambda: fused.fused_br_block_step_ref(gm, acc, chain_brk, chain_amounts, 2, BASE2K,
+                                                  BR_STEPS),
+            bound(2 * acc.numel() * i64 + chain_amounts.numel() * i64
+                  + chain_pm_k.numel() * i32 + chain_rows_used * gp * gn * i32,
+                  BR_STEPS * fused_ops(GATE_BATCH, 4, 8, gp, gn, GATE_BLOCK))),
         "wide_tensor": (
             lambda: wide.fused_tensor_product_wide(wm, ca, cb, 3, c.dnum, 3, c.base2k, c.base2k,
                                                    WIDE_OFFSET),
@@ -1034,7 +1064,46 @@ def phase_kernels(m, gm, wm) -> dict:
     }
     cbt, cbt_parents = cbt_cases(gm)
     bdd, bdd_parents = bdd_cases(gm)
-    return check_kernels({**cases, **cbt, **bdd}, {**parents, **cbt_parents, **bdd_parents})
+    timings = check_kernels({**cases, **cbt, **bdd}, {**parents, **cbt_parents, **bdd_parents})
+    phase_chain_ab(gm, acc, chain_brk, chain_amounts, chain_pm_k, timings)
+    return timings
+
+
+def phase_chain_ab(gm, acc, brk, amounts, pm_k, timings: dict) -> None:
+    """The gate's chained launch (BR_STEPS block steps of GATE_BLOCK key
+    elements) beside BR_STEPS single launches of the same key elements, the
+    second on the first's output: equal, and timed in turns (chain, singles,
+    singles, chain; CUDA events, 5 launches each after a warm-up), beside
+    phase 3's bounds of one chain and of one single step."""
+    import torch
+
+    from poulpy_tpu_torch.backends import fused
+    from poulpy_tpu_torch.binfhe.blind_rotation import BR_STEPS
+
+    keys = [slice(st * GATE_BLOCK, (st + 1) * GATE_BLOCK) for st in range(BR_STEPS)]
+    single_amounts = [amounts[:, k].contiguous() for k in keys]
+
+    def chain():
+        return fused.fused_br_block_step(gm, acc, brk, amounts, 2, BASE2K, pm_k, BR_STEPS)
+
+    def singles():
+        x = acc
+        for k, a in zip(keys, single_amounts):
+            x = fused.fused_br_block_step(gm, x, brk[k], a, 2, BASE2K, pm_k[k])
+        return x
+
+    equal = bool(torch.equal(chain(), singles()))
+    runs = {"chain": chain, "singles": singles}
+    ms = {name: [] for name in runs}
+    for name in ("chain", "singles", "singles", "chain"):
+        ms[name].append(cuda_ms(runs[name], 5))
+    emit(phase="br_block_chain_ab", batch=GATE_BATCH, block=GATE_BLOCK, steps=BR_STEPS,
+         equal=equal, chain_ms=ms["chain"], singles_ms=ms["singles"],
+         chain_over_singles=sum(ms["chain"]) / sum(ms["singles"]),
+         chain_bound_ms=timings["br_block_chain"]["bound_ms"],
+         single_bound_ms=timings["br_block_step"]["bound_ms"])
+    if not equal:
+        raise SystemExit("the chained block steps differ from single launches")
 
 
 def cbt_cases(gm) -> tuple:
@@ -1048,6 +1117,7 @@ def cbt_cases(gm) -> tuple:
     import torch
 
     from poulpy_tpu_torch.backends import fused
+    from poulpy_tpu_torch.binfhe.blind_rotation import BR_STEPS
     from poulpy_tpu_torch.hal.vec_znx import vec_znx_rotate
 
     # the CBT paths: N 1024, P 2, acc and output 2 limbs, keys psize 4, dnum 3
@@ -1055,7 +1125,9 @@ def cbt_cases(gm) -> tuple:
                                           ("fused_br_step", "step", 4, 4, 2, 0),
                                           ("fused_product_small@cbt", "product", 2, 4, 2, 0),
                                           ("br_block_step@cbt", "block_step", 4, 4, 2,
-                                           CBT_BLOCK)))
+                                           CBT_BLOCK),
+                                          ("br_block_chain@cbt", "block_chain", 4, 4, 2,
+                                           BR_STEPS * CBT_BLOCK)))
     gen = torch.Generator(device=gm.device).manual_seed(6)
 
     def ints(lo, hi, shape):
@@ -1088,6 +1160,11 @@ def cbt_cases(gm) -> tuple:
     cbt_amounts = ints(-gn, gn + 1, (cb, CBT_BLOCK))
     cbt_pm_k = fused.pm_kernel_layout(cbt_brk, 2)
     cbt_rows_used = int(torch.unique(cbt_amounts & (2 * gn - 1)).numel())
+    # the block-8 path's chained launch: BR_STEPS block steps on the same acc
+    chain_brk = residues((BR_STEPS * CBT_BLOCK, CBT_DNUM_KEY, 2, 2, 4, gp, gn))
+    chain_amounts = ints(-gn, gn + 1, (cb, BR_STEPS * CBT_BLOCK))
+    chain_pm_k = fused.pm_kernel_layout(chain_brk, 2)
+    chain_rows_used = int(torch.unique(chain_amounts & (2 * gn - 1)).numel())
 
     def unfolded():
         tmp = fused.fused_glwe_product(gm, cbt_acc, cbt_pmat, 2, CBT_BASE2K, CBT_BASE2K)
@@ -1120,6 +1197,14 @@ def cbt_cases(gm) -> tuple:
             bound(2 * cbt_step_acc.numel() * i64 + cbt_amounts.numel() * i64
                   + cbt_pm_k.numel() * i32 + cbt_rows_used * gp * gn * i32,
                   fused_ops(cb, 4, 8, gp, gn, CBT_BLOCK))),
+        "br_block_chain@cbt": (
+            lambda: fused.fused_br_block_step(gm, cbt_step_acc, chain_brk, chain_amounts, 2,
+                                              CBT_BASE2K, chain_pm_k, BR_STEPS),
+            lambda: fused.fused_br_block_step_ref(gm, cbt_step_acc, chain_brk, chain_amounts, 2,
+                                                  CBT_BASE2K, BR_STEPS),
+            bound(2 * cbt_step_acc.numel() * i64 + chain_amounts.numel() * i64
+                  + chain_pm_k.numel() * i32 + chain_rows_used * gp * gn * i32,
+                  BR_STEPS * fused_ops(cb, 4, 8, gp, gn, CBT_BLOCK))),
     }
     product = fused._product_launch
     parents = {
@@ -1137,17 +1222,20 @@ def cbt_cases(gm) -> tuple:
 def phase_instances(gm, phase: str, rows: tuple) -> None:
     """The instance each butterfly kernel takes at its path's shape (N and P
     of `gm`, two output columns; `rows`: name, launch ("product",
-    "step" or "block_step", as `fused.LAZY_SHAPES`' keys), KK, psize,
-    res_size, block, 0 but for the block step): specialised where its
+    "step" or "block_step", as `fused.LAZY_SHAPES`' keys, or "block_chain",
+    a chain of block steps), KK, psize, res_size, key elements of the launch,
+    0 but for the block step and the chain): specialised where its
     `fused.LAZY_SHAPES` key has one, else the runtime-shaped instance of
     the lazy design."""
     from poulpy_tpu_torch.backends import fused
 
     out = {}
     for name, kind, kk, psize, res, block in rows:
+        launch = "block_step" if kind == "block_chain" else kind
         lay = fused.butterfly_layout(kk, 2, psize, gm.nprimes, gm.n, res, block=block,
-                                     split=kind != "block_step", step=kind == "step")
-        shape = (kind, gm.log_n, kk, lay.cpb * psize, gm.nprimes, psize, res)
+                                     split=launch != "block_step",
+                                     step=kind in ("step", "block_chain"))
+        shape = (launch, gm.log_n, kk, lay.cpb * psize, gm.nprimes, psize, res)
         out[name] = dict(design=lay.kind, lazy_shape=list(shape), cols_per_block=lay.cpb,
                          ciphertexts_per_block=lay.tile, smem=lay.smem,
                          instance="specialised" if shape in fused.LAZY_SHAPES
@@ -2187,12 +2275,17 @@ def phase_gate_bench(setup, iters: int, fingerprint: int | None, route: str = "f
     truth = bool(np.array_equal(gates.decrypt_bit(out, sk), expect))
     extra = {} if butterfly_gates_per_s is None else {
         "butterfly_gates_per_s": butterfly_gates_per_s}
+    block_steps = {k: per_nand.get(k, 0) for k in BLOCK_STEP_KERNELS}
+    want = block_launches(keys.params.n_lwe, keys.params.block_size, route)
     emit(phase=f"{name}_bench", route=route, batch=batch, iters=iters,
          gates_per_s=batch * iters / dt, **extra, ms_per_batch=dt / iters * 1e3, checksum=value,
          decrypt_matches_tracked_bits=truth, launches_per_nand=per_nand,
+         block_steps_per_nand=block_steps, block_steps_expected=want,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else None)
     if not truth:
         raise SystemExit("chained NANDs decrypt to the wrong bits")
+    if device.type == "cuda" and block_steps != want:
+        raise SystemExit(f"{name}: block-step launches per NAND {block_steps}, not {want}")
     if device.type == "cuda":
         profile_once(f"{name}_profile", lambda: gates.gate_nand(keys, out, c2, route=route),
                      dt / iters * 1e3)
@@ -2781,14 +2874,35 @@ def cbt_stages(setup, lwe, route: str = "fused") -> dict:
     }
 
 
-def folded_br_launches(setup, route: str) -> dict | None:
-    """The launches of the standard blind rotation on the butterfly kernels
-    (the default and "mxu" routes) on the card: one folded step per LWE
-    coefficient and nothing else of csrc/; None for the other paths."""
+def block_launches(n_lwe: int, block: int, route: str) -> dict:
+    """The block-step launches of one block blind rotation on the card, by
+    kernel (BLOCK_STEP_KERNELS): on the butterfly kernels the JAX package's
+    grouping, nblocks // BR_STEPS chains then nblocks % BR_STEPS single
+    steps; through "fused_mxu" one MXU block step per block."""
+    from poulpy_tpu_torch.binfhe.blind_rotation import BR_STEPS
+
+    nblocks = n_lwe // block
+    out = dict.fromkeys(BLOCK_STEP_KERNELS, 0)
+    if route == "fused_mxu":
+        out["fused_mxu_br_block_step"] = nblocks
+    else:
+        steps = min(BR_STEPS, nblocks)
+        out.update(br_block_chain=nblocks // steps if steps > 1 else 0,
+                   br_block_step=nblocks % steps if steps > 1 else nblocks)
+    return out
+
+
+def br_launches(setup, route: str) -> dict | None:
+    """The launches of the blind rotation on the butterfly kernels (the
+    default and "mxu" routes) on the card, and nothing else of csrc/: one
+    folded step per LWE coefficient on the standard path, the block steps
+    of `block_launches` on the block path; None through "fused_mxu"."""
     key = setup["key"]
-    if key.block_size != 1 or route == "fused_mxu":
+    if route == "fused_mxu":
         return None
-    return {"fused_br_step": key.brk.n_lwe}
+    if key.block_size == 1:
+        return {"fused_br_step": key.brk.n_lwe}
+    return {k: v for k, v in block_launches(key.brk.n_lwe, key.block_size, route).items() if v}
 
 
 def cbt_split(setup, lwe, timed_ms: float, route: str = "fused") -> dict:
@@ -2815,7 +2929,7 @@ def cbt_split(setup, lwe, timed_ms: float, route: str = "fused") -> dict:
     equal = bool(torch.equal(x.data, cbt(m, setup["key"], lwe, route=route).data))
     if not equal:
         raise SystemExit("the staged CBT differs from circuit_bootstrap")
-    want = folded_br_launches(setup, route)
+    want = br_launches(setup, route)
     br = stages["blind_rotation"]["launches"]
     if want is not None and m.device.type == "cuda" and br != want:
         raise SystemExit(f"the blind rotation launched {br}, not {want}")
@@ -2827,7 +2941,7 @@ def cbt_split_profile(name: str, setup, lwe, split: dict, route: str = "fused") 
     """Each stage of `cbt_split` once more under the profiler (device busy
     time, its share of the stage's unprofiled time), then the split's line."""
     x, busy = None, 0.0
-    folded = folded_br_launches(setup, route)
+    folded = (br_launches(setup, route) or {}).get("fused_br_step")
     for stage, fn in cbt_stages(setup, lwe, route).items():
         row = split["stages"][stage]
         prof = profile_once(f"{name}_{stage}_profile", lambda f=fn, v=x: f(v), row["ms"])
@@ -2839,7 +2953,7 @@ def cbt_split_profile(name: str, setup, lwe, split: dict, route: str = "fused") 
         # the folded steps leave the blind rotation only its set-up and final
         # normalization around them: no elementwise op per coefficient
         if stage == "blind_rotation" and folded and \
-                prof["device_events"] > folded["fused_br_step"] + CBT_BR_GLUE_EVENTS:
+                prof["device_events"] > folded + CBT_BR_GLUE_EVENTS:
             raise SystemExit(f"{name}: the blind rotation ran {prof['device_events']} device "
                              "events: per-step glue")
     emit(phase=f"{name}_split", **split, device_busy_ms=busy,
@@ -3380,10 +3494,12 @@ def bdd_cases(gm) -> tuple:
     GLWE → LWE keyswitch of `fheuint_prepare` at batch 32 (2 limbs, key
     dnum 2, psize 2, with the body); the CBT trace's keyswitch at batch 32
     (3 limbs, key dnum 4, psize 4); the block step of 7 key elements at
-    batch 32 (accumulator of 3 limbs, key dnum 4, psize 4)."""
+    batch 32 (accumulator of 3 limbs, key dnum 4, psize 4), and the chain of
+    BR_STEPS such steps in one launch."""
     import torch
 
     from poulpy_tpu_torch.backends import fused
+    from poulpy_tpu_torch.binfhe.blind_rotation import BR_STEPS
 
     gen = torch.Generator(device=gm.device).manual_seed(7)
 
@@ -3399,7 +3515,8 @@ def bdd_cases(gm) -> tuple:
         ("fused_product@cmux", "product", 4, 3, 2, 0),
         ("fused_product_small@fheuint_ks", "product", 2, 2, 2, 0),
         ("fused_product_small@fheuint_trace", "product", 3, 4, 3, 0),
-        ("br_block_step@fheuint", "block_step", 6, 4, 3, BDD_BLOCK)))
+        ("br_block_step@fheuint", "block_step", 6, 4, 3, BDD_BLOCK),
+        ("br_block_chain@fheuint", "block_chain", 6, 4, 3, BR_STEPS * BDD_BLOCK)))
     cmux_pmat = residues((BDD_DNUM_GGSW, 2, 2, 3, gp, gn))
     cmux1 = ints(-(2**15), 2**15, (2, 2, gn))
     cmux64 = ints(-(2**15), 2**15, (64, 2, 2, gn))
@@ -3412,6 +3529,10 @@ def bdd_cases(gm) -> tuple:
     amounts = ints(-gn, gn + 1, (32, BDD_BLOCK))
     pm_k = fused.pm_kernel_layout(brk, 3)
     rows_used = int(torch.unique(amounts & (2 * gn - 1)).numel())
+    chain_brk = residues((BR_STEPS * BDD_BLOCK, BDD_DNUM_CBT, 2, 2, 4, gp, gn))
+    chain_amounts = ints(-gn, gn + 1, (32, BR_STEPS * BDD_BLOCK))
+    chain_pm_k = fused.pm_kernel_layout(chain_brk, 3)
+    chain_rows_used = int(torch.unique(chain_amounts & (2 * gn - 1)).numel())
     product, step = fused._product_launch, fused._block_step_launch
     args = {
         "fused_product@cmux": (cmux1, cmux_pmat, 2, None),
@@ -3440,6 +3561,14 @@ def bdd_cases(gm) -> tuple:
         bound(2 * acc.numel() * i64 + amounts.numel() * i64 + pm_k.numel() * i32
               + rows_used * gp * gn * i32, fused_ops(32, 6, 8, gp, gn, BDD_BLOCK)))
     parents["br_block_step@fheuint"] = parent_run(step, gm, acc, brk, amounts, 3, b2k, pm_k)
+    cases["br_block_chain@fheuint"] = (
+        lambda: fused.fused_br_block_step(gm, acc, chain_brk, chain_amounts, 3, b2k, chain_pm_k,
+                                          BR_STEPS),
+        lambda: fused.fused_br_block_step_ref(gm, acc, chain_brk, chain_amounts, 3, b2k,
+                                              BR_STEPS),
+        bound(2 * acc.numel() * i64 + chain_amounts.numel() * i64 + chain_pm_k.numel() * i32
+              + chain_rows_used * gp * gn * i32,
+              BR_STEPS * fused_ops(32, 6, 8, gp, gn, BDD_BLOCK)))
     return cases, parents
 
 
@@ -3675,8 +3804,8 @@ def run_compressed_gate_path(device, digest: int | None, fingerprint: int | None
     checks["nand_truth"] = bool(np.array_equal(gates.decrypt_bit(out, sk_lwe), 1 - (b1 & b2)))
     checks["fingerprint"] = fingerprint is None or value == fingerprint
     if gate_per_nand is not None:
-        checks["block_steps_per_nand_equal_gate_path"] = (
-            per_nand.get("br_block_step") == gate_per_nand.get("br_block_step"))
+        checks["block_steps_per_nand_equal_gate_path"] = all(
+            per_nand.get(k) == gate_per_nand.get(k) for k in ("br_block_step", "br_block_chain"))
     sync(m.device)
     t0 = time.perf_counter()
     for _ in range(3):

@@ -22,7 +22,9 @@ Replace four call patterns of `poulpy_tpu/backends/pallas_fused.py`
       acc ← acc + X^a·tmp − tmp,  tmp = big_normalize(idft(vmp(dft(acc), BRK_i)));
 - the block-binary CGGI step (block > 1, rotate, add_acc):
   `fused_br_block_step`,
-      acc ← normalize(acc + idft(Σ_i NTT(X^{a_i} − 1) · (dft(acc) ⊡ BRK_i)));
+      acc ← normalize(acc + idft(Σ_i NTT(X^{a_i} − 1) · (dft(acc) ⊡ BRK_i))),
+  and `steps` such steps chained in one launch (`steps=2` is the JAX
+  package's default launch; `chain_steps` says where the kernel takes it);
 - the rank-1 tensor product: `fused_tensor_product`, the quadratic term's
   gadget digits and the raw 64-bit linear terms that feed `small64`
   (`csrc/tensor_product.cu`, its lazy design shared with
@@ -258,8 +260,9 @@ def lazy_smem_bytes(tile: int, kk: int, mrows: int, nprimes: int, n: int, block:
                     step_rows: int = 0) -> int:
     """Shared memory of one block of the lazy design: `tile`·P regions of
     max(KK, mrows) rows (the VMP writes its output rows over its input
-    rows), then the block step's x-power rows [tile·block] int32 or the
-    step's normalized rows [tile·step_rows] int64."""
+    rows), then the normalized rows [tile·step_rows] int64 of the step or
+    of a chain of block steps, and the block step's x-power rows
+    [tile·block] int32."""
     return 4 * tile * nprimes * max(kk, mrows) * n + 4 * tile * block + 8 * tile * step_rows * n
 
 
@@ -273,8 +276,9 @@ def lazy_layout(kk: int, co: int, psize: int, nprimes: int, n: int, res_size: in
     (N outside 256..2048, more than MAX_LIMBS input or output rows, or no
     column group that fits): the most output columns per block (all co for
     the block step, `split` False) whose rows fit; ciphertexts per block
-    from LAZY_SHAPES, else 1; `step`: `fused_br_step`'s launch, the block's
-    res_size normalized rows per column in shared memory too."""
+    from LAZY_SHAPES, else 1; `step`: the block's res_size normalized rows
+    per column in shared memory too (`fused_br_step`'s launch, or with
+    `block` a chain of block steps, `block` key elements in all)."""
     logn = n.bit_length() - 1
     if not 8 <= logn <= 11 or not 0 < kk <= MAX_LIMBS:
         return None
@@ -898,70 +902,118 @@ def xpow_minus1_sigma(module: Module):
     return cached
 
 
-def fused_br_block_step_ref(module: Module, acc, pmats, a_blk, res_size: int, base2k: int):
-    """Plain version of one block-binary CGGI step (the jnp `block_step` of
-    `poulpy_tpu/binfhe/blind_rotation.py`): per key element i, the VMP of
-    dft(acc) with BRK_i, times NTT(X^{a_i}), minus itself; the sum over i,
-    idft, plus acc at the aligned limbs, normalized to `res_size` limbs."""
+def _check_chain(steps: int, nkeys: int, size: int, res_size: int) -> int:
+    """The block of a launch of `steps` chained block steps over `nkeys`
+    key elements; raises where `steps` does not divide them, or where a
+    chain's steps do not keep the accumulator's size (the JAX package's
+    assertion)."""
+    if steps < 1 or nkeys % steps:
+        raise ValueError(f"steps={steps} does not divide the {nkeys} key elements")
+    if steps > 1 and size != res_size:
+        raise ValueError(f"chained steps need size == res_size, got {size} and {res_size}")
+    return nkeys // steps
+
+
+def fused_br_block_step_ref(module: Module, acc, pmats, a_blk, res_size: int, base2k: int,
+                            steps: int = 1):
+    """Plain version of `steps` block-binary CGGI steps in sequence, each
+    the jnp `block_step` of `poulpy_tpu/binfhe/blind_rotation.py`: per key
+    element i, the VMP of dft(acc) with BRK_i, times NTT(X^{a_i}), minus
+    itself; the sum over i, idft, plus acc at the aligned limbs, normalized
+    to `res_size` limbs.  Step st takes key elements st·block … st·block +
+    block − 1 of `pmats` and `a_blk`."""
+    block = _check_chain(steps, pmats.shape[0], acc.shape[-2], res_size)
     t = module.tables
     xpow, _ = xpow_tables(module)
-    acc_dft = _dft_plain(module, acc)
-    add_dft = None
-    for i in range(pmats.shape[0]):
-        vmp_res = vmp_apply_ref(module, acc_dft, pmats[i])
-        xp = xpow[a_blk[..., i] & (2 * module.n - 1)]       # [..., P, N]
-        rot = mont_mul(vmp_res, xp[..., None, None, :, :], t.p[:, None], t.qinv[:, None])
-        term = dft_sub(module, rot, vmp_res)
-        add_dft = term if add_dft is None else dft_add(module, add_dft, term)
-    big = garner_lift(t, ntt_inverse(t, add_dft))
-    big = big + _align_limbs(acc, big, big.shape[-2], limb_axis=-2)[0]
-    return vec_znx_normalize_full(res_size, base2k, 0, big, base2k)
+    for st in range(steps):
+        keys = slice(st * block, (st + 1) * block)
+        acc_dft = _dft_plain(module, acc)
+        add_dft = None
+        for pm, a in zip(pmats[keys], a_blk[..., keys].unbind(-1)):
+            vmp_res = vmp_apply_ref(module, acc_dft, pm)
+            xp = xpow[a & (2 * module.n - 1)]                   # [..., P, N]
+            rot = mont_mul(vmp_res, xp[..., None, None, :, :], t.p[:, None], t.qinv[:, None])
+            term = dft_sub(module, rot, vmp_res)
+            add_dft = term if add_dft is None else dft_add(module, add_dft, term)
+        big = garner_lift(t, ntt_inverse(t, add_dft))
+        big = big + _align_limbs(acc, big, big.shape[-2], limb_axis=-2)[0]
+        acc = vec_znx_normalize_full(res_size, base2k, 0, big, base2k)
+    return acc
 
 
 def fused_br_block_step(module: Module, acc, pmats, a_blk, res_size: int, base2k: int,
-                        pm_k=None):
-    """One block-binary CGGI step for a batch.
+                        pm_k=None, steps: int = 1):
+    """`steps` block-binary CGGI steps for a batch, in one launch.
 
     acc    [..., cols, size, N] int64 limbs;
-    pmats  [block, rows, cols, cols, psize, P, N] the block's prepared BRK
-           elements (Montgomery);
-    a_blk  [..., block] int64 mod-switched rotation amounts, any sign;
-    pm_k   [block, P, cols·rmax, cols·psize, N] int32: `pmats` in kernel
-           layout (`pm_kernel_layout`), made from `pmats` when not given.
+    pmats  [steps·block, rows, cols, cols, psize, P, N] the prepared BRK
+           elements of the steps' blocks, in order (Montgomery);
+    a_blk  [..., steps·block] int64 mod-switched rotation amounts, any sign;
+    pm_k   [steps·block, P, cols·rmax, cols·psize, N] int32: `pmats` in
+           kernel layout (`pm_kernel_layout`), made from `pmats` when not given;
+    steps  block steps chained in the launch (the JAX package's `steps`):
+           step st runs key elements st·block … st·block + block − 1 on the
+           previous step's normalized accumulator, so size == res_size.
     → [..., cols, res_size, N] normalized limbs.  Plain version on CPU
     tensors, one CUDA launch on CUDA (the x-power factor gathered in the
-    kernel from the device `_xpow_minus1_table` by `a & (2N − 1)`)."""
+    kernel from the device `_xpow_minus1_table` by `a & (2N − 1)`), counted
+    under "br_block_step", or "br_block_chain" for steps > 1.  A chain runs
+    only in the lazy design (`chain_steps`): elsewhere it raises."""
     if acc.device.type == "cpu":
-        return fused_br_block_step_ref(module, acc, pmats, a_blk, res_size, base2k)
-    out, launch = _block_step_launch(module, acc, pmats, a_blk, res_size, base2k, pm_k)
+        return fused_br_block_step_ref(module, acc, pmats, a_blk, res_size, base2k, steps)
+    out, launch = _block_step_launch(module, acc, pmats, a_blk, res_size, base2k, pm_k, steps)
     if launch is not None:
         launch()
-        LAUNCHES["br_block_step"] += 1
+        LAUNCHES["br_block_chain" if steps > 1 else "br_block_step"] += 1
     return out
 
 
+def _block_layout(module: Module, kk: int, cols: int, psize: int, res_size: int, block: int,
+                  steps: int, design: str) -> Layout:
+    """The layout of a launch of `steps` block steps (`butterfly_layout`;
+    a chain keeps its normalized limbs in shared memory too)."""
+    return butterfly_layout(kk, cols, psize, module.nprimes, module.n, res_size, steps * block,
+                            split=False, design=design, step=steps > 1)
+
+
+def chain_steps(module: Module, acc, pmats, res_size: int, block: int, steps: int) -> int:
+    """`steps` where `fused_br_block_step` can chain that many block steps
+    of `block` key elements on `acc` (always on the CPU, where the plain
+    version runs; on CUDA where the lazy design takes the chain's shape),
+    else 1."""
+    if steps <= 1 or acc.device.type == "cpu":
+        return steps
+    cols, rmax, psize = acc.shape[-3], min(pmats.shape[1], acc.shape[-2]), pmats.shape[4]
+    lay = _block_layout(module, cols * rmax, cols, psize, res_size, block, steps, "lazy")
+    return steps if lay.kind == "lazy" and acc.shape[-2] == res_size else 1
+
+
 def _block_step_launch(module: Module, acc, pmats, a_blk, res_size: int, base2k: int,
-                       pm_k=None, design: str = "lazy"):
+                       pm_k=None, steps: int = 1, design: str = "lazy"):
     """The checked arguments of one `fused_br_block_step` launch, as
-    `_product_launch`'s."""
+    `_product_launch`'s; `steps` > 1 raises outside the lazy design."""
     P, n = module.nprimes, module.n
-    block, rows, cols, co, psize = pmats.shape[:5]
+    nkeys, rows, cols, co, psize = pmats.shape[:5]
     lead, size = acc.shape[:-3], acc.shape[-2]
+    block = _check_chain(steps, nkeys, size, res_size)
     rmax = min(rows, size)
     kk, mdim = cols * rmax, cols * psize
     if co != cols or acc.shape[-3] != cols or acc.shape[-1] != n:
         raise ValueError(f"acc {tuple(acc.shape)} does not match the key's {cols} columns")
-    if tuple(a_blk.shape) != tuple(lead) + (block,):
-        raise ValueError(f"a_blk: expected {tuple(lead) + (block,)}, got {tuple(a_blk.shape)}")
-    lay = butterfly_layout(kk, cols, psize, P, n, res_size, block, split=False, design=design)
+    if tuple(a_blk.shape) != tuple(lead) + (nkeys,):
+        raise ValueError(f"a_blk: expected {tuple(lead) + (nkeys,)}, got {tuple(a_blk.shape)}")
+    lay = _block_layout(module, kk, cols, psize, res_size, block, steps, design)
+    if steps > 1 and lay.kind != "lazy":
+        raise ValueError(f"a chain of {steps} block steps runs in the lazy design only; "
+                         f"this shape takes the {design} design's {lay.kind} layout")
     _check_bounds(P, psize, res_size)
     if pm_k is None:
         pm_k = pm_kernel_layout(pmats, rmax)
-    if tuple(pm_k.shape) != (block, P, kk, mdim, n):
-        raise ValueError(f"pm_k: expected {(block, P, kk, mdim, n)}, got {tuple(pm_k.shape)}")
+    if tuple(pm_k.shape) != (nkeys, P, kk, mdim, n):
+        raise ValueError(f"pm_k: expected {(nkeys, P, kk, mdim, n)}, got {tuple(pm_k.shape)}")
     B = acc.numel() // (cols * size * n) if acc.numel() else 0
     a = acc.reshape(B, cols, size, n).contiguous()
-    amounts = a_blk.reshape(B, block).contiguous()
+    amounts = a_blk.reshape(B, nkeys).contiguous()
     _lib.require(a, "acc", torch.int64)
     _lib.require(amounts, "a_blk", torch.int64)
     _lib.require(pm_k, "pm_k", torch.int32)
@@ -976,20 +1028,20 @@ def _block_step_launch(module: Module, acc, pmats, a_blk, res_size: int, base2k:
     def launch(timed: bool = False):
         args = (a.data_ptr(), pm_k.data_ptr(), xpm1.data_ptr(), amounts.data_ptr(),
                 out.data_ptr())
-        sizes = (B, cols, size, rmax, psize, res_size, base2k, block, P, module.log_n)
+        sizes = (B, cols, size, rmax, psize, res_size, base2k, block)
         if lay.kind == "lazy":
             stamps = _stamps(timed, -(-B // lay.tile), acc.device)
             err = _lib.library().poulpy_br_block_step_lazy(
-                *args, shoup_tables(module.tables).data_ptr(), consts.data_ptr(), *sizes,
-                lay.tile, lay.smem, _lib.ptr(stamps), _lib.stream())
+                *args, shoup_tables(module.tables).data_ptr(), consts.data_ptr(), *sizes, steps,
+                P, module.log_n, lay.tile, lay.smem, _lib.ptr(stamps), _lib.stream())
         else:
             if timed and lay.kind == "global":
                 raise ValueError("the stage clock runs the shared layout only")
             stamps = _stamps(timed, B, acc.device)
             ws, grid = launch_workspace(lay, B, n, acc.device)
             err = _lib.library().poulpy_br_block_step(
-                *args, tw.data_ptr(), consts.data_ptr(), *sizes, lay.smem, _lib.ptr(ws),
-                lay.chunk, grid, _lib.ptr(stamps), _lib.stream())
+                *args, tw.data_ptr(), consts.data_ptr(), *sizes, P, module.log_n, lay.smem,
+                _lib.ptr(ws), lay.chunk, grid, _lib.ptr(stamps), _lib.stream())
         _lib.check(err, "poulpy_br_block_step")
         return stamps
 

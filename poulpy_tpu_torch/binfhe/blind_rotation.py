@@ -12,7 +12,10 @@ Extended path:      a LUT over ext polynomials (domain N·ext) as ext parts
 Every ciphertext of a batch rotates by its own amounts.  On CUDA the
 standard path runs one fused step kernel per coefficient (the product with
 the rotate-and-subtract in its exit, `fused_br_step`) and the block path
-one block-step kernel per block; on the CPU both take the plain versions.
+one block-step kernel per BR_STEPS blocks (the chain of
+`fused_br_block_step(steps=…)`, the JAX package's default launch), the
+nblocks % BR_STEPS trailing blocks one per launch; on the CPU both take
+the plain versions.
 `route` picks the kernels: "fused" (the default) the butterfly
 ones (`backends/fused.py`), "fused_mxu" those of the four-step int8
 transforms (`backends/fused_mxu.py`, the JAX package's
@@ -30,6 +33,7 @@ import torch
 from poulpy_tpu_torch.backends.fused import (  # noqa: F401  (the x-power tables live with their kernel)
     _xpow_minus1_table,
     _xpow_table,
+    chain_steps,
     fused_br_block_step,
     fused_br_steps,
     fused_supported,
@@ -58,6 +62,10 @@ from poulpy_tpu_torch.hal.ntt import mont_mul
 from poulpy_tpu_torch.hal.normalization import vec_znx_normalize
 from poulpy_tpu_torch.hal.vec_znx import vec_znx_rotate
 from poulpy_tpu_torch.parallel.auto import dp_shard
+
+# block steps per launch of the block path's butterfly kernel: the JAX
+# package's default POULPY_TPU_BR_STEPS
+BR_STEPS = 2
 
 
 @dataclass(frozen=True)
@@ -233,7 +241,8 @@ def blind_rotation_execute_block(module: Module, lwe: LWECiphertext, lut: Lookup
                                  brk: BlindRotationKeyPrepared, block_size: int,
                                  route: str = "fused"):
     """Block-binary CGGI path for block-binary LWE secrets (at most one set
-    coefficient per block): one fused step per block of the key."""
+    coefficient per block): a fused step per block of the key, BR_STEPS of
+    them chained per launch of the butterfly kernel."""
     if module.mesh is not None:
         return dp_shard(module, lambda l: blind_rotation_execute_block(
             module.local, l, lut, brk, block_size, route), lwe)
@@ -244,17 +253,25 @@ def blind_rotation_execute_block(module: Module, lwe: LWECiphertext, lut: Lookup
     base2k, size = brk.base2k, lut.size
     lwe_2n = mod_switch_2n(2 * module.n, lwe, lut.rot_dir)
     acc = _acc_init(lwe_2n[..., 0], lut, brk.rank)
-    batch = tuple(lwe_2n.shape[:-1])
-    # [nblocks, ..., block]: each step's amounts contiguous
-    a_blocks = lwe_2n[..., 1:].reshape(batch + (nblocks, block_size)).movedim(-2, 0).contiguous()
     mxu = br_route(module, route, brk.pmats.shape[-3], base2k, brk.dsize, 0) == "fused_mxu"
-    step = fused_mxu_br_block_step if mxu else fused_br_block_step
     # the kernel reads the key in its own layout, made once per key
     pm_k = _kernel_key(module, brk, acc, size, mxu)
-    for j in range(nblocks):
-        blk = slice(j * block_size, (j + 1) * block_size)
-        acc = step(module, acc, brk.pmats[blk], a_blocks[j], size, base2k,
-                   None if pm_k is None else pm_k[blk])
+    # the JAX package's grouping: spans of `steps` whole blocks, one chained
+    # launch each, then the nblocks % steps trailing blocks one per launch;
+    # the MXU kernel runs one block per launch, as the JAX package's does
+    steps = 1 if mxu else chain_steps(module, acc, brk.pmats, size, block_size,
+                                      max(1, min(BR_STEPS, nblocks)))
+    batch, j = tuple(lwe_2n.shape[:-1]), 0
+    for span, count in ((steps, nblocks // steps), (1, nblocks % steps)):
+        # [count, ..., span·block]: each launch's amounts contiguous
+        a_spans = lwe_2n[..., 1 + j * block_size:1 + (j + span * count) * block_size].reshape(
+            batch + (count, span * block_size)).movedim(-2, 0).contiguous()
+        for a_span in a_spans:
+            keys = slice(j * block_size, (j + span) * block_size)
+            args = (module, acc, brk.pmats[keys], a_span, size, base2k,
+                    None if pm_k is None else pm_k[keys])
+            acc = fused_mxu_br_block_step(*args) if mxu else fused_br_block_step(*args, span)
+            j += span
     return acc
 
 

@@ -1,13 +1,23 @@
 // One block-binary CGGI blind-rotation step for a batch, one launch:
 //   acc <- normalize(acc + idft(sum_i NTT(X^{a_i} - 1) * (dft(acc) [x] BRK_i)))
-// from int64 limbs [B, cols, size, N] to normalized int64 limbs [B, cols, res_size, N].
+// from int64 limbs [B, cols, size, N] to normalized int64 limbs [B, cols, res_size, N];
+// or, in the lazy design, `steps` such steps chained in one launch.
 //
 // Replaces: poulpy_tpu/backends/pallas_fused.py, _pipe_fn -> _kernel_pipe via
 // fused_br_block_step (block > 1, rotate, add_acc; caller
-// blind_rotation.py:475).  Its rot_mode 0/1/2 and `steps` variants are one
-// computation placed differently on the TPU; this kernel computes it once.
+// blind_rotation.py:485-527), in these call patterns:
+// - steps 1, rot_mode 2 (the x-power applied to the VMP's input rows, from
+//   the Montgomery table): the lazy design, poulpy_br_block_step_lazy;
+// - steps 1, rot_mode 0 (applied to the VMP's output rows): the parent
+//   design, poulpy_br_block_step; both compute the same bits;
+// - steps 2, rot_mode 2, the JAX package's default launch (POULPY_TPU_BR_STEPS):
+//   the lazy design's chain, poulpy_br_block_step_lazy with steps > 1, each
+//   step's normalized accumulator kept in shared memory for the next.
+// Not replaced yet (ROADMAP Queue 2): rot_mode 1 (the x-power as a Shoup
+// product from the two-plane table, POULPY_TPU_ROT_MODE=1), and the
+// sublane/lane-split layout (_ntt_rows_sl / _intt_rows_sl, POULPY_TPU_SL=1).
 // Plain twin: poulpy_tpu_torch/backends/fused.py fused_br_block_step_ref (the
-// jnp block_step of blind_rotation.py:532-550).
+// jnp block_step of blind_rotation.py:532-550), `steps` of them in sequence.
 //
 // What bounds it on the H100: operations and L2, not HBM.  A ciphertext
 // moves cols·size·N·8 bytes in and out (32 KB each way at the gate shape),
@@ -34,7 +44,12 @@
 // input row), block·KK products instead of block·M, and sums all block·KK
 // terms of an output lazily in u64 with one reduction; one thread per
 // (prime, coefficient) keeps the tile's sums in registers, so each key word
-// read from L2 serves the T ciphertexts.  131,136 B at the gate shape.
+// read from L2 serves the T ciphertexts.  131,136 B at the gate shape.  The
+// chain (CHAIN, steps > 1) runs the whole step `steps` times over
+// consecutive key elements; between steps the tile's normalized limbs
+// [T][cols][res_size][N] int64 stay in shared memory (65,536 B more at the
+// gate shape, 196,736 in all: still one block per SM), the next step's
+// entry reads them there, and only the last step writes `out`.
 //
 // The parent design (br_block_step_kernel; the stage clock's reference, and
 // br_block_step_staged_kernel for the global layout): one block per
@@ -53,7 +68,8 @@
 // rows do not fit (327,680 B at the gate shape at N 4096),
 // br_block_step_staged_kernel keeps them in a global workspace and passes
 // each transform through shared memory srows rows at a time (modarith.cuh,
-// global layout).
+// global layout).  The parent design runs one step per launch: the wrapper
+// refuses a chain where the lazy design does not take the shape.
 #include "modarith.cuh"
 
 namespace {
@@ -210,7 +226,7 @@ struct LazyStepArgs {
   const uint2* tw;
   const int64_t* consts;
   long long* stamps;
-  int B, cols, size, rmax, psize, res_size, kr, block, P, logn;
+  int B, cols, size, rmax, psize, res_size, kr, block, steps, P, logn;
 };
 
 // The gate's block step (log N, KK, M, P, psize, res_size; backends/fused.py
@@ -221,11 +237,17 @@ using RuntimeShape = BfShape<0, 0, 0, 0, 0, 0>;
 
 // The lazy design: one block per tile of T ciphertexts (backends/fused.py
 // lazy_layout), their T·P regions of R = max(KK, M) rows in shared memory,
-// then the tile's x-power rows [T][block] (a & (2N − 1)).  The VMP makes
-// each x-power product once per (ciphertext, key element, input row) and
-// reads each key word once per tile (modarith.cuh lazy_vmp).  TIMED: the
-// stage clock, stamps [blocks][BF_NSTAGES].
-template <class S, int T, bool TIMED>
+// then (CHAIN) the tile's normalized limbs nxt [T][cols][res_size][N] int64,
+// then the tile's x-power rows xrow [steps][T][block] (a & (2N − 1)).  The
+// VMP makes each x-power product once per (ciphertext, key element, input
+// row) and reads each key word once per tile (modarith.cuh lazy_vmp).
+// CHAIN: g.steps steps (size == res_size), step st over key elements
+// st·block … st·block + block − 1; step st's entry reads acc (st 0) or nxt,
+// its exit adds those limbs and writes nxt, or `out` at the last step (a
+// thread reads the limbs of its (ciphertext, column, coefficient) before it
+// writes the same words, and no other thread touches them).  TIMED: the
+// stage clock, stamps [blocks][BF_NSTAGES], summed over the steps.
+template <class S, int T, bool TIMED, bool CHAIN>
 __global__ void __launch_bounds__(THREADS, 1) br_block_step_lazy_kernel(const LazyStepArgs g) {
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ PrimeL lk[MAX_PRIMES];
@@ -236,53 +258,71 @@ __global__ void __launch_bounds__(THREADS, 1) br_block_step_lazy_kernel(const La
   const int kk = pick<S::KK>(g.cols * g.rmax), mdim = pick<S::MR>(g.cols * g.psize);
   const int P = pick<S::P>(g.P), psize = pick<S::PS>(g.psize), res_size = pick<S::RS>(g.res_size);
   const int cols = mdim / psize, R = max(kk, mdim), block = g.block;
+  const int steps = CHAIN ? g.steps : 1, tb = T * block;
   const int64_t b0 = (int64_t)blockIdx.x * T;
   const int nt = (int)min((int64_t)T, (int64_t)g.B - b0);   // ciphertexts in this tile
-  int* xrow = (int*)(smem + ((size_t)T * P * R << logn));
+  int64_t* nxt = (int64_t*)(smem + ((size_t)T * P * R << logn));
+  int* xrow = (int*)(smem + ((size_t)T * P * R << logn)) +
+              (CHAIN ? (T * cols * res_size << logn) * 2 : 0);
   if (threadIdx.x < P) lk[threadIdx.x] = PrimeL(g.consts, threadIdx.x);
   lazy_row_offsets(rowoff, kk, g.rmax, g.size, logn);
-  for (int i = threadIdx.x; i < T * block; i += THREADS) {
-    const int t = i / block;
-    xrow[i] = t < nt ? (int)(g.amounts[(b0 + t) * block + i - t * block] & (2 * n - 1)) : 0;
+  for (int i = threadIdx.x; i < steps * tb; i += THREADS) {
+    const int st = CHAIN ? i / tb : 0, r = i - st * tb, t = r / block;
+    xrow[i] = t < nt ? (int)(g.amounts[(b0 + t) * steps * block + st * block + r - t * block] &
+                             (2 * n - 1))
+                     : 0;
   }
   __syncthreads();
 
   const int64_t* ab = g.acc + b0 * cols * g.size * n;
-  lazy_entry_fwd(smem, ab, rowoff, T, nt, cols, g.size, kk, P, R, logn, g.tw, lk);
-  clk.mark(BF_ENTRY);
-  ntt_pass_lo<false>(smem, T * P * kk, kk, R, P, logn, g.tw, lk, true);
-  clk.mark(BF_FWD);
-  lazy_vmp<T, MK, MC, true>(smem, g.pm, g.xpm1, xrow, block, kk, mdim, 0, mdim, P, R, logn, lk);
-  __syncthreads();
-  clk.mark(BF_VMP);
-  lazy_ntt_inv(smem, T * P, mdim, R, P, logn, g.tw + (size_t)P * n, lk);
-  clk.mark(BF_INV);
-
   const int add_size = g.size < psize ? g.size : psize;
-  for (int idx = threadIdx.x; idx < ((nt * cols) << logn); idx += THREADS) {
-    const int tc = idx >> logn, coef = idx & (n - 1);
-    const int t = tc / cols, col = tc - t * cols;
-    const int64_t b = b0 + t;
-    lift_add_normalize(smem + ((size_t)t * P * R << logn), P, R, logn, col, psize, coef,
-                       ab + ((int64_t)t * cols + col) * g.size * n + coef, add_size, psize,
-                       g.out + ((b * cols + col) * res_size) * n + coef, res_size, g.kr, g.kr,
-                       g.consts);
-  }
-  if (TIMED) {
+  for (int st = 0; st < steps; ++st) {
+    const int64_t* in = CHAIN && st > 0 ? nxt : ab;
+    const bool last = !CHAIN || st + 1 == steps;
+    lazy_entry_fwd(smem, in, rowoff, T, nt, cols, g.size, kk, P, R, logn, g.tw, lk);
+    clk.mark(BF_ENTRY);
+    ntt_pass_lo<false>(smem, T * P * kk, kk, R, P, logn, g.tw, lk, true);
+    clk.mark(BF_FWD);
+    lazy_vmp<T, MK, MC, true>(smem, g.pm + (size_t)st * block * P * kk * mdim * n, g.xpm1,
+                              xrow + st * tb, block, kk, mdim, 0, mdim, P, R, logn, lk);
     __syncthreads();
-    clk.mark(BF_EXIT);
+    clk.mark(BF_VMP);
+    lazy_ntt_inv(smem, T * P, mdim, R, P, logn, g.tw + (size_t)P * n, lk);
+    clk.mark(BF_INV);
+
+    for (int idx = threadIdx.x; idx < ((nt * cols) << logn); idx += THREADS) {
+      const int tc = idx >> logn, coef = idx & (n - 1);
+      const int t = tc / cols, col = tc - t * cols;
+      int64_t* dst = last ? g.out + (((b0 + t) * cols + col) * res_size) * n + coef
+                          : nxt + ((size_t)tc * res_size << logn) + coef;
+      lift_add_normalize(smem + ((size_t)t * P * R << logn), P, R, logn, col, psize, coef,
+                         in + ((int64_t)t * cols + col) * g.size * n + coef, add_size, psize, dst,
+                         res_size, g.kr, g.kr, g.consts);
+    }
+    if (TIMED || !last) {
+      __syncthreads();
+      clk.mark(BF_EXIT);
+    }
   }
   clk.store(g.stamps);
 }
 
-template <class S, int T>
-int launch_lazy(const LazyStepArgs& g, int smem, cudaStream_t stream) {
-  const auto kernel = g.stamps != nullptr ? br_block_step_lazy_kernel<S, T, true>
-                                          : br_block_step_lazy_kernel<S, T, false>;
+template <class S, int T, bool CHAIN>
+int launch_lazy_as(const LazyStepArgs& g, int smem, cudaStream_t stream) {
+  const auto kernel = g.stamps != nullptr ? br_block_step_lazy_kernel<S, T, true, CHAIN>
+                                          : br_block_step_lazy_kernel<S, T, false, CHAIN>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<(unsigned)((g.B + T - 1) / T), THREADS, (size_t)smem, stream>>>(g);
   return (int)cudaGetLastError();
+}
+
+// One launch of shape S, T ciphertexts per block: the single step, or the
+// chain where g.steps > 1.
+template <class S, int T>
+int launch_lazy(const LazyStepArgs& g, int smem, cudaStream_t stream) {
+  return g.steps > 1 ? launch_lazy_as<S, T, true>(g, smem, stream)
+                     : launch_lazy_as<S, T, false>(g, smem, stream);
 }
 
 }  // namespace
@@ -326,20 +366,24 @@ extern "C" int poulpy_br_block_step(const void* acc, const void* pm, const void*
 }
 
 // The lazy design: the arguments of poulpy_br_block_step without the global
-// layout's; tw: the Shoup twiddles [2][P][N] uint2 (backends/ntt.py
-// shoup_tables); T ciphertexts per block and smem from backends/fused.py
-// lazy_layout (T 2 at GateShape, else 1); the grid is ⌈B/T⌉ blocks.  stamps:
-// null, or [blocks][5] int64 for the stage clock.  Returns the cudaError_t of
-// the launch.
+// layout's, and `steps` ≥ 1 (steps > 1: the chain, size == res_size; pm
+// [steps·block, …], amounts [B, steps·block], step st over key elements
+// st·block … st·block + block − 1); tw: the Shoup twiddles [2][P][N] uint2
+// (backends/ntt.py shoup_tables); T ciphertexts per block and smem from
+// backends/fused.py lazy_layout (T 2 at GateShape, else 1); the grid is
+// ⌈B/T⌉ blocks.  stamps: null, or [blocks][5] int64 for the stage clock.
+// Returns the cudaError_t of the launch.
 extern "C" int poulpy_br_block_step_lazy(const void* acc, const void* pm, const void* xpm1,
                                          const void* amounts, void* out, const void* tw,
                                          const void* consts, int B, int cols, int size, int rmax,
-                                         int psize, int res_size, int kr, int block, int P,
-                                         int logn, int T, int smem, void* stamps, void* stream) {
+                                         int psize, int res_size, int kr, int block, int steps,
+                                         int P, int logn, int T, int smem, void* stamps,
+                                         void* stream) {
+  if (steps < 1 || (steps > 1 && size != res_size)) return (int)cudaErrorInvalidValue;
   const LazyStepArgs g{(const int64_t*)acc, (const int32_t*)pm, (const int32_t*)xpm1,
                        (const int64_t*)amounts, (int64_t*)out, (const uint2*)tw,
                        (const int64_t*)consts, (long long*)stamps, B, cols, size, rmax, psize,
-                       res_size, kr, block, P, logn};
+                       res_size, kr, block, steps, P, logn};
   const cudaStream_t st = (cudaStream_t)stream;
   const bool gate = logn == GateShape::LOGN && cols * rmax == GateShape::KK &&
                     cols * psize == GateShape::MR && P == GateShape::P &&

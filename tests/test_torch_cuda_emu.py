@@ -309,6 +309,56 @@ def test_emulated_br_block_step_matches_plain(emulated, n, nprimes, prime_bits, 
     assert torch.equal(out, tfused.fused_br_block_step_ref(m, acc, pmats, amounts, 2, 17))
 
 
+@pytest.mark.parametrize("n,nprimes,prime_bits,batch,size,rows,block,steps,tile", [
+    (1024, 2, 28, 3, 2, 4, 8, 2, 2),    # the gate's chain: GateShape, a ragged tile
+    (256, 2, 28, 2, 3, 3, 3, 2, 1),     # runtime-shaped
+    (512, 3, 30, 1, 2, 4, 2, 3, 1),     # runtime-shaped, three steps, one in place
+])
+def test_emulated_br_block_chain_matches_plain(emulated, n, nprimes, prime_bits, batch, size,
+                                               rows, block, steps, tile):
+    """The lazy design's chain of `steps` block steps in one launch, its
+    accumulator in shared memory between steps: the plain chain's result and
+    that of `steps` single plain steps, bit for bit; the TIMED instance too."""
+    m = t_get_module(n, nprimes, prime_bits, "cpu")
+    rng = np.random.default_rng(89)
+    acc = _edge_limbs(rng, (batch, 2, size, n))
+    pmats = _residues(rng, m.basis.primes, (steps * block, rows, 2, 2, 4, nprimes, n))
+    amounts = torch.from_numpy(rng.integers(-n, 3 * n, size=(batch, steps * block)))
+    lay = tfused._block_layout(m, 2 * min(rows, size), 2, 4, size, block, steps, "lazy")
+    assert (lay.kind, lay.tile) == ("lazy", tile)
+    args = (m, acc, pmats, amounts, size, 17)
+    out, launch = tfused._block_step_launch(*args, None, steps)
+    launch()
+    want = acc
+    for st in range(steps):
+        keys = slice(st * block, (st + 1) * block)
+        want = tfused.fused_br_block_step_ref(m, want, pmats[keys], amounts[:, keys], size, 17)
+    assert torch.equal(out, want)
+    assert torch.equal(out, tfused.fused_br_block_step_ref(*args, steps))
+    timed, stamps = tfused.stage_cycles(*args, None, steps, block_step=True)
+    assert torch.equal(timed, want)
+    assert stamps.shape == (-(-batch // tile), len(tfused.STAGES)) and bool((stamps > 0).all())
+
+
+@pytest.mark.parametrize("n,design", [(4096, "lazy"), (256, "parent")])
+def test_emulated_br_block_chain_refused_outside_lazy_design(emulated, n, design):
+    """The global layout (N 4096) and the parent design run one block step
+    per launch: a chain there raises (as one whose steps do not divide the
+    key elements), and the chain's layout is the lazy design's only up to N
+    2048, where `chain_steps` lets the blind rotation chain on CUDA."""
+    m = t_get_module(n, 2, 28, "cpu")
+    rng = np.random.default_rng(90)
+    acc = _edge_limbs(rng, (1, 2, 2, n))
+    pmats = _residues(rng, m.basis.primes, (4, 4, 2, 2, 4, 2, n))
+    amounts = torch.from_numpy(rng.integers(-n, n, size=(1, 4)))
+    with pytest.raises(ValueError, match="lazy design only"):
+        tfused._block_step_launch(m, acc, pmats, amounts, 2, 17, None, 2, design=design)
+    with pytest.raises(ValueError, match="does not divide"):
+        tfused._block_step_launch(m, acc, pmats[:3], amounts[:, :3], 2, 17, None, 2)
+    lay = tfused._block_layout(m, 4, 2, 4, 2, 2, 2, "lazy")
+    assert (lay.kind == "lazy") == (n <= 2048)
+
+
 @pytest.mark.parametrize("design", ["lazy", "parent"])
 def test_emulated_butterfly_stage_clock(emulated, design):
     """The TIMED instances of both designs at a small product and block step:

@@ -322,6 +322,31 @@ def test_cuda_br_block_step_matches_plain(cuda, n, nprimes, prime_bits, size, ro
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,nprimes,prime_bits,batch,size,rows,block,steps", [
+    (1024, 2, 28, 1023, 2, 4, 8, 2),   # the gate's chain: GateShape, a ragged tile
+    (1024, 2, 28, 32, 3, 4, 7, 2),     # fheuint_prepare's (KK 6, res 3), runtime-shaped
+    (256, 2, 30, 5, 3, 3, 4, 3),       # three steps, one in place
+])
+def test_cuda_br_block_chain_matches_plain(cuda, n, nprimes, prime_bits, batch, size, rows,
+                                           block, steps):
+    """`steps` block steps in one chained launch equal the plain chain,
+    counted once under "br_block_chain" and never under "br_block_step"."""
+    m = t_get_module(n, nprimes, prime_bits, cuda)
+    rng = np.random.default_rng(26)
+    acc = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(batch, 2, size, n))).to(cuda)
+    pmats = torch.from_numpy(_residues(rng, m.basis.primes,
+                                       (steps * block, rows, 2, 2, 4, nprimes, n))).to(cuda)
+    amounts = torch.from_numpy(rng.integers(-n, 3 * n, size=(batch, steps * block))).to(cuda)
+    before = dict(LAUNCHES)
+    have = tfused.fused_br_block_step(m, acc, pmats, amounts, size, 17, None, steps)
+    torch.cuda.synchronize()
+    assert LAUNCHES["br_block_chain"] == before["br_block_chain"] + 1
+    assert LAUNCHES["br_block_step"] == before["br_block_step"]
+    assert torch.equal(have, tfused.fused_br_block_step_ref(m, acc, pmats, amounts, size, 17,
+                                                            steps))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("block", [4, 1])
 def test_cuda_gate_nand_matches_cpu(cuda, block):
     """The port's whole gate on the card equals the port's on the CPU."""

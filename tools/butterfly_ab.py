@@ -9,7 +9,9 @@ events over 20 launches after a warm-up, on inputs made from a seed; then
 the circuit bootstrap of each checkout's `chip_smoke.py` on its standard
 (n_lwe 574) and block-8 (576) paths, timed as its `phase_cbt_bench` times
 them: cbt/s over CBT_ITERS batches of CBT_BATCH and CBT_WIDE_ITERS of
-CBT_WIDE_BATCH, with the outputs' checksum; and its FheUint u32 add
+CBT_WIDE_BATCH, with the outputs' checksum; its gate bootstrap
+(`phase_gate_bench`'s GATE_ITERS chained NANDs at GATE_BATCH after a
+warm-up NAND, gates/s, with the last output's checksum); and its FheUint u32 add
 (`phase_bdd_bench`'s timed adds of BDD_PAIRS after a warm-up add, ms per
 add, with their checksum).  Each checkout runs in a process
 of its own (its own kernel build), in the order other, this, this, other
@@ -82,6 +84,21 @@ def cbt_rates(n_lwe, block):
         rates[f"b{batch}"] = dict(cbt_per_s=batch * len(lwes) / dt, checksum=value)
     return rates
 
+def gate_rate():
+    from poulpy_tpu_torch.binfhe import gates
+
+    params = gates.GateParams(n_lwe=cs.GATE_N_LWE, block_size=cs.GATE_BLOCK)
+    keys, _, _, _, c1, c2 = cs.gate_setup(params, cs.GATE_BATCH, torch.device("cuda"))
+    out = gates.gate_nand(keys, c1, c2)
+    out.data.sum().item()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(cs.GATE_ITERS):
+        out = gates.gate_nand(keys, out, c2)
+    value = int((out.data.abs() % 65536).sum())
+    return dict(gates_per_s=cs.GATE_BATCH * cs.GATE_ITERS / (time.perf_counter() - t0),
+                checksum=value)
+
 def u32_add():
     from poulpy_tpu_torch.binfhe.bdd import fheuint_op, fheuint_prepare
 
@@ -105,6 +122,7 @@ print(json.dumps({
     "small@gate_keyswitch": ms(lambda: fused.fused_glwe_product(gm, ka, kpm, 2, 17, 17, small=kb)),
     "small@ckks_rotate": ms(lambda: fused.fused_glwe_product(m, ra, rpm, 6, 17, 17, small=rb)),
     "block_step@gate": ms(lambda: fused.fused_br_block_step(gm, acc, brk, amounts, 2, 17, pm_k)),
+    "gate": gate_rate(),
     "cbt": cbt_rates(cs.CBT_N_LWE, 1),
     "cbt_block8": cbt_rates(cs.CBT_BLOCK8_N_LWE, cs.CBT_BLOCK),
     "u32_add": u32_add(),
