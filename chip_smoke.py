@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty-four paths of the port run, each with the launch counters set to 0
+Thirty-one paths of the port run, each with the launch counters set to 0
 just before it and read just after:
 
 - the product path, the headline operation of bench.py: a batched GLWE ×
@@ -26,6 +26,8 @@ just before it and read just after:
 - the relinearize path, on the ckks path's keys and ciphertexts:
   glwe_tensor_relinearize of a ciphertext pair at batch 256 through the fused
   pair (the tensor kernel, then the product kernel with the small64 add);
+  relinearize_fused_sl, the same through `route="fused_sl"` (the product
+  in the sublane/lane-split layout, csrc/fused_sl.cu);
 - the ckks_rotate path, on the same keys and ciphertexts with the
   automorphism keys of galois_element(1) and −1 (base2k 17, k 95, dnum 6):
   CKKS rotate and conjugate at batch 256, each one keyswitch through the
@@ -36,9 +38,15 @@ just before it and read just after:
   launch);
 - keyswitch_mxu and keyswitch_fused_mxu, on the keyswitch path's keys: the
   keyswitch through the same two routes;
+- product_fused_sl and keyswitch_fused_sl, on the product and keyswitch
+  paths' keys: the product and the keyswitch through `route="fused_sl"`;
 - gate_fused_mxu, on the gate path's keys and batch: the gate bootstrap
   through `route="fused_mxu"` (one fused MXU block step per block of the
   blind rotation, the keyswitch through the fused MXU product);
+  gate_fused_sl and gate_fused_rot_shoup, the same through `route=
+  "fused_sl"` (one split-layout block step per block, the keyswitch its
+  product) and `route="fused_rot_shoup"` (the block steps' Shoup instances,
+  grouped as the default's);
 - cbt and cbt_block8, bench_schemes.py's circuit bootstrapping (LWE bit →
   GGSW): N 1024 on get_module(1024, 2, 28), base2k 13, blind-rotation,
   automorphism and tensor keys k 52 dnum 3, an output GGSW of k 26 dnum 2,
@@ -75,7 +83,9 @@ just before it and read just after:
   four MXU launches);
 - fheuint_add_fused_mxu, on fheuint_add's keys: the three operands prepared
   and the u32 add through `route="fused_mxu"` (one fused MXU product per
-  CMux);
+  CMux); cbt_block8_fused_rot_shoup and fheuint_add_fused_rot_shoup, the
+  block-8 CBT and the u32 add through `route="fused_rot_shoup"` (the CBT's
+  36 chains and fheuint_prepare's block-7 steps by Shoup);
 - routes, on fheuint_add's keys and the ckks path's set-up: blind retrieval
   of 256 entries and CKKS rotate / conjugate through the default route,
   then through "mxu" and "fused_mxu", each equal to the default's;
@@ -88,7 +98,8 @@ just before it and read just after:
   entry points on `module_with_mesh`, the prime-, ring- and key-sharded
   builders at tp, sp and kp 1, and the rank-local steps of 2-way layouts.
 
-The seven paths before the MXU paths run as they would without them: the
+The eight paths before the MXU paths (relinearize_fused_sl the eighth) run as
+they would without them: the
 three set-ups the MXU paths reuse wait on the host meanwhile; the two CBT
 paths follow the MXU paths, and the MXU kernels' checks (3′, with their
 float64 plain versions and cuBLAS yardstick) and the large-N checks come
@@ -102,9 +113,9 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
   2. build       nvcc build of the kernels of csrc/ (sm_90a), then what ptxas
                  reported for the Garner exit's instances, the MXU
                  transforms' wg designs, both tensor kernels' instances,
-                 both wide product designs' instances, both NTT designs'
-                 and fused_product_tile.cu's (registers, stack frame,
-                 spills);
+                 both wide product designs' instances, both NTT designs',
+                 fused_product_tile.cu's, the block step's lazy instances
+                 and fused_sl.cu's (registers, stack frame, spills);
   2′. native     the g++ build of the native host tier
                  (poulpy_tpu_torch/native/kernels.cpp: g++'s version, the
                  build seconds, the host CPU), then each of its entry
@@ -145,6 +156,16 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  product (the lazy design, which the paths run) and the
                  VMP (the tile design) also against their parent design,
                  equal and timed in the same way;
+  3⁗. patterns   after 3, the two call patterns only their routes run: the
+                 block step's Shoup instances (rot_mode 1) at the gate's step
+                 and chain, the CBT's chain and fheuint_prepare's block 7
+                 (single and chain, batch 32), and the split layout's kernel
+                 at bench.py's product, the gate's keyswitch (`small`), the
+                 relinearization (`small64`) and the gate's block step under
+                 rot_mode 2 and 1: each equal to its plain version and to the
+                 default design's output on the same inputs, tolerance 0,
+                 timed beside the default in turns (kernel, default, default,
+                 kernel), with the plain version's time and the bound;
   3′. kernels    the same for the MXU route's kernels, after the last path: at
                  the product path's shapes, the fused MXU product with the
                  body at the keyswitch path's, batch 256, and the block step
@@ -238,30 +259,37 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  torus error under RELIN_LOG2_ERR_MAX), the kernel route equal
                  to the unfused route at batch 8; then 5 timed
                  relinearizations on the ckks path's distinct batches, ending
-                 in a host checksum; then a profiled one;
+                 in a host checksum; then a profiled one; relinearize_fused_sl
+                 the same through "fused_sl" (RELIN_FINGERPRINT);
  12. ckks_rotate automorphism keys from Source 0x05 / 0x06; rotate and
                  conjugate of c1 broadcast to batch 256: ROTATE_FINGERPRINT
                  and CONJUGATE_FINGERPRINT of row 0, every row equal, the
                  decode error against np.roll(z, −1) and conj(z); then 5 timed
                  rotations on distinct batches, ending in a host checksum; then
                  a profiled one;
- 13. verify_<route>, bench_<route> (product_mxu, product_fused_mxu): bench.py's
+ 13. verify_<route>, bench_<route> (product_mxu, product_fused_mxu,
+                 product_fused_sl): bench.py's
                  MXU A/B gate on phase 4's batch of 64 (the route equals the
                  butterfly fused kernel bit for bit and decrypts to X·m), then
                  phase 5's 1 + 30 chained products at B = 16384 on its keys
                  and batch through the route (checksum 6596757198292), then a
                  profiled product;
- 14. keyswitch_<route> (keyswitch_mxu, keyswitch_fused_mxu): on phase 8's
+ 14. keyswitch_<route> (keyswitch_mxu, keyswitch_fused_mxu,
+                 keyswitch_fused_sl): on phase 8's
                  keys, the route equals the butterfly route at batch 8 and
                  decrypts exactly; 1 + 10 chained keyswitches at batch 256,
                  whose checksum equals the butterfly route's;
- 15. gate_fused_mxu  on phase 6–7's keys: at batch 64 the block path through
+ 15. gate_fused_mxu, gate_fused_sl, gate_fused_rot_shoup  on phase 6–7's
+                 keys: at batch 64 the block path through
                  the route equals its plain MXU block path and the butterfly
                  block path, the standard path (n_lwe 64) through the route
                  equals the butterfly's, NAND truth on both; at batch 1024
                  the warm-up NAND's fingerprint equals GATE_FINGERPRINT, 5
                  timed chained NANDs decrypt to the tracked bits (gates/s
-                 beside phase 7's), then a profiled NAND;
+                 beside phase 7's), the block steps per NAND by kernel (71
+                 split-layout steps; 35 Shoup chains + 1 Shoup step) and, on
+                 the two new routes, one keyswitch product per NAND, then a
+                 profiled NAND;
  16. cbt, cbt_block8  set-up from bench_schemes.py's seeds (set-up seconds);
                  at batch 4 the card's CBT equals the port's CPU run on the
                  same keys (cbt_block8: also through the extended path,
@@ -324,16 +352,19 @@ Phases, each printing JSON lines, in this order (3′, 3‴ and 3″ last):
                  coefficients 0 and 567 (every row, columns 0 and 1) on the
                  card equal to the port's CPU run, their log2 std beside the
                  fresh-encryption level; peak device memory.
- 20. cbt_fused_mxu, cbt_block8_fused_mxu, cbt_mxu  on the CBT paths' set-ups:
+ 20. cbt_fused_mxu, cbt_block8_fused_mxu, cbt_block8_fused_rot_shoup,
+     cbt_mxu     on the CBT paths' set-ups:
                  at batch 4 the CBT through the route equals the default
                  route's on the card, three of its GGSWs decrypt within
                  CBT_DECRYPT_BOUND; then phase 16's bench through the route
                  (the fingerprints CBT_FINGERPRINT / CBT_BLOCK8_FINGERPRINT,
                  batch 32 and 1024, the split and the profiles);
- 21. fheuint_add_fused_mxu  the three operands prepared through the route
+ 21. fheuint_add_fused_mxu, fheuint_add_fused_rot_shoup  the three
+                 operands prepared through the route
                  (equal to phase 17's selectors), then phase 17's bench
                  through it (FHEUINT_ADD_FINGERPRINT, 285, one
-                 fused_mxu_product per CMux, the ten other ops); the σ
+                 fused_mxu_product, or fused_product, per CMux, the ten
+                 other ops); on "fused_mxu" the σ
                  kernel layout of a selector, which the fused MXU product
                  rebuilds on every CMux, timed alone and as a share of an add;
  22. routes      phase 18 and phase 12 again through the default route, then
@@ -455,7 +486,8 @@ BDD_WIDTH, BDD_VALUES, BDD_PAIRS, BDD_VERIFY_WIDTH = 32, (255, 30, 77), ((1, 2),
 FHEUINT_ADD_FINGERPRINT = 33915379
 FHEUINT_ADD_CMUXES = 1584
 # the kernel each route launches once per CMux of the BDD paths
-CMUX_KERNEL = {"fused": "fused_product", "fused_mxu": "fused_mxu_product", "mxu": "garner_exit"}
+CMUX_KERNEL = {"fused": "fused_product", "fused_mxu": "fused_mxu_product", "mxu": "garner_exit",
+               "fused_rot_shoup": "fused_product", "fused_sl": "fused_sl_product"}
 # blind_retrieval: BR_ENTRIES FheUint u32 GLWEs read at an encrypted
 # BR_INDEX_WIDTH-bit index
 BR_ENTRIES, BR_INDEX_WIDTH, BR_INDEX, BR_SEED = 256, 8, 173, 21
@@ -543,6 +575,10 @@ KERNELS = {
     "fused_br_step": ("poulpy_tpu_torch/csrc/fused_product_tile.cu", _FUSED),
     "br_block_step": ("poulpy_tpu_torch/csrc/br_block_step.cu", _FUSED),
     "br_block_chain": ("poulpy_tpu_torch/csrc/br_block_step.cu", _FUSED),
+    "br_block_step_shoup": ("poulpy_tpu_torch/csrc/br_block_step.cu", _FUSED),
+    "br_block_chain_shoup": ("poulpy_tpu_torch/csrc/br_block_step.cu", _FUSED),
+    "fused_sl_product": ("poulpy_tpu_torch/csrc/fused_sl.cu", _FUSED),
+    "fused_sl_block_step": ("poulpy_tpu_torch/csrc/fused_sl.cu", _FUSED),
     "tensor_product": ("poulpy_tpu_torch/csrc/tensor_product.cu",
                        "poulpy_tpu/backends/pallas_fused.py:1403"),
     "wide_product": ("poulpy_tpu_torch/csrc/wide_product.cu", f"{_WIDE}:496"),
@@ -555,7 +591,8 @@ KERNELS = {
     "fused_mxu_br_block_step": ("poulpy_tpu_torch/csrc/fused_mxu.cu", _FUSED_MXU),
 }
 # the kernels of the block blind rotation's steps (block_launches)
-BLOCK_STEP_KERNELS = ("br_block_step", "br_block_chain", "fused_mxu_br_block_step")
+BLOCK_STEP_KERNELS = ("br_block_step", "br_block_chain", "br_block_step_shoup",
+                      "br_block_chain_shoup", "fused_sl_block_step", "fused_mxu_br_block_step")
 MXU_KERNELS = ("mxu_forward", "mxu_inverse", "garner_exit", "fused_mxu_product",
                "fused_mxu_product_small", "fused_mxu_br_block_step")
 # the kernels each path must launch
@@ -576,6 +613,17 @@ PATHS = {
     "gate_fused_mxu": ("br_block_step", "br_block_chain", "fused_br_step",
                        "fused_mxu_br_block_step",
                        "fused_mxu_product", "fused_mxu_product_small"),
+    "product_fused_sl": ("fused_product", "fused_sl_product"),
+    "keyswitch_fused_sl": ("fused_product_small", "fused_sl_product"),
+    "relinearize_fused_sl": ("tensor_product", "fused_sl_product"),
+    "gate_fused_sl": ("br_block_step", "br_block_chain", "fused_sl_block_step",
+                      "fused_sl_product"),
+    "gate_fused_rot_shoup": ("br_block_step", "br_block_chain", "br_block_step_shoup",
+                             "br_block_chain_shoup", "fused_product_small"),
+    "cbt_block8_fused_rot_shoup": ("br_block_chain_shoup", "fused_product_small", "ntt_forward",
+                                   "ntt_inverse", "vmp"),
+    "fheuint_add_fused_rot_shoup": ("fused_product", "fused_product_small", "br_block_step_shoup",
+                                    "br_block_chain_shoup"),
     "cbt": ("fused_br_step", "fused_product_small", "ntt_forward", "ntt_inverse", "vmp"),
     "cbt_block8": ("br_block_chain", "fused_product_small", "ntt_forward", "ntt_inverse",
                    "vmp"),
@@ -1104,6 +1152,137 @@ def phase_chain_ab(gm, acc, brk, amounts, pm_k, timings: dict) -> None:
          single_bound_ms=timings["br_block_step"]["bound_ms"])
     if not equal:
         raise SystemExit("the chained block steps differ from single launches")
+
+
+def pattern_cases(m, gm) -> dict:
+    """The two call patterns of the fused pipeline that only their routes
+    run, at those routes' shapes, each as (new kernel, its plain version,
+    the default design's launch at the same inputs, bound): the block step's
+    Shoup instances (rot_mode 1, `"fused_rot_shoup"`) at the gate's step and
+    chain, the CBT's chain and fheuint_prepare's block 7 (single and chain);
+    the split layout's kernel (`"fused_sl"`) at bench.py's product, the
+    gate's keyswitch (`small`), the relinearization (`small64`) and the
+    gate's block step under rot_mode 2 and 1.  Inputs of their own (seed 7)."""
+    import torch
+
+    from poulpy_tpu_torch.backends import fused, fused_sl
+    from poulpy_tpu_torch.binfhe.blind_rotation import BR_STEPS
+
+    gen = torch.Generator(device=m.device).manual_seed(7)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=m.device, dtype=torch.int64)
+
+    def residues(mod, shape):
+        primes = torch.tensor(mod.basis.primes, device=mod.device)[:, None]
+        return (ints(0, 1 << 62, shape) % primes).to(torch.int32)
+
+    gn, gp, i32, i64 = gm.n, gm.nprimes, 4, 8
+    cases = {}
+
+    def block_case(name, batch, size, rows, block, steps, base2k, rot=1, sl=False):
+        acc = ints(-(2**16), 2**16, (batch, 2, size, gn))
+        brk = residues(gm, (steps * block, rows, 2, 2, 4, gp, gn))
+        amounts = ints(-gn, gn + 1, (batch, steps * block))
+        pm_k = fused.pm_kernel_layout(brk, min(rows, size))
+        used = int(torch.unique(amounts & (2 * gn - 1)).numel())
+        args = (gm, acc, brk, amounts, size, base2k)
+        kk = 2 * min(rows, size)
+        bnd = bound(2 * acc.numel() * i64 + amounts.numel() * i64 + pm_k.numel() * i32
+                    + used * gp * gn * i32 * (2 if rot == 1 else 1),
+                    steps * fused_ops(batch, kk, 8, gp, gn, block))
+        if sl:
+            cases[name] = (lambda: fused_sl.fused_br_block_step_sl(*args, pm_k, rot_mode=rot),
+                           lambda: fused_sl.fused_br_block_step_sl_ref(*args, 1, rot),
+                           lambda: fused.fused_br_block_step(*args, pm_k, 1), bnd)
+        else:
+            cases[name] = (lambda: fused.fused_br_block_step(*args, pm_k, steps, rot_mode=1),
+                           lambda: fused.fused_br_block_step_ref(*args, steps, rot_mode=1),
+                           lambda: fused.fused_br_block_step(*args, pm_k, steps, rot_mode=2),
+                           bnd)
+
+    # the block step's Shoup instances: the gate's (GateShape), the CBT's
+    # chain (the same instance, base2k 13, dnum 3), fheuint_prepare's block 7
+    # (KK 6, res 3, base2k 15, batch 32: runtime-shaped)
+    block_case("br_block_step_shoup", GATE_BATCH, 2, 4, GATE_BLOCK, 1, BASE2K)
+    block_case("br_block_chain_shoup", GATE_BATCH, 2, 4, GATE_BLOCK, BR_STEPS, BASE2K)
+    block_case("br_block_chain_shoup@cbt", CBT_WIDE_BATCH, 2, CBT_DNUM_KEY, CBT_BLOCK, BR_STEPS,
+               CBT_BASE2K)
+    block_case("br_block_step_shoup@fheuint_prepare", 32, 3, BDD_DNUM_CBT, BDD_BLOCK, 1,
+               BDD_BASE2K)
+    block_case("br_block_chain_shoup@fheuint_prepare", 32, 3, BDD_DNUM_CBT, BDD_BLOCK, BR_STEPS,
+               BDD_BASE2K)
+
+    def product_case(name, mod, a, pmat, res_size, chunk=False, **kw):
+        ext = kw.get("small64")
+        nbytes = (2 * a.numel() + sum(v.numel() for v in kw.values())) * i64 + pmat.numel() * i32
+        if ext is None:
+            nbytes += (a.numel() // a.shape[-2] // a.shape[-3]) * pmat.shape[2] * res_size * i64 \
+                - a.numel() * i64
+        args = (mod, a, pmat, res_size, BASE2K, BASE2K)
+        plain = (lambda: chunked(lambda c: fused_sl.fused_glwe_product_sl_ref(
+            mod, c, pmat, res_size, BASE2K, BASE2K), a)) if chunk else \
+            (lambda: fused_sl.fused_glwe_product_sl_ref(*args, **kw))
+        kk = a.shape[-3] * min(pmat.shape[0], a.shape[-2])
+        cases[name] = (lambda: fused_sl.fused_glwe_product_sl(*args, **kw), plain,
+                       lambda: fused.fused_glwe_product(*args, **kw),
+                       bound(nbytes, fused_ops(a.numel() // (a.shape[-1] * a.shape[-2]
+                                                           * a.shape[-3]),
+                                               kk, pmat.shape[2] * pmat.shape[3],
+                                               mod.nprimes, mod.n)))
+
+    # the split layout: bench.py's product (B 16384, N 2048, KK 6, M 8), the
+    # gate's keyswitch with its body (B 1024, N 1024, KK 2, M 6), the
+    # relinearization's small64 product (B 256, N 2048, KK 6, co 2, psize 6,
+    # 11 linear limbs, res 12), the gate's block step under rot_mode 2 and 1
+    product_case("fused_sl_product", m, ints(-(2**16), 2**16, (BATCH, 2, 3, N)),
+                 residues(m, (DNUM, 2, 2, 4, NPRIMES, N)), 3, chunk=True)
+    product_case("fused_sl_product@small", gm, ints(-(2**16), 2**16, (GATE_BATCH, 1, 2, gn)),
+                 residues(gm, (2, 1, 2, 3, gp, gn)), 2,
+                 small=ints(-(2**16), 2**16, (GATE_BATCH, 2, gn)))
+    product_case("fused_sl_product@small64", m, ints(-(2**16), 2**16, (CKKS_BATCH, 1, 6, N)),
+                 residues(m, (CKKS.dnum, 1, 2, 6, NPRIMES, N)), 12,
+                 small64=ints(-(2**47), 2**47, (CKKS_BATCH, 2, 11, N)))
+    block_case("fused_sl_block_step", GATE_BATCH, 2, 4, GATE_BLOCK, 1, BASE2K, rot=2, sl=True)
+    block_case("fused_sl_block_step@rot1", GATE_BATCH, 2, 4, GATE_BLOCK, 1, BASE2K, rot=1,
+               sl=True)
+    return cases
+
+
+def phase_patterns(m, gm) -> dict:
+    """Each case of `pattern_cases` against its plain version and the default
+    design's output on the same inputs, tolerance 0; then the kernel and the
+    default timed in turns (kernel, default, default, kernel; CUDA events, 5
+    launches each after a warm-up) and the plain version once.  Emits one
+    line per case and returns the numbers of the kernels line (the kernel's
+    mean of its two timings)."""
+    import torch
+
+    out = {}
+    for name, (kernel, plain, default, bnd) in pattern_cases(m, gm).items():
+        have, want, dflt = kernel(), plain(), default()
+        torch.cuda.synchronize()
+        err = int((have - want).abs().max())
+        equal, equal_default = bool(torch.equal(have, want)), bool(torch.equal(have, dflt))
+        del want, dflt
+        runs = {"kernel": kernel, "default": default}
+        ms = {k: [] for k in runs}
+        for k in ("kernel", "default", "default", "kernel"):
+            ms[k].append(cuda_ms(runs[k], 5))
+        plain_ms = cuda_ms(plain, 1)
+        mean = sum(ms["kernel"]) / 2
+        out[name] = dict(max_abs_err=err, ms=mean, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
+                         bound_by=bnd["bound_by"], library_ms=None)
+        emit(phase="kernels_patterns", kernel=name, shape=list(have.shape), equal=equal,
+             equal_default=equal_default, tolerance=0, max_abs_err=err, ms=ms["kernel"],
+             default_ms=ms["default"], kernel_over_default=sum(ms["kernel"]) / sum(ms["default"]),
+             plain_ms=plain_ms, library_ms=None, **bnd, share_of_bound=bnd["bound_ms"] / mean)
+        if not (equal and equal_default):
+            raise SystemExit(f"kernel {name} disagrees with its plain version or the default "
+                             "design")
+        del have
+        torch.cuda.empty_cache()
+    return out
 
 
 def cbt_cases(gm) -> tuple:
@@ -1761,8 +1940,11 @@ def phase_tensor_stages(cases: dict, stages: tuple | None = None,
 def phase_ptxas() -> None:
     """What ptxas reported (`-Xptxas -v` in the build's nvcc.log) for the
     Garner exit's instances, the MXU transforms' wg designs, the tensor
-    kernels' instances, both designs of the NTT and fused_product_tile.cu's
-    kernels: registers, stack frame and spills per entry function."""
+    kernels' instances, both designs of the NTT, fused_product_tile.cu's
+    kernels, the block step's lazy instances (Montgomery and Shoup, single
+    and chained) and fused_sl.cu's: registers, stack frame and spills per
+    entry function, and the stack frame and spills of fused_sl.cu's row
+    transforms, which are not inlined."""
     import re
 
     from poulpy_tpu_torch.backends import _lib
@@ -1774,9 +1956,16 @@ def phase_ptxas() -> None:
     for name, stack, stores, loads, regs in entries:
         if any(k in name for k in ("garner_exit", "mxu_forward_wg", "mxu_inverse_wg", "tensor",
                                    "ntt_kernel", "ntt_lazy", "wide_product", "product_tile",
-                                   "br_step")):
+                                   "br_step", "br_block_step_lazy", "fused_sl")):
             emit(phase="ptxas", entry=name, registers=int(regs), stack_frame=int(stack),
                  spill_stores=int(stores), spill_loads=int(loads))
+    # fused_sl.cu's row transforms are functions of their own (not inlined)
+    functions = set(re.findall(r"Function properties for (\w*sl_(?:fwd|inv)_row\w*)\n\s*(\d+) "
+                               r"bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                               r"loads", log))
+    for name, stack, stores, loads in sorted(functions):
+        emit(phase="ptxas", function=name, stack_frame=int(stack), spill_stores=int(stores),
+             spill_loads=int(loads))
 
 
 def host_ms(fn, reps: int) -> float:
@@ -2193,6 +2382,7 @@ def phase_gate_verify(setup, std_params, batch: int, route: str = "fused") -> No
 
     from poulpy_tpu_torch.backends.fused import fused_br_block_step_ref
     from poulpy_tpu_torch.backends.fused_mxu import fused_mxu_br_block_step_ref
+    from poulpy_tpu_torch.backends.fused_sl import fused_br_block_step_sl_ref
     from poulpy_tpu_torch.binfhe import gates
     from poulpy_tpu_torch.binfhe.blind_rotation import (
         blind_rotation_execute,
@@ -2212,7 +2402,9 @@ def phase_gate_verify(setup, std_params, batch: int, route: str = "fused") -> No
                       b1[:batch], b2[:batch])
     lin = linear(p, c1, c2)
     have = blind_rotation_execute_block(keys.module, lin, keys.lut, keys.brk, p.block_size, route)
-    step_ref = fused_mxu_br_block_step_ref if route == "fused_mxu" else fused_br_block_step_ref
+    step_ref = {"fused_mxu": fused_mxu_br_block_step_ref, "fused_sl": fused_br_block_step_sl_ref,
+                "fused_rot_shoup": lambda *args: fused_br_block_step_ref(*args, rot_mode=1)}.get(
+        route, fused_br_block_step_ref)
     checks = {"block_kernel_vs_plain_bit_exact": bool(torch.equal(
         have, plain_block_rotation(keys, lin, step_ref)))}
     if route != "fused":
@@ -2286,6 +2478,11 @@ def phase_gate_bench(setup, iters: int, fingerprint: int | None, route: str = "f
         raise SystemExit("chained NANDs decrypt to the wrong bits")
     if device.type == "cuda" and block_steps != want:
         raise SystemExit(f"{name}: block-step launches per NAND {block_steps}, not {want}")
+    ks_kernel = {"fused_sl": "fused_sl_product",
+                 "fused_rot_shoup": "fused_product_small"}.get(route)
+    if device.type == "cuda" and ks_kernel and per_nand.get(ks_kernel) != 1:
+        raise SystemExit(f"{name}: {per_nand.get(ks_kernel)} {ks_kernel} launches per NAND, not "
+                         "the keyswitch's one")
     if device.type == "cuda":
         profile_once(f"{name}_profile", lambda: gates.gate_nand(keys, out, c2, route=route),
                      dt / iters * 1e3)
@@ -2586,11 +2783,12 @@ def relin_log2_err(m, skp, a, b, prod) -> float:
     return float(np.log2(max(np.abs(err).max(), 2.0**-200)))
 
 
-def run_relinearize_path(setup, batch: int, iters: int, fingerprint: int | None) -> None:
-    """On the ckks path's set-up: 1 warm-up relinearization of its pair
-    broadcast to `batch` rows (fingerprint, rows equal, the algebraic check,
-    kernel route == unfused route at batch 8), `iters` timed ones on the
-    distinct batches, and one profiled."""
+def run_relinearize_path(setup, batch: int, iters: int, fingerprint: int | None,
+                         route: str = "fused") -> None:
+    """On the ckks path's set-up, through `route`: 1 warm-up relinearization
+    of its pair broadcast to `batch` rows (fingerprint, rows equal, the
+    algebraic check, kernel route == unfused route at batch 8), `iters`
+    timed ones on the distinct batches, and one profiled."""
     import torch
 
     from poulpy_tpu_torch.backends import LAUNCHES
@@ -2599,14 +2797,18 @@ def run_relinearize_path(setup, batch: int, iters: int, fingerprint: int | None)
     m, skp, tsk, _, _, (c1, c2), (t1, t2) = setup
     device = m.device
     a, b = broadcast(c1.glwe, batch), broadcast(c2.glwe, batch)
-    out = ops.glwe_tensor_relinearize(m, a, b, tsk)
+    name = "relinearize" if route == "fused" else f"relinearize_{route}"
+
+    def relin(x, y):
+        return ops.glwe_tensor_relinearize(m, x, y, tsk, route=route)
+
+    out = relin(a, b)
     data = out.data
     value = int((data[0].abs() % 65536).sum())
     rows_equal = bool((data == data[:1]).all())
     log2_err = relin_log2_err(m, skp, c1.glwe, c2.glwe, out.replace(data=data[0]))
     small = 8
-    fused_small = ops.glwe_tensor_relinearize(m, broadcast(c1.glwe, small),
-                                              broadcast(c2.glwe, small), tsk)
+    fused_small = relin(broadcast(c1.glwe, small), broadcast(c2.glwe, small))
     fits = ops.tensor_fits
     ops.tensor_fits = lambda *args: False        # the unfused data flow, for comparison
     try:
@@ -2615,7 +2817,7 @@ def run_relinearize_path(setup, batch: int, iters: int, fingerprint: int | None)
     finally:
         ops.tensor_fits = fits
     routes_equal = bool(torch.equal(fused_small.data, unfused.data))
-    emit(phase="relinearize_warmup", fingerprint=value, fingerprint_expected=fingerprint,
+    emit(phase=f"{name}_warmup", route=route, fingerprint=value, fingerprint_expected=fingerprint,
          rows_equal=rows_equal, log2_err_vs_tensor=log2_err, log2_err_max=RELIN_LOG2_ERR_MAX,
          kernel_route_vs_unfused_bit_exact=routes_equal, shape=list(data.shape), k=out.k)
     if (not rows_equal or not routes_equal or log2_err > RELIN_LOG2_ERR_MAX
@@ -2628,19 +2830,17 @@ def run_relinearize_path(setup, batch: int, iters: int, fingerprint: int | None)
     sync(device)
     t0 = time.perf_counter()
     for i in range(iters):
-        out = ops.glwe_tensor_relinearize(m, t1.glwe.replace(data=t1.glwe.data[i]),
-                                          t2.glwe.replace(data=t2.glwe.data[i]), tsk)
+        out = relin(t1.glwe.replace(data=t1.glwe.data[i]), t2.glwe.replace(data=t2.glwe.data[i]))
     value = int((out.data.abs() % 65536).sum())
     dt = time.perf_counter() - t0
     per_op = {k: (LAUNCHES[k] - before[k]) / iters for k in LAUNCHES if LAUNCHES[k] != before[k]}
-    emit(phase="relinearize", batch=batch, iters=iters, relins_per_s=batch * iters / dt,
+    emit(phase=name, route=route, batch=batch, iters=iters, relins_per_s=batch * iters / dt,
          ms_per_batch=dt / iters * 1e3, checksum=value, launches_per_op=per_op,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else None)
     if device.type == "cuda":
-        profile_once("relinearize_profile",
-                     lambda: ops.glwe_tensor_relinearize(m, t1.glwe.replace(data=t1.glwe.data[0]),
-                                                         t2.glwe.replace(data=t2.glwe.data[0]),
-                                                         tsk), dt / iters * 1e3)
+        profile_once(f"{name}_profile",
+                     lambda: relin(t1.glwe.replace(data=t1.glwe.data[0]),
+                                   t2.glwe.replace(data=t2.glwe.data[0])), dt / iters * 1e3)
 
 
 def rotation_keys(setup) -> dict:
@@ -2878,17 +3078,20 @@ def block_launches(n_lwe: int, block: int, route: str) -> dict:
     """The block-step launches of one block blind rotation on the card, by
     kernel (BLOCK_STEP_KERNELS): on the butterfly kernels the JAX package's
     grouping, nblocks // BR_STEPS chains then nblocks % BR_STEPS single
-    steps; through "fused_mxu" one MXU block step per block."""
+    steps (their Shoup instances through "fused_rot_shoup"); through
+    "fused_mxu" one MXU block step per block, through "fused_sl" one block
+    step of the split layout per block."""
     from poulpy_tpu_torch.binfhe.blind_rotation import BR_STEPS
 
     nblocks = n_lwe // block
     out = dict.fromkeys(BLOCK_STEP_KERNELS, 0)
-    if route == "fused_mxu":
-        out["fused_mxu_br_block_step"] = nblocks
+    if route in ("fused_mxu", "fused_sl"):
+        out["fused_mxu_br_block_step" if route == "fused_mxu" else "fused_sl_block_step"] = nblocks
     else:
         steps = min(BR_STEPS, nblocks)
-        out.update(br_block_chain=nblocks // steps if steps > 1 else 0,
-                   br_block_step=nblocks % steps if steps > 1 else nblocks)
+        tag = "_shoup" if route == "fused_rot_shoup" else ""
+        out.update({"br_block_chain" + tag: nblocks // steps if steps > 1 else 0,
+                    "br_block_step" + tag: nblocks % steps if steps > 1 else nblocks})
     return out
 
 
@@ -4149,6 +4352,7 @@ def main() -> int:
     wm = get_module(CKKS_WIDE.n, CKKS_WIDE.nprimes, 28, "cuda")
     timings = phase_kernels(m, gm, wm)
     torch.cuda.empty_cache()
+    timings.update(phase_patterns(m, gm))
 
     shared = {}     # set-ups of the product, keyswitch and ckks paths, for the paths after them
 
@@ -4170,6 +4374,9 @@ def main() -> int:
                                                          CKKS_ITERS, CKKS_FINGERPRINT)),
         "relinearize": lambda: run_relinearize_path(shared["ckks"], CKKS_BATCH, CKKS_ITERS,
                                                     RELIN_FINGERPRINT),
+        "relinearize_fused_sl": lambda: run_relinearize_path(shared["ckks"], CKKS_BATCH,
+                                                             CKKS_ITERS, RELIN_FINGERPRINT,
+                                                             "fused_sl"),
         "ckks_rotate": lambda: run_rotate_path(shared["ckks"], CKKS_BATCH, CKKS_ITERS,
                                                {"rotate": ROTATE_FINGERPRINT,
                                                 "conjugate": CONJUGATE_FINGERPRINT}),
@@ -4177,11 +4384,14 @@ def main() -> int:
             phase_route_verify(m, on_card("verify"), route),
             chain_bench(m, *on_card("bench"), route, f"bench_{route}", profile=True))
            for route in ROUTES},
+        "product_fused_sl": lambda: (
+            phase_route_verify(m, on_card("verify"), "fused_sl"),
+            chain_bench(m, *on_card("bench"), "fused_sl", "bench_fused_sl", profile=True)),
         **{f"keyswitch_{route}": lambda route=route: phase_keyswitch_route(
-            on_card("keyswitch"), route) for route in ROUTES},
-        "gate_fused_mxu": lambda: run_gate_route_path(on_card("gate"), GATE_VERIFY_BATCH,
-                                                      STD_N_LWE, GATE_ITERS, GATE_FINGERPRINT,
-                                                      "fused_mxu"),
+            on_card("keyswitch"), route) for route in (*ROUTES, "fused_sl")},
+        **{f"gate_{route}": lambda route=route: run_gate_route_path(
+            on_card("gate"), GATE_VERIFY_BATCH, STD_N_LWE, GATE_ITERS, GATE_FINGERPRINT, route)
+           for route in ("fused_mxu", "fused_sl", "fused_rot_shoup")},
         "cbt": lambda: shared.update(cbt=run_cbt_path("cbt", CBT_N_LWE, 1, m.device,
                                                       CBT_FINGERPRINT, False)),
         "cbt_block8": lambda: shared.update(cbt_block8=run_cbt_path(
@@ -4194,11 +4404,13 @@ def main() -> int:
             shared["gate_per_nand"]),
         "cbt_fused_mxu": lambda: run_cbt_route_path("cbt_fused_mxu", on_card("cbt"), "fused_mxu",
                                                     CBT_FINGERPRINT),
-        "cbt_block8_fused_mxu": lambda: run_cbt_route_path(
-            "cbt_block8_fused_mxu", on_card("cbt_block8"), "fused_mxu", CBT_BLOCK8_FINGERPRINT),
+        **{f"cbt_block8_{route}": lambda route=route: run_cbt_route_path(
+            f"cbt_block8_{route}", on_card("cbt_block8"), route, CBT_BLOCK8_FINGERPRINT)
+           for route in ("fused_mxu", "fused_rot_shoup")},
         "cbt_mxu": lambda: run_cbt_route_path("cbt_mxu", on_card("cbt"), "mxu", CBT_FINGERPRINT),
-        "fheuint_add_fused_mxu": lambda: run_fheuint_route_path(on_card("bdd"), "fused_mxu",
-                                                                FHEUINT_ADD_FINGERPRINT),
+        **{f"fheuint_add_{route}": lambda route=route: run_fheuint_route_path(
+            on_card("bdd"), route, FHEUINT_ADD_FINGERPRINT)
+           for route in ("fused_mxu", "fused_rot_shoup")},
         "routes": lambda: run_routes_path(on_card("bdd"), on_card("ckks")),
         "examples": lambda: run_examples_path(m.device),
         "mesh": lambda: run_mesh_path({key: on_card(key)
@@ -4207,13 +4419,13 @@ def main() -> int:
     # after each path: the set-ups it parks on the host until the MXU paths,
     # and those it leaves behind for the last time
     park = {"product": ("bench",), "gate": ("gate",), "keyswitch": ("keyswitch",),
-            "ckks_rotate": ("ckks",), f"product_{ROUTES[-1]}": ("bench",),
-            "gate_fused_mxu": ("gate",), "cbt": ("cbt",), "cbt_block8": ("cbt_block8",),
+            "ckks_rotate": ("ckks",), "product_fused_sl": ("bench",),
+            "gate_fused_rot_shoup": ("gate",), "cbt": ("cbt",), "cbt_block8": ("cbt_block8",),
             "blind_retrieval": ("bdd",), "cbt_fused_mxu": ("cbt",), "cbt_mxu": ("cbt",),
-            "fheuint_add_fused_mxu": ("bdd",), "routes": ("ckks",)}
-    last_use = {f"product_{ROUTES[-1]}": ("verify",),
-                f"keyswitch_{ROUTES[-1]}": ("keyswitch",), "cbt_block8_fused_mxu": ("cbt_block8",),
-                "routes": ("bdd",), "mesh": ("bench", "gate", "ckks", "cbt")}
+            "fheuint_add_fused_rot_shoup": ("bdd",), "routes": ("ckks",)}
+    last_use = {"product_fused_sl": ("verify",), "keyswitch_fused_sl": ("keyswitch",),
+                "cbt_block8_fused_rot_shoup": ("cbt_block8",), "routes": ("bdd",),
+                "mesh": ("bench", "gate", "ckks", "cbt")}
     launches = dict.fromkeys(LAUNCHES, 0)
     ntt_rows = Counter()
     for path, run in runs.items():

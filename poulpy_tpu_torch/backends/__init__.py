@@ -13,7 +13,9 @@ from collections import Counter
 
 LAUNCHES = {"ntt_forward": 0, "ntt_inverse": 0, "vmp": 0, "fused_product": 0,
             "fused_product_small": 0, "fused_product_small64": 0, "fused_br_step": 0,
-            "br_block_step": 0, "br_block_chain": 0, "tensor_product": 0, "wide_product": 0,
+            "br_block_step": 0, "br_block_chain": 0, "br_block_step_shoup": 0,
+            "br_block_chain_shoup": 0, "fused_sl_product": 0, "fused_sl_block_step": 0,
+            "tensor_product": 0, "wide_product": 0,
             "wide_tensor": 0, "mxu_forward": 0, "mxu_inverse": 0, "garner_exit": 0,
             "fused_mxu_product": 0, "fused_mxu_product_small": 0, "fused_mxu_br_block_step": 0}
 NTT_ROWS: Counter = Counter()

@@ -38,7 +38,8 @@ _SIGNATURES = {
     "poulpy_fused_product_tile": [_P] * 7 + [_I] * 16 + [_P, _P],
     "poulpy_br_step": [_P] * 7 + [_I] * 11 + [_P, _I, _I, _P, _P],
     "poulpy_br_block_step": [_P] * 7 + [_I] * 11 + [_P, _I, _I, _P, _P],
-    "poulpy_br_block_step_lazy": [_P] * 7 + [_I] * 13 + [_P, _P],
+    "poulpy_br_block_step_lazy": [_P] * 7 + [_I] * 14 + [_P, _P],
+    "poulpy_fused_sl": [_P] * 9 + [_I] * 18 + [_P],
     "poulpy_wide_product": [_P] * 6 + [_I] * 15 + [_P, _I, _I, _P, _P],
     "poulpy_wide_product_lazy": [_P] * 7 + [_I] * 16 + [_P, _P],
     "poulpy_wide_tensor": [_P] * 6 + [_I] * 12 + [_P, _I, _I, _P, _P],

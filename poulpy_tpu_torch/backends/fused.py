@@ -147,40 +147,44 @@ def pm_kernel_layout_dsize(pmat, rmax: int, dsize: int):
     return pm.reshape(P, ci_ * r_, co_ * ps, n).to(torch.int32).contiguous()
 
 
-def _dft_plain(module, a, step=1, offset=0, res_size=None):
+def _dft_plain(module, a, step=1, offset=0, res_size=None, fwd=ntt_forward):
     t = module.tables
     idx, res_size = dft_limbs(a.shape[-2], step, offset, res_size)
-    r = ntt_forward(t, to_residues(t, a[..., idx, :]))
+    r = fwd(t, to_residues(t, a[..., idx, :]))
     if len(idx) < res_size:
         r = F.pad(r, (0, 0, 0, 0, 0, res_size - len(idx)))
     return r
 
 
-def product_dft_ref(module: Module, a_data, pmat, dsize: int = 1):
+def product_dft_ref(module: Module, a_data, pmat, dsize: int = 1, fwd=ntt_forward):
     """Plain dft → vmp of the fused products, in the DFT domain: one VMP for
     dsize 1, else the sum over digits di of the VMP of limbs
-    dsize−1−di, 2·dsize−1−di, … at output limb offset di."""
+    dsize−1−di, 2·dsize−1−di, … at output limb offset di; `fwd` the forward
+    transform (`hal.ntt.ntt_forward`, or the split layout's)."""
     if dsize == 1:
-        return vmp_apply_ref(module, _dft_plain(module, a_data), pmat)
+        return vmp_apply_ref(module, _dft_plain(module, a_data, fwd=fwd), pmat)
     dnum, a_size = pmat.shape[0], a_data.shape[-2]
     res_dft = None
     for di in range(dsize):
         ai_size = min((a_size + di) // dsize, dnum)
         if ai_size == 0:
             continue
-        ai = _dft_plain(module, a_data, dsize, dsize - 1 - di, ai_size)
+        ai = _dft_plain(module, a_data, dsize, dsize - 1 - di, ai_size, fwd)
         part = vmp_apply_ref(module, ai, pmat, limb_offset=di)
         res_dft = part if res_dft is None else add_mod(res_dft, part, module.tables.p[:, None])
     return res_dft
 
 
 def fused_glwe_product_ref(module: Module, a_data, pmat, res_size: int, res_base2k: int,
-                           pm_base2k: int, dsize: int = 1, small=None, small64=None):
+                           pm_base2k: int, dsize: int = 1, small=None, small64=None,
+                           transforms=(ntt_forward, ntt_inverse)):
     """Plain version: dft → vmp (per digit for dsize > 1) → idft → (+ small
     at column 0 | + small64 per column) → normalize, every stage in plain
-    PyTorch."""
-    res_dft = product_dft_ref(module, a_data, pmat, dsize)
-    big = garner_lift(module.tables, ntt_inverse(module.tables, res_dft))
+    PyTorch; `transforms` the (forward, inverse) pair (`hal.ntt`'s, or
+    `fused_sl`'s split-layout twins: the same residues)."""
+    fwd, inv = transforms
+    res_dft = product_dft_ref(module, a_data, pmat, dsize, fwd)
+    big = garner_lift(module.tables, inv(module.tables, res_dft))
     if small is not None:   # garner_lift's output is fresh: add the body in place
         big[..., 0, :, :] += _align_limbs(small, big, big.shape[-2], limb_axis=-2)[0]
     if small64 is not None:
@@ -876,6 +880,18 @@ def _xpow_minus1_table(n: int, primes: tuple) -> np.ndarray:
     return (_xpow_table(n, primes) - one_m) % p_arr
 
 
+@functools.lru_cache(maxsize=None)
+def _xpow_minus1_shoup_table(n: int, primes: tuple) -> np.ndarray:
+    """The plain NTT(X^j − 1) for every j in [0, 2N) stacked with its Shoup
+    quotients: `[2N, 2, P, N]` int64 numpy, [j, 0] = w = (NTT(X)^j − 1) mod p,
+    [j, 1] = ⌊w·2^30/p⌋ (the JAX package's `_xpow_minus1_shoup_table`).  The
+    block step's rot_mode 1 multiplies the VMP's input rows by a row of it."""
+    p_arr = np.array(primes, dtype=np.int64)[None, :, None]
+    rinv = np.array([pow(R, -1, p) for p in primes], dtype=np.int64)[None, :, None]
+    w = (_xpow_table(n, primes) * rinv % p_arr - 1) % p_arr     # Montgomery → plain, − 1
+    return np.stack([w, (w << 30) // p_arr], axis=1)
+
+
 def xpow_tables(module: Module):
     """(`_xpow_table`, `_xpow_minus1_table`) as int32 tensors on the
     module's device, uploaded once per table set (16 MB each at N = 1024,
@@ -887,6 +903,19 @@ def xpow_tables(module: Module):
         cached = tuple(torch.from_numpy(f(module.n, primes).astype(np.int32)).to(module.device)
                        for f in (_xpow_table, _xpow_minus1_table))
         t._xpow = cached
+    return cached
+
+
+def xpow_shoup_table(module: Module):
+    """`_xpow_minus1_shoup_table` as an int32 tensor on the module's device,
+    uploaded once per table set (32 MiB at N = 1024, P = 2): the x-power
+    rows of the block step's rot_mode 1."""
+    t = module.tables
+    cached = getattr(t, "_xpow_shoup", None)
+    if cached is None:
+        cached = torch.from_numpy(_xpow_minus1_shoup_table(module.n, module.basis.primes)
+                                  .astype(np.int32)).to(module.device)
+        t._xpow_shoup = cached
     return cached
 
 
@@ -914,35 +943,80 @@ def _check_chain(steps: int, nkeys: int, size: int, res_size: int) -> int:
     return nkeys // steps
 
 
+ROT_MODES = (0, 1, 2)
+
+
+def lazy_primes(module: Module) -> bool:
+    """The JAX package's `lazy_ok`: every prime below 2^28, where its fused
+    kernels keep residues lazily in [0, 2p) and may place the block step's
+    x-power on the VMP's input rows."""
+    return max(module.basis.primes) < 1 << 28
+
+
+def block_rot_mode(module: Module, rot_mode: int | None) -> int:
+    """The block step's x-power placement: `rot_mode` checked (0, or 1 and 2
+    with lazy primes only, as the JAX package's `_pipe_fn` asserts), or for
+    None the JAX package's default (`_rot_mode`: 2 with lazy primes, else 0)."""
+    if rot_mode is None:
+        return 2 if lazy_primes(module) else 0
+    if rot_mode not in ROT_MODES:
+        raise ValueError(f"rot_mode must be one of {ROT_MODES}, got {rot_mode!r}")
+    if rot_mode and not lazy_primes(module):
+        raise ValueError(f"rot_mode {rot_mode} places the x-power on the VMP's input rows, "
+                         "which needs every prime below 2^28")
+    return rot_mode
+
+
+def shoup_mul30(x, w, wq, p):
+    """x·w mod p in [0, 2p) by Shoup's product with the quotient wq =
+    ⌊w·2^30/p⌋, for 0 ≤ x < 2^30 (the JAX package's `shoup_mul_i32_lazy`):
+    q = ⌊x·wq/2^30⌋, r = x·w − q·p, int64."""
+    x = x.to(torch.int64)
+    return x * w - ((x * wq) >> 30) * p
+
+
 def fused_br_block_step_ref(module: Module, acc, pmats, a_blk, res_size: int, base2k: int,
-                            steps: int = 1):
+                            steps: int = 1, rot_mode: int | None = None,
+                            transforms=(ntt_forward, ntt_inverse)):
     """Plain version of `steps` block-binary CGGI steps in sequence, each
     the jnp `block_step` of `poulpy_tpu/binfhe/blind_rotation.py`: per key
     element i, the VMP of dft(acc) with BRK_i, times NTT(X^{a_i}), minus
     itself; the sum over i, idft, plus acc at the aligned limbs, normalized
     to `res_size` limbs.  Step st takes key elements st·block … st·block +
-    block − 1 of `pmats` and `a_blk`."""
+    block − 1 of `pmats` and `a_blk`.  `rot_mode` 1: each row of dft(acc)
+    times the plain NTT(X^{a_i} − 1) by Shoup's product
+    (`_xpow_minus1_shoup_table`, in [0, 2p)), then the VMP, the −1 in the
+    table; 0, 2 or None: the jnp flow above (the same bits).  `transforms`
+    as `fused_glwe_product_ref`'s."""
     block = _check_chain(steps, pmats.shape[0], acc.shape[-2], res_size)
+    fwd, inv = transforms
     t = module.tables
     xpow, _ = xpow_tables(module)
+    shoup = xpow_shoup_table(module) if rot_mode == 1 else None
     for st in range(steps):
         keys = slice(st * block, (st + 1) * block)
-        acc_dft = _dft_plain(module, acc)
+        acc_dft = _dft_plain(module, acc, fwd=fwd)
         add_dft = None
         for pm, a in zip(pmats[keys], a_blk[..., keys].unbind(-1)):
-            vmp_res = vmp_apply_ref(module, acc_dft, pm)
-            xp = xpow[a & (2 * module.n - 1)]                   # [..., P, N]
-            rot = mont_mul(vmp_res, xp[..., None, None, :, :], t.p[:, None], t.qinv[:, None])
-            term = dft_sub(module, rot, vmp_res)
+            row = a & (2 * module.n - 1)
+            if shoup is not None:
+                tab = shoup[row].to(torch.int64)[..., None, None, :, :, :]   # [..., 1, 1, 2, P, N]
+                src = shoup_mul30(acc_dft, tab[..., 0, :, :], tab[..., 1, :, :], t.p[:, None])
+                term = vmp_apply_ref(module, src.to(torch.int32), pm)
+            else:
+                vmp_res = vmp_apply_ref(module, acc_dft, pm)
+                xp = xpow[row]                                              # [..., P, N]
+                rot = mont_mul(vmp_res, xp[..., None, None, :, :], t.p[:, None], t.qinv[:, None])
+                term = dft_sub(module, rot, vmp_res)
             add_dft = term if add_dft is None else dft_add(module, add_dft, term)
-        big = garner_lift(t, ntt_inverse(t, add_dft))
+        big = garner_lift(t, inv(t, add_dft))
         big = big + _align_limbs(acc, big, big.shape[-2], limb_axis=-2)[0]
         acc = vec_znx_normalize_full(res_size, base2k, 0, big, base2k)
     return acc
 
 
 def fused_br_block_step(module: Module, acc, pmats, a_blk, res_size: int, base2k: int,
-                        pm_k=None, steps: int = 1):
+                        pm_k=None, steps: int = 1, rot_mode: int | None = None):
     """`steps` block-binary CGGI steps for a batch, in one launch.
 
     acc    [..., cols, size, N] int64 limbs;
@@ -953,18 +1027,27 @@ def fused_br_block_step(module: Module, acc, pmats, a_blk, res_size: int, base2k
            kernel layout (`pm_kernel_layout`), made from `pmats` when not given;
     steps  block steps chained in the launch (the JAX package's `steps`):
            step st runs key elements st·block … st·block + block − 1 on the
-           previous step's normalized accumulator, so size == res_size.
+           previous step's normalized accumulator, so size == res_size;
+    rot_mode  the JAX package's x-power placement (`block_rot_mode`; None:
+           its default, 2 with lazy primes, else 0): 1 takes the lazy
+           design's Shoup instances, the x-power gathered from the two-plane
+           `xpow_shoup_table`; 0 and 2 its Montgomery ones, from
+           `_xpow_minus1_table`; the parent design applies the factor to the
+           output rows whatever the mode.  All give the same bits.
     → [..., cols, res_size, N] normalized limbs.  Plain version on CPU
-    tensors, one CUDA launch on CUDA (the x-power factor gathered in the
-    kernel from the device `_xpow_minus1_table` by `a & (2N − 1)`), counted
-    under "br_block_step", or "br_block_chain" for steps > 1.  A chain runs
-    only in the lazy design (`chain_steps`): elsewhere it raises."""
+    tensors, one CUDA launch on CUDA, counted under "br_block_step", or
+    "br_block_chain" for steps > 1, each with "_shoup" for a Shoup
+    instance.  A chain runs only in the lazy design (`chain_steps`):
+    elsewhere it raises."""
+    rot_mode = block_rot_mode(module, rot_mode)
     if acc.device.type == "cpu":
-        return fused_br_block_step_ref(module, acc, pmats, a_blk, res_size, base2k, steps)
-    out, launch = _block_step_launch(module, acc, pmats, a_blk, res_size, base2k, pm_k, steps)
+        return fused_br_block_step_ref(module, acc, pmats, a_blk, res_size, base2k, steps,
+                                       rot_mode)
+    out, launch = _block_step_launch(module, acc, pmats, a_blk, res_size, base2k, pm_k, steps,
+                                     rot_mode=rot_mode)
     if launch is not None:
         launch()
-        LAUNCHES["br_block_chain" if steps > 1 else "br_block_step"] += 1
+        LAUNCHES[launch.counter] += 1
     return out
 
 
@@ -989,9 +1072,11 @@ def chain_steps(module: Module, acc, pmats, res_size: int, block: int, steps: in
 
 
 def _block_step_launch(module: Module, acc, pmats, a_blk, res_size: int, base2k: int,
-                       pm_k=None, steps: int = 1, design: str = "lazy"):
+                       pm_k=None, steps: int = 1, design: str = "lazy", rot_mode: int = 2):
     """The checked arguments of one `fused_br_block_step` launch, as
-    `_product_launch`'s; `steps` > 1 raises outside the lazy design."""
+    `_product_launch`'s, `launch.counter` naming its `LAUNCHES` entry;
+    `steps` > 1 raises outside the lazy design; `rot_mode` 1 takes the lazy
+    design's Shoup instances (unchecked: `block_rot_mode` is the wrapper's)."""
     P, n = module.nprimes, module.n
     nkeys, rows, cols, co, psize = pmats.shape[:5]
     lead, size = acc.shape[:-3], acc.shape[-2]
@@ -1022,7 +1107,8 @@ def _block_step_launch(module: Module, acc, pmats, a_blk, res_size: int, base2k:
     out = torch.empty(lead + (cols, res_size, n), dtype=torch.int64, device=acc.device)
     if B == 0:
         return out, None
-    _, xpm1 = xpow_tables(module)
+    shoup = rot_mode == 1 and lay.kind == "lazy"
+    xpm1 = xpow_shoup_table(module) if shoup else xpow_tables(module)[1]
     tw, consts = kernel_tables(module.tables)
 
     def launch(timed: bool = False):
@@ -1033,7 +1119,8 @@ def _block_step_launch(module: Module, acc, pmats, a_blk, res_size: int, base2k:
             stamps = _stamps(timed, -(-B // lay.tile), acc.device)
             err = _lib.library().poulpy_br_block_step_lazy(
                 *args, shoup_tables(module.tables).data_ptr(), consts.data_ptr(), *sizes, steps,
-                P, module.log_n, lay.tile, lay.smem, _lib.ptr(stamps), _lib.stream())
+                int(shoup), P, module.log_n, lay.tile, lay.smem, _lib.ptr(stamps),
+                _lib.stream())
         else:
             if timed and lay.kind == "global":
                 raise ValueError("the stage clock runs the shared layout only")
@@ -1045,15 +1132,18 @@ def _block_step_launch(module: Module, acc, pmats, a_blk, res_size: int, base2k:
         _lib.check(err, "poulpy_br_block_step")
         return stamps
 
+    launch.counter = ("br_block_chain" if steps > 1 else "br_block_step") + \
+        ("_shoup" if shoup else "")
     return out, launch
 
 
-def stage_cycles(module: Module, *args, block_step: bool = False, design: str = "lazy"):
+def stage_cycles(module: Module, *args, block_step: bool = False, design: str = "lazy",
+                 **kw):
     """(out, stamps) of one launch of the stage clock's instance on
     `fused_glwe_product`'s arguments (`block_step`: `fused_br_block_step`'s):
     stamps [blocks, len(STAGES)] int64, the SM cycles each block spent in
     each stage, from thread 0 at the barriers that close them.  For
     measurement only: no path calls it, and it counts no launch."""
     prepare = _block_step_launch if block_step else _product_launch
-    out, launch = prepare(module, *args, design=design)
+    out, launch = prepare(module, *args, design=design, **kw)
     return out, launch(timed=True)

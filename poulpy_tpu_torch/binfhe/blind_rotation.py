@@ -19,9 +19,14 @@ the plain versions.
 `route` picks the kernels: "fused" (the default) the butterfly
 ones (`backends/fused.py`), "fused_mxu" those of the four-step int8
 transforms (`backends/fused_mxu.py`, the JAX package's
-POULPY_TPU_FUSED_MXU=1) where `br_route` allows it; "mxu" takes the
-butterfly kernels, as the JAX package's POULPY_TPU_MXU=1 does not reach the
-blind rotation.
+POULPY_TPU_FUSED_MXU=1), "fused_sl" those of the sublane/lane-split layout
+(`backends/fused_sl.py`, POULPY_TPU_SL=1: the block path one block per
+launch, as the JAX package runs that layout only with POULPY_TPU_BR_STEPS=1,
+the standard path its product then the loop's rotate-and-subtract), and
+"fused_rot_shoup" the block steps with the x-power by Shoup
+(POULPY_TPU_ROT_MODE=1, grouped as the default), each where `br_route`
+allows it; "mxu" takes the butterfly kernels, as the JAX package's
+POULPY_TPU_MXU=1 does not reach the blind rotation.
 """
 
 from __future__ import annotations
@@ -31,12 +36,14 @@ from dataclasses import dataclass
 import torch
 
 from poulpy_tpu_torch.backends.fused import (  # noqa: F401  (the x-power tables live with their kernel)
+    _xpow_minus1_shoup_table,
     _xpow_minus1_table,
     _xpow_table,
     chain_steps,
     fused_br_block_step,
     fused_br_steps,
     fused_supported,
+    lazy_primes,
     pm_kernel_layout,
     xpow_tables,
 )
@@ -44,6 +51,11 @@ from poulpy_tpu_torch.backends.fused_mxu import (
     fused_mxu_br_block_step,
     fused_mxu_glwe_product,
     fused_mxu_supported,
+)
+from poulpy_tpu_torch.backends.fused_sl import (
+    fused_br_block_step_sl,
+    fused_glwe_product_sl,
+    sl_applies,
 )
 from poulpy_tpu_torch.backends.mxu import sigma_index
 from poulpy_tpu_torch.backends.mxu_product import ROUTES
@@ -112,20 +124,26 @@ def brk_kernel_layout(brk: BlindRotationKeyPrepared, rmax: int, sigma=None) -> t
 
 def br_route(module: Module, route: str, psize: int, base2k: int, dsize: int,
              extra_bits: int) -> str:
-    """The kernels a blind rotation takes when `route` is asked for:
-    "fused_mxu" where the JAX package's `_use_fused_br` (dsize 1,
-    `fused_supported`, base2k + bitlen(extra_bits + 2) ≤ 29: the MXU kernels
-    wrap their input limbs to int32, and the standard path's accumulator,
-    extra_bits = n_lwe there and 0 on the block path, stays unnormalized)
-    and `_use_mxu_br` (`fused_mxu_supported`: N ≥ 256) both hold; "fused",
-    the butterfly kernels, which take any int64 and give the same result,
-    everywhere else."""
+    """The kernels a blind rotation takes when `route` is asked for, where
+    the JAX package's `_use_fused_br` holds (dsize 1, `fused_supported`,
+    base2k + bitlen(extra_bits + 2) ≤ 29: the MXU kernels wrap their input
+    limbs to int32, and the standard path's accumulator, extra_bits = n_lwe
+    there and 0 on the block path, stays unnormalized): "fused_mxu" where
+    `_use_mxu_br` (`fused_mxu_supported`: N ≥ 256) holds too, "fused_sl"
+    where `sl_applies(N)`, "fused_rot_shoup" with lazy primes (`_rot_mode`'s
+    condition); "fused", the butterfly kernels, which take any int64 and
+    give the same result, everywhere else."""
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
-    if (route == "fused_mxu" and dsize == 1 and fused_supported(psize, base2k)
-            and base2k + (extra_bits + 2).bit_length() <= 29
-            and fused_mxu_supported(module, psize, base2k)):
-        return "fused_mxu"
+    if not (dsize == 1 and fused_supported(psize, base2k)
+            and base2k + (extra_bits + 2).bit_length() <= 29):
+        return "fused"
+    if route == "fused_mxu" and fused_mxu_supported(module, psize, base2k):
+        return route
+    if route == "fused_sl" and sl_applies(module.n):
+        return route
+    if route == "fused_rot_shoup" and lazy_primes(module):
+        return route
     return "fused"
 
 
@@ -224,15 +242,16 @@ def blind_rotation_execute(module: Module, lwe: LWECiphertext, lut: LookupTable,
     lwe_2n = mod_switch_2n(2 * module.n, lwe, lut.rot_dir)
     acc = _acc_init(lwe_2n[..., 0], lut, brk.rank)
     psize = brk.pmats.shape[-3]
-    mxu = br_route(module, route, psize, base2k, brk.dsize, brk.n_lwe) == "fused_mxu"
+    br = br_route(module, route, psize, base2k, brk.dsize, brk.n_lwe)
     # the kernels read the key in their own layout, made once per key
-    pm_k = _kernel_key(module, brk, acc, size, mxu)
-    if not mxu:
+    pm_k = _kernel_key(module, brk, acc, size, br == "fused_mxu")
+    if br not in ("fused_mxu", "fused_sl"):
         return vec_znx_normalize(base2k, fused_br_steps(module, acc, brk.pmats, lwe_2n, size,
                                                         base2k, pm_k))
+    product = fused_mxu_glwe_product if br == "fused_mxu" else fused_glwe_product_sl
     for i in range(brk.n_lwe):
-        tmp = fused_mxu_glwe_product(module, acc, brk.pmats[i], size, base2k, base2k,
-                                     pm_k=None if pm_k is None else pm_k[i])
+        tmp = product(module, acc, brk.pmats[i], size, base2k, base2k,
+                      pm_k=None if pm_k is None else pm_k[i])
         acc = acc + (vec_znx_rotate(lwe_2n[..., i + 1, None, None], tmp) - tmp)
     return vec_znx_normalize(base2k, acc)
 
@@ -242,7 +261,9 @@ def blind_rotation_execute_block(module: Module, lwe: LWECiphertext, lut: Lookup
                                  route: str = "fused"):
     """Block-binary CGGI path for block-binary LWE secrets (at most one set
     coefficient per block): a fused step per block of the key, BR_STEPS of
-    them chained per launch of the butterfly kernel."""
+    them chained per launch of the butterfly kernel (with the x-power by
+    Shoup on "fused_rot_shoup"), one per launch on "fused_mxu" and
+    "fused_sl"."""
     if module.mesh is not None:
         return dp_shard(module, lambda l: blind_rotation_execute_block(
             module.local, l, lut, brk, block_size, route), lwe)
@@ -253,14 +274,17 @@ def blind_rotation_execute_block(module: Module, lwe: LWECiphertext, lut: Lookup
     base2k, size = brk.base2k, lut.size
     lwe_2n = mod_switch_2n(2 * module.n, lwe, lut.rot_dir)
     acc = _acc_init(lwe_2n[..., 0], lut, brk.rank)
-    mxu = br_route(module, route, brk.pmats.shape[-3], base2k, brk.dsize, 0) == "fused_mxu"
+    br = br_route(module, route, brk.pmats.shape[-3], base2k, brk.dsize, 0)
     # the kernel reads the key in its own layout, made once per key
-    pm_k = _kernel_key(module, brk, acc, size, mxu)
+    pm_k = _kernel_key(module, brk, acc, size, br == "fused_mxu")
     # the JAX package's grouping: spans of `steps` whole blocks, one chained
     # launch each, then the nblocks % steps trailing blocks one per launch;
-    # the MXU kernel runs one block per launch, as the JAX package's does
-    steps = 1 if mxu else chain_steps(module, acc, brk.pmats, size, block_size,
-                                      max(1, min(BR_STEPS, nblocks)))
+    # the MXU kernel runs one block per launch, as the JAX package's does,
+    # and so does the split layout (its kernel asserts against a chain)
+    single = br in ("fused_mxu", "fused_sl")
+    steps = 1 if single else chain_steps(module, acc, brk.pmats, size, block_size,
+                                         max(1, min(BR_STEPS, nblocks)))
+    rot_mode = 1 if br == "fused_rot_shoup" else None
     batch, j = tuple(lwe_2n.shape[:-1]), 0
     for span, count in ((steps, nblocks // steps), (1, nblocks % steps)):
         # [count, ..., span·block]: each launch's amounts contiguous
@@ -270,7 +294,12 @@ def blind_rotation_execute_block(module: Module, lwe: LWECiphertext, lut: Lookup
             keys = slice(j * block_size, (j + span) * block_size)
             args = (module, acc, brk.pmats[keys], a_span, size, base2k,
                     None if pm_k is None else pm_k[keys])
-            acc = fused_mxu_br_block_step(*args) if mxu else fused_br_block_step(*args, span)
+            if br == "fused_mxu":
+                acc = fused_mxu_br_block_step(*args)
+            elif br == "fused_sl":
+                acc = fused_br_block_step_sl(*args)
+            else:
+                acc = fused_br_block_step(*args, span, rot_mode)
             j += span
     return acc
 

@@ -21,6 +21,8 @@ from poulpy_tpu_torch.backends.fused import (
     product_fits,
     tensor_fits,
 )
+from poulpy_tpu_torch.backends.fused_sl import fused_glwe_product_sl
+from poulpy_tpu_torch.backends.mxu_product import mxu_route
 from poulpy_tpu_torch.core.keyswitching import gglwe_product_dft
 from poulpy_tpu_torch.core.layouts import GLWECiphertext, GLWEPlaintext, glwe_size
 from poulpy_tpu_torch.core.prepared import GLWETensorKeyPrepared
@@ -181,9 +183,13 @@ def glwe_tensor_square_big(module: Module, a: GLWECiphertext, res_size: int, wid
 
 def glwe_tensor_relinearize(module: Module, a: GLWECiphertext, b: GLWECiphertext,
                             tensor_key: GLWETensorKeyPrepared, res_base2k: int | None = None,
-                            res_k: int | None = None) -> GLWECiphertext:
+                            res_k: int | None = None, route: str = "fused") -> GLWECiphertext:
     """ct × ct: the tensor product, each s_i·s_j term keyswitched back to s
-    through the tensor key, the linear terms added per column.
+    through the tensor key, the linear terms added per column.  `route`
+    "fused_sl" takes the fused pair's product in the sublane/lane-split
+    layout where `mxu_route` gives it (the JAX package's POULPY_TPU_SL=1,
+    the only knob that reaches its relinearize); every other route the
+    default kernels.
 
     The result is the product of the ciphertexts' unreduced values pt + I
     (I the integer part of Σ c_i·s_i), so it carries the mask-wrap cross
@@ -213,8 +219,10 @@ def glwe_tensor_relinearize(module: Module, a: GLWECiphertext, b: GLWECiphertext
                 and product_fits(module, dnum, psize, res_size, max(psize, conv_size))):
             d, lin64 = fused_tensor_product(module, a.data, b.data, conv_size, dnum,
                                             key1.base2k, base2k)
-            data = fused_glwe_product(module, d[..., None, :, :], key1.pmat, res_size,
-                                      res_base2k, base2k, dsize=key1.dsize, small64=lin64)
+            sl = mxu_route(module, route, psize, res_base2k, key1.dsize) == "fused_sl"
+            product = fused_glwe_product_sl if sl else fused_glwe_product
+            data = product(module, d[..., None, :, :], key1.pmat, res_size, res_base2k, base2k,
+                           dsize=key1.dsize, small64=lin64)
             return GLWECiphertext(data=data, base2k=res_base2k, k=res_k)
 
     lin, quad = glwe_tensor_product_big(module, a, b, conv_size, wide=wide)

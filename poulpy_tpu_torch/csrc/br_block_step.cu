@@ -12,12 +12,18 @@
 //   design, poulpy_br_block_step; both compute the same bits;
 // - steps 2, rot_mode 2, the JAX package's default launch (POULPY_TPU_BR_STEPS):
 //   the lazy design's chain, poulpy_br_block_step_lazy with steps > 1, each
-//   step's normalized accumulator kept in shared memory for the next.
-// Not replaced yet (ROADMAP Queue 2): rot_mode 1 (the x-power as a Shoup
-// product from the two-plane table, POULPY_TPU_ROT_MODE=1), and the
-// sublane/lane-split layout (_ntt_rows_sl / _intt_rows_sl, POULPY_TPU_SL=1).
+//   step's normalized accumulator kept in shared memory for the next;
+// - steps 1 and 2, rot_mode 1 (POULPY_TPU_ROT_MODE=1, pallas_fused.py:712-724:
+//   the x-power as a Shoup product on the VMP's input rows, from the
+//   two-plane table of the plain NTT(X^j − 1) and its quotients
+//   ⌊w·2^30/p⌋, blind_rotation.py _xpow_minus1_shoup_table): the lazy
+//   design's SHOUP instances, poulpy_br_block_step_lazy with shoup = 1, at
+//   GateShape and RuntimeShape, single and chained.
+// Not replaced here: the sublane/lane-split layout (_ntt_rows_sl /
+// _intt_rows_sl, POULPY_TPU_SL=1), which is csrc/fused_sl.cu.
 // Plain twin: poulpy_tpu_torch/backends/fused.py fused_br_block_step_ref (the
-// jnp block_step of blind_rotation.py:532-550), `steps` of them in sequence.
+// jnp block_step of blind_rotation.py:532-550, or with rot_mode 1 the Shoup
+// product on dft(acc) before the VMP), `steps` of them in sequence.
 //
 // What bounds it on the H100: operations and L2, not HBM.  A ciphertext
 // moves cols·size·N·8 bytes in and out (32 KB each way at the gate shape),
@@ -49,7 +55,13 @@
 // consecutive key elements; between steps the tile's normalized limbs
 // [T][cols][res_size][N] int64 stay in shared memory (65,536 B more at the
 // gate shape, 196,736 in all: still one block per SM), the next step's
-// entry reads them there, and only the last step writes `out`.
+// entry reads them there, and only the last step writes `out`.  The SHOUP
+// instances (rot_mode 1) make x'_{i,k} by Shoup's product with the plain
+// table word and its 30-bit quotient (modarith.cuh shoup_mul30) instead of a
+// Montgomery product: one 64-bit and two 32-bit multiplies against REDC's
+// three, but a second gather per (ciphertext, key element, coefficient)
+// from the two-plane table [2N][2][P][N], twice the rows of the Montgomery
+// one (32 MiB at N 1024, P 2).
 //
 // The parent design (br_block_step_kernel; the stage clock's reference, and
 // br_block_step_staged_kernel for the global layout): one block per
@@ -246,8 +258,10 @@ using RuntimeShape = BfShape<0, 0, 0, 0, 0, 0>;
 // its exit adds those limbs and writes nxt, or `out` at the last step (a
 // thread reads the limbs of its (ciphertext, column, coefficient) before it
 // writes the same words, and no other thread touches them).  TIMED: the
-// stage clock, stamps [blocks][BF_NSTAGES], summed over the steps.
-template <class S, int T, bool TIMED, bool CHAIN>
+// stage clock, stamps [blocks][BF_NSTAGES], summed over the steps.  SHOUP:
+// g.xpm1 is the two-plane Shoup table [2N][2][P][N] (lazy_vmp's SHOUP), the
+// same bits.
+template <class S, int T, bool TIMED, bool CHAIN, bool SHOUP = false>
 __global__ void __launch_bounds__(THREADS, 1) br_block_step_lazy_kernel(const LazyStepArgs g) {
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ PrimeL lk[MAX_PRIMES];
@@ -283,8 +297,9 @@ __global__ void __launch_bounds__(THREADS, 1) br_block_step_lazy_kernel(const La
     clk.mark(BF_ENTRY);
     ntt_pass_lo<false>(smem, T * P * kk, kk, R, P, logn, g.tw, lk, true);
     clk.mark(BF_FWD);
-    lazy_vmp<T, MK, MC, true>(smem, g.pm + (size_t)st * block * P * kk * mdim * n, g.xpm1,
-                              xrow + st * tb, block, kk, mdim, 0, mdim, P, R, logn, lk);
+    lazy_vmp<T, MK, MC, true, SHOUP>(smem, g.pm + (size_t)st * block * P * kk * mdim * n,
+                                     g.xpm1, xrow + st * tb, block, kk, mdim, 0, mdim, P, R,
+                                     logn, lk);
     __syncthreads();
     clk.mark(BF_VMP);
     lazy_ntt_inv(smem, T * P, mdim, R, P, logn, g.tw + (size_t)P * n, lk);
@@ -307,10 +322,10 @@ __global__ void __launch_bounds__(THREADS, 1) br_block_step_lazy_kernel(const La
   clk.store(g.stamps);
 }
 
-template <class S, int T, bool CHAIN>
+template <class S, int T, bool CHAIN, bool SHOUP>
 int launch_lazy_as(const LazyStepArgs& g, int smem, cudaStream_t stream) {
-  const auto kernel = g.stamps != nullptr ? br_block_step_lazy_kernel<S, T, true, CHAIN>
-                                          : br_block_step_lazy_kernel<S, T, false, CHAIN>;
+  const auto kernel = g.stamps != nullptr ? br_block_step_lazy_kernel<S, T, true, CHAIN, SHOUP>
+                                          : br_block_step_lazy_kernel<S, T, false, CHAIN, SHOUP>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<(unsigned)((g.B + T - 1) / T), THREADS, (size_t)smem, stream>>>(g);
@@ -318,11 +333,14 @@ int launch_lazy_as(const LazyStepArgs& g, int smem, cudaStream_t stream) {
 }
 
 // One launch of shape S, T ciphertexts per block: the single step, or the
-// chain where g.steps > 1.
+// chain where g.steps > 1; the x-power by Montgomery, or by Shoup (`shoup`).
 template <class S, int T>
-int launch_lazy(const LazyStepArgs& g, int smem, cudaStream_t stream) {
-  return g.steps > 1 ? launch_lazy_as<S, T, true>(g, smem, stream)
-                     : launch_lazy_as<S, T, false>(g, smem, stream);
+int launch_lazy(const LazyStepArgs& g, bool shoup, int smem, cudaStream_t stream) {
+  if (shoup)
+    return g.steps > 1 ? launch_lazy_as<S, T, true, true>(g, smem, stream)
+                       : launch_lazy_as<S, T, false, true>(g, smem, stream);
+  return g.steps > 1 ? launch_lazy_as<S, T, true, false>(g, smem, stream)
+                     : launch_lazy_as<S, T, false, false>(g, smem, stream);
 }
 
 }  // namespace
@@ -368,7 +386,9 @@ extern "C" int poulpy_br_block_step(const void* acc, const void* pm, const void*
 // The lazy design: the arguments of poulpy_br_block_step without the global
 // layout's, and `steps` ≥ 1 (steps > 1: the chain, size == res_size; pm
 // [steps·block, …], amounts [B, steps·block], step st over key elements
-// st·block … st·block + block − 1); tw: the Shoup twiddles [2][P][N] uint2
+// st·block … st·block + block − 1); shoup: 0, xpm1 the Montgomery table
+// [2N, P, N] (rot_mode 2), or 1, xpm1 the two-plane Shoup table
+// [2N, 2, P, N] int32 (rot_mode 1); tw: the Shoup twiddles [2][P][N] uint2
 // (backends/ntt.py shoup_tables); T ciphertexts per block and smem from
 // backends/fused.py lazy_layout (T 2 at GateShape, else 1); the grid is
 // ⌈B/T⌉ blocks.  stamps: null, or [blocks][5] int64 for the stage clock.
@@ -377,8 +397,8 @@ extern "C" int poulpy_br_block_step_lazy(const void* acc, const void* pm, const 
                                          const void* amounts, void* out, const void* tw,
                                          const void* consts, int B, int cols, int size, int rmax,
                                          int psize, int res_size, int kr, int block, int steps,
-                                         int P, int logn, int T, int smem, void* stamps,
-                                         void* stream) {
+                                         int shoup, int P, int logn, int T, int smem,
+                                         void* stamps, void* stream) {
   if (steps < 1 || (steps > 1 && size != res_size)) return (int)cudaErrorInvalidValue;
   const LazyStepArgs g{(const int64_t*)acc, (const int32_t*)pm, (const int32_t*)xpm1,
                        (const int64_t*)amounts, (int64_t*)out, (const uint2*)tw,
@@ -388,7 +408,7 @@ extern "C" int poulpy_br_block_step_lazy(const void* acc, const void* pm, const 
   const bool gate = logn == GateShape::LOGN && cols * rmax == GateShape::KK &&
                     cols * psize == GateShape::MR && P == GateShape::P &&
                     psize == GateShape::PS && res_size == GateShape::RS;
-  if (gate && T == 2) return launch_lazy<GateShape, 2>(g, smem, st);
-  if (T == 1) return launch_lazy<RuntimeShape, 1>(g, smem, st);
+  if (gate && T == 2) return launch_lazy<GateShape, 2>(g, shoup != 0, smem, st);
+  if (T == 1) return launch_lazy<RuntimeShape, 1>(g, shoup != 0, smem, st);
   return (int)cudaErrorInvalidValue;
 }

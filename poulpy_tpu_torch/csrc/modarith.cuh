@@ -770,6 +770,16 @@ __device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint2 w, uint32_t p) {
   return a * w.x - __umulhi(a, w.y) * p;
 }
 
+// Canonical a·w mod p by Shoup's product with the JAX package's 30-bit
+// quotient wq = ⌊w·2^30/p⌋ (its shoup_mul_i32_lazy): q = ⌊a·wq/2^30⌋ from a
+// 64-bit product, r = a·w − q·p in [0, 2p) for a < 2^30 (Harvey), then one
+// conditional subtract.  a, w < p.
+__device__ __forceinline__ uint32_t shoup_mul30(uint32_t a, uint32_t w, uint32_t wq, uint32_t p) {
+  const uint32_t q = (uint32_t)(((uint64_t)a * wq) >> 30);
+  const uint32_t r = a * w - q * p;
+  return min(r, r - p);
+}
+
 // Lazy Cooley–Tukey butterfly, X, Y in [0, 4p) → [0, 4p): X ← x + w·Y,
 // Y ← x − w·Y + 2p, x = X reduced to [0, 2p), w·Y in [0, 2p).
 __device__ __forceinline__ void fwd_bfly(uint32_t& X, uint32_t& Y, uint2 w, uint32_t p) {
@@ -1064,13 +1074,16 @@ __device__ __forceinline__ void lazy_row_offsets(int* rowoff, int kk, int rmax, 
 // NTT(X^a − 1) row xrow[t·block + i] of xpm1 [2N][P][N], block key elements
 // pm [block][P][kk][mdim][N]) or x_{t,k} (the product: pm [P][kk][mdim][N]),
 // which is fused_product.cu's / br_block_step.cu's canonical value, so the
-// same bits.  One thread per (prime, coefficient) holds its T·kk inputs
+// same bits.  SHOUP (with BSTEP): xpm1 is the two-plane table [2N][2][P][N]
+// of the plain NTT(X^a − 1) and its quotients ⌊w·2^30/p⌋, and x'_{t,i,k} =
+// x_{t,k}·w mod p is Shoup's product (shoup_mul30), the same canonical value.
+// One thread per (prime, coefficient) holds its T·kk inputs
 // (MK ≥ kk) and, for MC output rows at a time, T·MC sums in registers, so
 // each key word is read once per block and each x-power product made once
 // per (t, i, k) and group of MC rows; the sums run lazily in u64 (folded
 // every PrimeL::fold terms) and are reduced once (reduce_redc).  The caller
 // ends it with a barrier.
-template <int T, int MK, int MC, bool BSTEP>
+template <int T, int MK, int MC, bool BSTEP, bool SHOUP = false>
 __device__ __forceinline__ void lazy_vmp(uint32_t* buf, const int32_t* __restrict__ pm,
                                          const int32_t* __restrict__ xpm1, const int* xrow,
                                          int block, int kk, int mdim, int m0, int mrows, int P,
@@ -1098,8 +1111,15 @@ __device__ __forceinline__ void lazy_vmp(uint32_t* buf, const int32_t* __restric
       for (int i = 0; i < (BSTEP ? block : 1); ++i) {
         const int32_t* pmi =
             pm + ((size_t)(BSTEP ? i * P + pi : pi) * kk * mdim + m0 + mc) * n + coef;
-        uint32_t xw[T];
-        if (BSTEP) {
+        uint32_t xw[T], xq[T];
+        if (BSTEP && SHOUP) {
+#pragma unroll
+          for (int t = 0; t < T; ++t) {
+            const int32_t* row = xpm1 + ((size_t)xrow[t * block + i] * 2 * P + pi) * n + coef;
+            xw[t] = (uint32_t)__ldg(row);
+            xq[t] = (uint32_t)__ldg(row + (size_t)P * n);
+          }
+        } else if (BSTEP) {
 #pragma unroll
           for (int t = 0; t < T; ++t)
             xw[t] = (uint32_t)__ldg(xpm1 + ((size_t)xrow[t * block + i] * P + pi) * n + coef);
@@ -1110,7 +1130,9 @@ __device__ __forceinline__ void lazy_vmp(uint32_t* buf, const int32_t* __restric
           uint32_t xv[T];
 #pragma unroll
           for (int t = 0; t < T; ++t)
-            xv[t] = BSTEP ? mont_mul(x[t][q], xw[t], k.p, k.qinv) : x[t][q];
+            xv[t] = !BSTEP ? x[t][q]
+                    : SHOUP ? shoup_mul30(x[t][q], xw[t], xq[t], k.p)
+                            : mont_mul(x[t][q], xw[t], k.p, k.qinv);
 #pragma unroll
           for (int m = 0; m < MC; ++m) {
             if (mc + m < mrows) {

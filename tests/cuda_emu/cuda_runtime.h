@@ -5,10 +5,12 @@
 // next (the first block's order alternating from launch to launch), so that a
 // missing barrier shows whichever of two threads reads the other's write; the
 // blocks of a launch one after another, __syncthreads a barrier of the
-// block's threads and __syncwarp one of the warp's (a fiber that waits yields
-// until the last one arrives; the run has no data race by construction and
-// takes one core, however many threads the kernel has), dynamic shared memory a
-// buffer per block filled with garbage, a static __shared__ variable one per
+// block's threads and __syncwarp one of the warp's, __shfl_xor_sync an
+// exchange through the warp's slots between two of its barriers (a fiber
+// that waits yields until the last one arrives; the run has no data race by
+// construction and takes one core, however many threads the kernel has),
+// dynamic shared memory a buffer per block filled with garbage, a static
+// __shared__ variable one per
 // kernel instance (the blocks run one after another), and
 // mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 computed from the
 // fragments of the warp's 32 lanes (PTX ISA's fragment layouts) between two
@@ -38,6 +40,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__
 #define __restrict__
 #define __launch_bounds__(...)
 #define __align__(n)
@@ -137,6 +140,23 @@ inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
 }
 
 inline void __syncwarp() { emu_warp_bar[threadIdx.x >> 5].wait(); }
+
+// __shfl_xor_sync: each lane publishes its value in its warp's slot, the
+// warp meets at its barrier, each reads lane ^ lane_mask's value, and the
+// warp meets again before any slot is written anew.  The kernels pass a full
+// mask and the warp's width.
+inline uint64_t emu_shfl[32][32];
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int lane_mask, int = 32) {
+  static_assert(sizeof(T) <= sizeof(uint64_t), "a shuffled value is at most 8 bytes");
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  memcpy(&emu_shfl[w][lane], &v, sizeof(T));
+  emu_warp_bar[w].wait();
+  T u;
+  memcpy(&u, &emu_shfl[w][lane ^ lane_mask], sizeof(T));
+  emu_warp_bar[w].wait();
+  return u;
+}
 
 // The shared-window address of a pointer into the block's dynamic buffer.
 inline size_t __cvta_generic_to_shared(const void* p) {

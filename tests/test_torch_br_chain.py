@@ -124,9 +124,9 @@ def ref_calls(monkeypatch):
     calls = []
     ref = tfused.fused_br_block_step_ref
 
-    def spy(module, acc, pmats, a_blk, res_size, base2k, steps=1):
+    def spy(module, acc, pmats, a_blk, res_size, base2k, steps=1, *rest):
         calls.append((steps, pmats.shape[0]))
-        return ref(module, acc, pmats, a_blk, res_size, base2k, steps)
+        return ref(module, acc, pmats, a_blk, res_size, base2k, steps, *rest)
 
     monkeypatch.setattr(tfused, "fused_br_block_step_ref", spy)
     return calls

@@ -44,6 +44,7 @@ import torch
 from poulpy_tpu_torch.backends import _lib
 from poulpy_tpu_torch.backends import fused as tfused
 from poulpy_tpu_torch.backends import fused_mxu as tfm
+from poulpy_tpu_torch.backends import fused_sl as tsl
 from poulpy_tpu_torch.backends import mxu as tmxu
 from poulpy_tpu_torch.backends import ntt as tntt
 from poulpy_tpu_torch.backends import vmp as tvmp
@@ -83,6 +84,7 @@ SOURCES = {
     "fused_product": ("poulpy_fused_product", "poulpy_fused_product_lazy"),
     "fused_product_tile": ("poulpy_fused_product_tile", "poulpy_br_step"),
     "br_block_step": ("poulpy_br_block_step", "poulpy_br_block_step_lazy"),
+    "fused_sl": ("poulpy_fused_sl",),
     "mxu_ntt": ("poulpy_mxu_forward", "poulpy_mxu_forward_wg", "poulpy_mxu_inverse",
                 "poulpy_mxu_inverse_wg"),
     "vmp": ("poulpy_vmp", "poulpy_vmp_tile"),
@@ -378,6 +380,124 @@ def test_emulated_butterfly_stage_clock(emulated, design):
                                       design=design)
     assert torch.equal(out, tfused.fused_br_block_step_ref(m, acc, pmats, amounts, 2, 17))
     assert stamps.shape == (3, len(tfused.STAGES)) and bool((stamps > 0).all())
+
+
+@pytest.mark.parametrize("n,batch,size,rows,block,steps,tile", [
+    (1024, 3, 2, 4, 8, 1, 2),     # the gate's and the CBT's step: GateShape, a ragged tile
+    (1024, 3, 2, 4, 8, 2, 2),     # their chain
+    (256, 2, 3, 3, 7, 1, 1),      # fheuint_prepare's block 7 (KK 6, res 3): runtime-shaped
+    (256, 2, 3, 3, 7, 2, 1),      # its chain
+])
+def test_emulated_br_block_step_shoup_matches_plain(emulated, n, batch, size, rows, block, steps,
+                                                    tile):
+    """The lazy design's Shoup instances (rot_mode 1: the x-power from the
+    two-plane table by Shoup's product), single and chained, against the
+    plain rot_mode 1 step and the plain default one, bit for bit; the
+    launch counted as a Shoup instance."""
+    m = t_get_module(n, 2, 28, "cpu")
+    rng = np.random.default_rng(91)
+    acc = _edge_limbs(rng, (batch, 2, size, n))
+    pmats = _residues(rng, m.basis.primes, (steps * block, rows, 2, 2, 4, 2, n))
+    amounts = torch.from_numpy(rng.integers(-n, 3 * n, size=(batch, steps * block)))
+    amounts[0, :3] = torch.tensor([-n, 2 * n - 1, 0])
+    lay = tfused._block_layout(m, 2 * min(rows, size), 2, 4, size, block, steps, "lazy")
+    assert (lay.kind, lay.tile) == ("lazy", tile)
+    args = (m, acc, pmats, amounts, size, 17)
+    out, launch = tfused._block_step_launch(*args, None, steps, rot_mode=1)
+    assert launch.counter == ("br_block_chain_shoup" if steps > 1 else "br_block_step_shoup")
+    launch()
+    assert torch.equal(out, tfused.fused_br_block_step_ref(*args, steps, rot_mode=1))
+    assert torch.equal(out, tfused.fused_br_block_step_ref(*args, steps))
+
+
+# --------------------------------------------------------------------------
+# The split layout's kernel (fused_sl.cu): every flag combination
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize(
+    "n,nprimes,prime_bits,batch,ci,rows,size_a,psize,res_size,s_size,s64,dsize,cpb", [
+        (256, 2, 28, 2, 2, 3, 3, 4, 3, 0, 0, 1, 2),      # the product
+        (512, 2, 28, 2, 1, 3, 3, 4, 3, 3, 0, 1, 2),      # small
+        (256, 5, 30, 2, 1, 3, 3, 4, 6, 0, 6, 1, 2),      # small64, s64 > psize, P 5
+        (512, 2, 28, 2, 1, 2, 4, 3, 4, 4, 0, 2, 2),      # dsize 2
+        (128, 1, 30, 3, 2, 2, 2, 2, 2, 0, 0, 1, 2),      # N 128, P 1
+        (2048, 2, 28, 1, 2, 3, 3, 4, 3, 0, 0, 1, 2),     # bench.py's product
+        (1024, 2, 28, 2, 1, 2, 2, 3, 2, 2, 0, 1, 2),     # the gate's keyswitch
+        (2048, 4, 28, 1, 1, 6, 6, 6, 6, 6, 0, 1, 1),     # a column per block
+    ])
+def test_emulated_fused_sl_product_matches_plain(emulated, n, nprimes, prime_bits, batch, ci,
+                                                 rows, size_a, psize, res_size, s_size, s64,
+                                                 dsize, cpb):
+    """The split layout's product, `small` and `small64` patterns against
+    their plain version and the default pipeline's plain version, bit for
+    bit, limbs at INT64_MIN / INT64_MAX."""
+    m = t_get_module(n, nprimes, prime_bits, "cpu")
+    rng = np.random.default_rng(92)
+    a = _edge_limbs(rng, (batch, ci, size_a, n))
+    pmat = _residues(rng, m.basis.primes, (rows, ci, 2, psize, nprimes, n))
+    small = torch.from_numpy(rng.integers(-(2**40), 2**40, size=(batch, s_size, n))) if s_size \
+        else None
+    small64 = torch.from_numpy(rng.integers(-(2**62), 2**62, size=(batch, 2, s64, n))) if s64 \
+        else None
+    kk = ci * min(rows * dsize, size_a)
+    assert tsl.sl_layout(kk, 2, psize, nprimes, n).cpb == cpb
+    out, launch = tsl._sl_product_launch(m, a, pmat, res_size, 17, 17, dsize, small, small64)
+    launch()
+    want = tsl.fused_glwe_product_sl_ref(m, a, pmat, res_size, 17, 17, dsize, small, small64)
+    assert torch.equal(out, want)
+    assert torch.equal(out, tfused.fused_glwe_product_ref(m, a, pmat, res_size, 17, 17, dsize,
+                                                          small, small64))
+
+
+@pytest.mark.parametrize("n,nprimes,prime_bits,batch,size,rows,block,rot_mode", [
+    (256, 2, 28, 2, 2, 4, 3, 0),
+    (256, 2, 28, 2, 2, 4, 3, 1),
+    (256, 2, 28, 2, 2, 4, 3, 2),
+    (512, 3, 30, 2, 3, 3, 2, 0),       # 30-bit primes: rot_mode 0 only
+    (1024, 2, 28, 2, 2, 4, 8, 1),      # the gate's block step
+    (1024, 2, 28, 2, 2, 4, 8, 2),
+])
+def test_emulated_fused_sl_block_step_matches_plain(emulated, n, nprimes, prime_bits, batch,
+                                                    size, rows, block, rot_mode):
+    """The split layout's block step under each rot_mode against its plain
+    version and the default plain step, bit for bit."""
+    m = t_get_module(n, nprimes, prime_bits, "cpu")
+    rng = np.random.default_rng(93)
+    acc = _edge_limbs(rng, (batch, 2, size, n))
+    pmats = _residues(rng, m.basis.primes, (block, rows, 2, 2, 4, nprimes, n))
+    amounts = torch.from_numpy(rng.integers(-n, 3 * n, size=(batch, block)))
+    args = (m, acc, pmats, amounts, size, 17)
+    out, launch = tsl._sl_block_step_launch(*args, None, rot_mode)
+    launch()
+    assert torch.equal(out, tsl.fused_br_block_step_sl_ref(*args, 1, rot_mode))
+    assert torch.equal(out, tfused.fused_br_block_step_ref(*args))
+
+
+def test_emulated_shuffle_read_before_write_fails(emulated, tmp_path, monkeypatch):
+    """The emulation's warp shuffle is what makes fused_sl.cu right: built
+    against a copy of the header whose shuffle reads the partner's slot
+    before the warp's first barrier (before the partner has written it), the
+    kernel no longer equals its plain version."""
+    gxx = shutil.which("g++")
+    header = (EMU / "cuda_runtime.h").read_text()
+    published = "  memcpy(&emu_shfl[w][lane], &v, sizeof(T));\n  emu_warp_bar[w].wait();\n"
+    assert published in header
+    (tmp_path / "cuda_runtime.h").write_text(
+        header.replace(published, "  memcpy(&emu_shfl[w][lane], &v, sizeof(T));\n"))
+    for f in [CSRC / "fused_sl.cu", *CSRC.glob("*.cuh")]:
+        (tmp_path / f.name).write_text(_rewrite(f.read_text()))
+    so = tmp_path / "libfused_sl_mut.so"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-w", f"-I{tmp_path}", "-x",
+                    "c++", "-o", str(so), str(tmp_path / "fused_sl.cu")], check=True)
+    monkeypatch.setattr(_lib, "library", lambda: _Libs([(ctypes.CDLL(str(so)),
+                                                         ("poulpy_fused_sl",))]))
+    m = t_get_module(256, 2, 28, "cpu")
+    rng = np.random.default_rng(94)
+    a = _edge_limbs(rng, (1, 2, 3, 256))
+    pmat = _residues(rng, m.basis.primes, (3, 2, 2, 4, 2, 256))
+    out, launch = tsl._sl_product_launch(m, a, pmat, 3, 17, 17)
+    launch()
+    assert not torch.equal(out, tsl.fused_glwe_product_sl_ref(m, a, pmat, 3, 17, 17))
 
 
 # --------------------------------------------------------------------------

@@ -347,6 +347,100 @@ def test_cuda_br_block_chain_matches_plain(cuda, n, nprimes, prime_bits, batch, 
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,batch,size,rows,block,steps", [
+    (1024, 1023, 2, 4, 8, 1),     # the gate's and the CBT's step: GateShape, a ragged tile
+    (1024, 1023, 2, 4, 8, 2),     # their chain
+    (1024, 32, 3, 4, 7, 1),       # fheuint_prepare's block 7 (KK 6, res 3), runtime-shaped
+    (1024, 32, 3, 4, 7, 2),
+])
+def test_cuda_br_block_step_shoup_matches_plain(cuda, n, batch, size, rows, block, steps):
+    """The Shoup instances (rot_mode 1) equal the plain rot_mode 1 step and
+    the Montgomery instances' output, counted under the "_shoup" entries."""
+    m = t_get_module(n, 2, 28, cuda)
+    rng = np.random.default_rng(27)
+    acc = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(batch, 2, size, n))).to(cuda)
+    pmats = torch.from_numpy(_residues(rng, m.basis.primes,
+                                       (steps * block, rows, 2, 2, 4, 2, n))).to(cuda)
+    amounts = torch.from_numpy(rng.integers(-n, 3 * n, size=(batch, steps * block))).to(cuda)
+    args = (m, acc, pmats, amounts, size, 17, None, steps)
+    name = "br_block_chain" if steps > 1 else "br_block_step"
+    before = dict(LAUNCHES)
+    have = tfused.fused_br_block_step(*args, rot_mode=1)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name + "_shoup"] == before[name + "_shoup"] + 1
+    assert LAUNCHES[name] == before[name]
+    assert torch.equal(have, tfused.fused_br_block_step_ref(m, acc, pmats, amounts, size, 17,
+                                                            steps, rot_mode=1))
+    assert torch.equal(have, tfused.fused_br_block_step(*args, rot_mode=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern,n,batch,ci,rows,size_a,psize,res_size,extra", [
+    ("product", 2048, 64, 2, 3, 3, 4, 3, 0),      # bench.py's product
+    ("small", 1024, 64, 1, 2, 2, 3, 2, 2),        # the gate's keyswitch with its body
+    ("small64", 2048, 8, 1, 6, 6, 6, 12, 11),     # the relinearization
+    ("product", 128, 5, 2, 3, 3, 4, 3, 0),
+    ("product", 512, 3, 1, 2, 4, 4, 4, 0),        # rows < size_a
+])
+def test_cuda_fused_sl_product_matches_plain(cuda, pattern, n, batch, ci, rows, size_a, psize,
+                                             res_size, extra):
+    """The split layout's product, `small` and `small64` equal their plain
+    version and the default kernel's output, one "fused_sl_product" launch."""
+    from poulpy_tpu_torch.backends import fused_sl as tsl
+
+    m = t_get_module(n, 2, 28, cuda)
+    rng = np.random.default_rng(28)
+    a = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(batch, ci, size_a, n))).to(cuda)
+    pmat = torch.from_numpy(_residues(rng, m.basis.primes,
+                                      (rows, ci, 2, psize, 2, n))).to(cuda)
+    kw = {}
+    if pattern == "small":
+        kw["small"] = torch.from_numpy(rng.integers(-(2**16), 2**16,
+                                                    size=(batch, extra, n))).to(cuda)
+    elif pattern == "small64":
+        kw["small64"] = torch.from_numpy(rng.integers(-(2**47), 2**47,
+                                                      size=(batch, 2, extra, n))).to(cuda)
+    args = (m, a, pmat, res_size, 17, 17)
+    before = LAUNCHES["fused_sl_product"]
+    have = tsl.fused_glwe_product_sl(*args, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_sl_product"] == before + 1
+    assert torch.equal(have, tsl.fused_glwe_product_sl_ref(*args, **kw))
+    assert torch.equal(have, tfused.fused_glwe_product(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,prime_bits,batch,size,rows,block,rot_mode", [
+    (1024, 28, 1023, 2, 4, 8, 2),      # the gate's block step
+    (1024, 28, 1023, 2, 4, 8, 1),
+    (1024, 28, 32, 3, 4, 7, 0),        # fheuint_prepare's block 7
+    (256, 30, 5, 3, 3, 4, 0),
+])
+def test_cuda_fused_sl_block_step_matches_plain(cuda, n, prime_bits, batch, size, rows, block,
+                                                rot_mode):
+    """The split layout's block step equals its plain version and the
+    default kernel's output under each rot_mode, one "fused_sl_block_step"
+    launch; a chain raises."""
+    from poulpy_tpu_torch.backends import fused_sl as tsl
+
+    m = t_get_module(n, 2, prime_bits, cuda)
+    rng = np.random.default_rng(29)
+    acc = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(batch, 2, size, n))).to(cuda)
+    pmats = torch.from_numpy(_residues(rng, m.basis.primes,
+                                       (block, rows, 2, 2, 4, 2, n))).to(cuda)
+    amounts = torch.from_numpy(rng.integers(-n, 3 * n, size=(batch, block))).to(cuda)
+    args = (m, acc, pmats, amounts, size, 17)
+    before = LAUNCHES["fused_sl_block_step"]
+    have = tsl.fused_br_block_step_sl(*args, rot_mode=rot_mode)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_sl_block_step"] == before + 1
+    assert torch.equal(have, tsl.fused_br_block_step_sl_ref(*args, 1, rot_mode))
+    assert torch.equal(have, tfused.fused_br_block_step(*args))
+    with pytest.raises(ValueError, match="one block step per launch"):
+        tsl.fused_br_block_step_sl(*args, steps=2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("block", [4, 1])
 def test_cuda_gate_nand_matches_cpu(cuda, block):
     """The port's whole gate on the card equals the port's on the CPU."""
