@@ -561,6 +561,8 @@ BUTTERFLY_DESIGNS = ("parent", "lazy")
 CBT_DESIGNS = ("parent", "runtime", "lazy")
 # the MXU transforms' designs (csrc/mxu_ntt.cu), timed by their stage clocks in 3‴
 TRANSFORM_DESIGNS = ("parent", "wg")
+# the split layout's designs (csrc/fused_sl.cu): a warp per row, and a row group per row
+SL_DESIGNS = ("parent", "split")
 
 _FUSED = "poulpy_tpu/backends/pallas_fused.py:951"
 _WIDE = "poulpy_tpu/backends/pallas_wide.py"
@@ -1157,12 +1159,14 @@ def phase_chain_ab(gm, acc, brk, amounts, pm_k, timings: dict) -> None:
 def pattern_cases(m, gm) -> dict:
     """The two call patterns of the fused pipeline that only their routes
     run, at those routes' shapes, each as (new kernel, its plain version,
-    the default design's launch at the same inputs, bound): the block step's
-    Shoup instances (rot_mode 1, `"fused_rot_shoup"`) at the gate's step and
-    chain, the CBT's chain and fheuint_prepare's block 7 (single and chain);
-    the split layout's kernel (`"fused_sl"`) at bench.py's product, the
-    gate's keyswitch (`small`), the relinearization (`small64`) and the
-    gate's block step under rot_mode 2 and 1.  Inputs of their own (seed 7)."""
+    the default design's launch at the same inputs, bound, the kernel's
+    parent design or None): the block step's Shoup instances (rot_mode 1,
+    `"fused_rot_shoup"`) at the gate's step and chain, the CBT's chain and
+    fheuint_prepare's block 7 (single and chain); the split layout's kernel
+    (`"fused_sl"`, its split design, the parent the warp-per-row design) at
+    bench.py's product, the gate's keyswitch (`small`), the relinearization
+    (`small64`) and the gate's block step under rot_mode 2 and 1.  Inputs of
+    their own (seed 7)."""
     import torch
 
     from poulpy_tpu_torch.backends import fused, fused_sl
@@ -1194,12 +1198,14 @@ def pattern_cases(m, gm) -> dict:
         if sl:
             cases[name] = (lambda: fused_sl.fused_br_block_step_sl(*args, pm_k, rot_mode=rot),
                            lambda: fused_sl.fused_br_block_step_sl_ref(*args, 1, rot),
-                           lambda: fused.fused_br_block_step(*args, pm_k, 1), bnd)
+                           lambda: fused.fused_br_block_step(*args, pm_k, 1), bnd,
+                           lambda: fused_sl.fused_br_block_step_sl(*args, pm_k, rot_mode=rot,
+                                                                   design="parent"))
         else:
             cases[name] = (lambda: fused.fused_br_block_step(*args, pm_k, steps, rot_mode=1),
                            lambda: fused.fused_br_block_step_ref(*args, steps, rot_mode=1),
                            lambda: fused.fused_br_block_step(*args, pm_k, steps, rot_mode=2),
-                           bnd)
+                           bnd, None)
 
     # the block step's Shoup instances: the gate's (GateShape), the CBT's
     # chain (the same instance, base2k 13, dnum 3), fheuint_prepare's block 7
@@ -1229,7 +1235,8 @@ def pattern_cases(m, gm) -> dict:
                        bound(nbytes, fused_ops(a.numel() // (a.shape[-1] * a.shape[-2]
                                                            * a.shape[-3]),
                                                kk, pmat.shape[2] * pmat.shape[3],
-                                               mod.nprimes, mod.n)))
+                                               mod.nprimes, mod.n)),
+                       lambda: fused_sl.fused_glwe_product_sl(*args, **kw, design="parent"))
 
     # the split layout: bench.py's product (B 16384, N 2048, KK 6, M 8), the
     # gate's keyswitch with its body (B 1024, N 1024, KK 2, M 6), the
@@ -1251,35 +1258,47 @@ def pattern_cases(m, gm) -> dict:
 
 def phase_patterns(m, gm) -> dict:
     """Each case of `pattern_cases` against its plain version and the default
-    design's output on the same inputs, tolerance 0; then the kernel and the
-    default timed in turns (kernel, default, default, kernel; CUDA events, 5
+    design's output on the same inputs (and its parent design's where it has
+    one), tolerance 0; then the kernel, its parent and the default timed in
+    turns (kernel, parent, default, default, parent, kernel; CUDA events, 5
     launches each after a warm-up) and the plain version once.  Emits one
     line per case and returns the numbers of the kernels line (the kernel's
     mean of its two timings)."""
     import torch
 
     out = {}
-    for name, (kernel, plain, default, bnd) in pattern_cases(m, gm).items():
+    for name, (kernel, plain, default, bnd, parent) in pattern_cases(m, gm).items():
         have, want, dflt = kernel(), plain(), default()
         torch.cuda.synchronize()
         err = int((have - want).abs().max())
         equal, equal_default = bool(torch.equal(have, want)), bool(torch.equal(have, dflt))
+        equal_parent = None
+        if parent is not None:
+            equal_parent = bool(torch.equal(parent(), want))
+            torch.cuda.synchronize()
         del want, dflt
-        runs = {"kernel": kernel, "default": default}
-        ms = {k: [] for k in runs}
-        for k in ("kernel", "default", "default", "kernel"):
+        runs = {"kernel": kernel, "default": default, "parent": parent}
+        order = ("kernel", "parent", "default", "default", "parent", "kernel") if parent else \
+            ("kernel", "default", "default", "kernel")
+        ms = {k: [] for k in order}
+        for k in order:
             ms[k].append(cuda_ms(runs[k], 5))
         plain_ms = cuda_ms(plain, 1)
         mean = sum(ms["kernel"]) / 2
         out[name] = dict(max_abs_err=err, ms=mean, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
                          bound_by=bnd["bound_by"], library_ms=None)
+        extra = {} if parent is None else dict(
+            parent_ms=ms["parent"], parent_equal=equal_parent,
+            kernel_over_parent=sum(ms["kernel"]) / sum(ms["parent"]),
+            parent_share_of_bound=bnd["bound_ms"] / (sum(ms["parent"]) / 2))
         emit(phase="kernels_patterns", kernel=name, shape=list(have.shape), equal=equal,
              equal_default=equal_default, tolerance=0, max_abs_err=err, ms=ms["kernel"],
              default_ms=ms["default"], kernel_over_default=sum(ms["kernel"]) / sum(ms["default"]),
-             plain_ms=plain_ms, library_ms=None, **bnd, share_of_bound=bnd["bound_ms"] / mean)
-        if not (equal and equal_default):
-            raise SystemExit(f"kernel {name} disagrees with its plain version or the default "
-                             "design")
+             plain_ms=plain_ms, library_ms=None, **bnd, share_of_bound=bnd["bound_ms"] / mean,
+             **extra)
+        if not (equal and equal_default and equal_parent is not False):
+            raise SystemExit(f"kernel {name} disagrees with its plain version, the default "
+                             "design or its parent design")
         del have
         torch.cuda.empty_cache()
     return out
@@ -1711,6 +1730,49 @@ def butterfly_cases(m, km, gm) -> dict:
     }
 
 
+def sl_stage_cases(m, gm) -> tuple:
+    """(backend, cases) of the split layout's stage clocks for
+    `phase_stages`: fused_sl's launches under the names it reads, and its
+    four path shapes on inputs of their own (seed 10): bench.py's product,
+    the gate's keyswitch (`small`), the relinearization (`small64`) and the
+    gate's block step (rot_mode 2)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from poulpy_tpu_torch.backends import fused, fused_sl
+
+    backend = SimpleNamespace(_product_launch=fused_sl._sl_product_launch,
+                              _block_step_launch=fused_sl._sl_block_step_launch,
+                              stage_cycles=fused_sl.stage_cycles, STAGES=fused.STAGES)
+    gen = torch.Generator(device=m.device).manual_seed(10)
+
+    def ints(lim, shape):
+        return torch.randint(-lim, lim, shape, generator=gen, device=m.device, dtype=torch.int64)
+
+    def residues(mod, shape):
+        primes = torch.tensor(mod.basis.primes, device=mod.device)[:, None]
+        return (ints(1 << 62, shape).abs() % primes).to(torch.int32)
+
+    gn, gp = gm.n, gm.nprimes
+    brk = residues(gm, (GATE_BLOCK, 4, 2, 2, 4, gp, gn))
+    return backend, {
+        "fused_sl_product": (m, (ints(2**16, (BATCH, 2, 3, N)),
+                                 residues(m, (DNUM, 2, 2, 4, NPRIMES, N)), 3, BASE2K, BASE2K),
+                             False),
+        "fused_sl_product@small": (gm, (ints(2**16, (GATE_BATCH, 1, 2, gn)),
+                                        residues(gm, (2, 1, 2, 3, gp, gn)), 2, BASE2K, BASE2K, 1,
+                                        ints(2**16, (GATE_BATCH, 2, gn))), False),
+        "fused_sl_product@small64": (m, (ints(2**16, (CKKS_BATCH, 1, 6, N)),
+                                         residues(m, (CKKS.dnum, 1, 2, 6, NPRIMES, N)), 12,
+                                         BASE2K, BASE2K, 1, None,
+                                         ints(2**47, (CKKS_BATCH, 2, 11, N))), False),
+        "fused_sl_block_step": (gm, (ints(2**16, (GATE_BATCH, 2, 2, gn)), brk,
+                                     ints(3 * gn, (GATE_BATCH, GATE_BLOCK)), 2, BASE2K,
+                                     fused.pm_kernel_layout(brk, 2)), True),
+    }
+
+
 def cbt_stage_cases(gm) -> dict:
     """The butterfly kernels at the CBT's shapes for the stage clock, as
     `butterfly_cases`: the blind rotation's step and the trace's keyswitch
@@ -1944,7 +2006,8 @@ def phase_ptxas() -> None:
     kernels, the block step's lazy instances (Montgomery and Shoup, single
     and chained) and fused_sl.cu's: registers, stack frame and spills per
     entry function, and the stack frame and spills of fused_sl.cu's row
-    transforms, which are not inlined."""
+    transforms and of its split design's VMP and exit, which are not
+    inlined."""
     import re
 
     from poulpy_tpu_torch.backends import _lib
@@ -1959,10 +2022,12 @@ def phase_ptxas() -> None:
                                    "br_step", "br_block_step_lazy", "fused_sl")):
             emit(phase="ptxas", entry=name, registers=int(regs), stack_frame=int(stack),
                  spill_stores=int(stores), spill_loads=int(loads))
-    # fused_sl.cu's row transforms are functions of their own (not inlined)
-    functions = set(re.findall(r"Function properties for (\w*sl_(?:fwd|inv)_row\w*)\n\s*(\d+) "
-                               r"bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
-                               r"loads", log))
+    # fused_sl.cu's row transforms (both designs) and the split design's VMP and exit are
+    # functions of their own (not inlined)
+    functions = set(re.findall(r"Function properties for (\w*(?:(?:sl|split)_(?:fwd|inv)_row|"
+                               r"split_vmp|split_exit)\w*)\n"
+                               r"\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) "
+                               r"bytes spill loads", log))
     for name, stack, stores, loads in sorted(functions):
         emit(phase="ptxas", function=name, stack_frame=int(stack), spill_stores=int(stores),
              spill_loads=int(loads))
@@ -2148,12 +2213,13 @@ def phase_ntt_shapes(tally: Counter) -> None:
 def phase_kernels_large_n() -> None:
     """Each product kernel at a shape whose rows do not fit in shared memory
     (bench.py's product at N 8192; the CKKS key's keyswitch, the gate's
-    block step and the CKKS-wide pair at N 4096), batch 2–4, against its
-    plain version, tolerance 0, with the layout its launch takes (the
-    wrappers' own formula) and its time."""
+    block step and the CKKS-wide pair at N 4096; the split layout's split
+    design at both N, its block step at N 8192 under rot_mode 1), batch 2–4,
+    against its plain version, tolerance 0, with the layout its launch takes
+    (the wrappers' own formula) and its time."""
     import torch
 
-    from poulpy_tpu_torch.backends import fused, fused_mxu, mxu, wide
+    from poulpy_tpu_torch.backends import fused, fused_mxu, fused_sl, mxu, wide
     from poulpy_tpu_torch.hal.module import get_module
 
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -2179,6 +2245,8 @@ def phase_kernels_large_n() -> None:
     ta, tb = ints(2**16, (3, 2, 6, 4096)), ints(2**16, (3, 2, 6, 4096))
     sacc, spmat, samt = (ints(2**40, (2, 2, 2, 8192)), residues(m8, (3, 2, 2, 4, 2, 8192)),
                          ints(2 * 8192, (2,)))
+    brk8, amounts8 = (residues(m8, (GATE_BLOCK, 4, 2, 2, 4, 2, 8192)),
+                      ints(3 * 8192, (2, GATE_BLOCK)))
 
     def flat(fn, *args):
         return lambda: torch.cat([x.flatten() for x in fn(*args)])
@@ -2231,6 +2299,27 @@ def phase_kernels_large_n() -> None:
             fused_mxu.mxu_layout(4, 2, 4, 2, 4096, split=False),
             lambda: fused_mxu.fused_mxu_br_block_step(m4, acc, brk, amounts, 2, BASE2K, pm_k),
             lambda: fused_mxu.fused_mxu_br_block_step_ref(m4, acc, brk, amounts, 2, BASE2K)),
+        # the split layout's split design (its parent stops at N 2048)
+        "fused_sl_product@small": (
+            fused_sl.sl_layout(6, 2, 6, 2, 4096),
+            lambda: fused_sl.fused_glwe_product_sl(m4, ks_a, ks_key, 6, BASE2K, BASE2K,
+                                                   small=ks_body),
+            lambda: fused_sl.fused_glwe_product_sl_ref(m4, ks_a, ks_key, 6, BASE2K, BASE2K,
+                                                       small=ks_body)),
+        "fused_sl_product": (
+            fused_sl.sl_layout(6, 2, 4, 2, 8192),
+            lambda: fused_sl.fused_glwe_product_sl(m8, a8, pmat8, 3, BASE2K, BASE2K),
+            lambda: fused_sl.fused_glwe_product_sl_ref(m8, a8, pmat8, 3, BASE2K, BASE2K)),
+        "fused_sl_block_step": (
+            fused_sl.sl_layout(4, 2, 4, 2, 4096, GATE_BLOCK, split=False),
+            lambda: fused_sl.fused_br_block_step_sl(m4, acc, brk, amounts, 2, BASE2K),
+            lambda: fused_sl.fused_br_block_step_sl_ref(m4, acc, brk, amounts, 2, BASE2K)),
+        "fused_sl_block_step@8192": (
+            fused_sl.sl_layout(4, 2, 4, 2, 8192, GATE_BLOCK, split=False),
+            lambda: fused_sl.fused_br_block_step_sl(m8, sacc, brk8, amounts8, 2, BASE2K,
+                                                    rot_mode=1),
+            lambda: fused_sl.fused_br_block_step_sl_ref(m8, sacc, brk8, amounts8, 2, BASE2K,
+                                                        rot_mode=1)),
     }
     for name, (lay, kernel, plain) in cases.items():
         have, want = kernel(), plain()
@@ -4343,7 +4432,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _lib.library()
     emit(phase="build", seconds=time.perf_counter() - t0, built=_lib.build_info["built"],
-         library=str(Path(_lib.build_info["path"]).relative_to(ROOT)))
+         library=str(Path(_lib.build_info["path"]).relative_to(ROOT)),
+         nvcc_seconds=_lib.build_info.get("nvcc_seconds"))
     phase_ptxas()
     phase_native()
 
@@ -4456,6 +4546,7 @@ def main() -> int:
     phase_stages(fused_mxu, fused_mxu_cases(m, km, gm), DESIGNS)
     phase_stages(fused, butterfly_cases(m, km, gm), BUTTERFLY_DESIGNS)
     phase_stages(fused, cbt_stage_cases(gm), CBT_DESIGNS)
+    phase_stages(*sl_stage_cases(m, gm), SL_DESIGNS)
     phase_transform_stages(transform_cases(m, km), TRANSFORM_DESIGNS)
     phase_tensor_stages(tensor_cases(m, wm))
     phase_tensor_stages(wide_product_cases(wm), wide.WIDE_STAGES, None)

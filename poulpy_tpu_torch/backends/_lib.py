@@ -39,7 +39,8 @@ _SIGNATURES = {
     "poulpy_br_step": [_P] * 7 + [_I] * 11 + [_P, _I, _I, _P, _P],
     "poulpy_br_block_step": [_P] * 7 + [_I] * 11 + [_P, _I, _I, _P, _P],
     "poulpy_br_block_step_lazy": [_P] * 7 + [_I] * 14 + [_P, _P],
-    "poulpy_fused_sl": [_P] * 9 + [_I] * 18 + [_P],
+    "poulpy_fused_sl": [_P] * 10 + [_I] * 18 + [_P],
+    "poulpy_fused_sl_split": [_P] * 11 + [_I] * 20 + [_P],
     "poulpy_wide_product": [_P] * 6 + [_I] * 15 + [_P, _I, _I, _P, _P],
     "poulpy_wide_product_lazy": [_P] * 7 + [_I] * 16 + [_P, _P],
     "poulpy_wide_tensor": [_P] * 6 + [_I] * 12 + [_P, _I, _I, _P, _P],
@@ -84,16 +85,21 @@ def library() -> ctypes.CDLL:
         out_dir.mkdir(parents=True, exist_ok=True)
         tag = f"tmp{os.getpid()}"
         nvcc = _nvcc()
-        # one nvcc per source, all at once, then one link
+        # one nvcc per source, all at once, then one link; each source's
+        # seconds from the start until its nvcc was reaped (in order: for a
+        # source that finished before one listed ahead of it, an upper bound)
         objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
         procs = [subprocess.Popen([nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-c",
                                    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(obj),
                                    str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True)
                  for src, obj in zip(sources, objs)]
-        logs = [(src.name, proc.communicate()[0], proc.returncode)
-                for src, proc in zip(sources, procs)]
+        logs, seconds = [], {}
+        for src, proc in zip(sources, procs):
+            logs.append((src.name, proc.communicate()[0], proc.returncode))
+            seconds[src.name] = time.perf_counter() - t0
         (out_dir / "nvcc.log").write_text("".join(f"== {name}\n{log}" for name, log, _ in logs))
+        build_info["nvcc_seconds"] = seconds
         failed = [(name, log) for name, log, rc in logs if rc != 0]
         if failed:
             raise RuntimeError(f"nvcc failed on {failed[0][0]}:\n{failed[0][1][-4000:]}")

@@ -16,11 +16,16 @@ The layout changes the stage schedule and the modular arithmetic, not the
 result: the plain versions are `fused.fused_glwe_product_ref` and
 `fused.fused_br_block_step_ref` with `ntt_rows_sl` / `intt_rows_sl` in place
 of `hal.ntt`'s transforms, and they give the default pipeline's bits.  On
-the card one warp owns one transform row in its registers, the stages with
-half ≥ 32 pair two registers of a lane and the others two lanes through a
-warp shuffle (csrc/fused_sl.cu).  A wrapper takes its plain version for a CPU
-tensor and launches the kernel for a CUDA one (or raises where the kernel
-does not take the shape: N outside 128..2048, rows past shared memory).
+the card (csrc/fused_sl.cu) the split design runs the route: a group of
+threads owns one transform row in its registers, the stages with half at
+least the group's width pair two registers of a thread (the TPU's slice
+arithmetic), one exchange through the row's words behind the group's own
+barrier, then the stages inside each 128-point chunk in a warp; N 128 ..
+8192, past 2048 with the rows in a global workspace (`split_layout`).  The
+parent design (a warp per row, N 128 .. 2048, `parent_layout`) stays
+selectable with `design="parent"`.  A wrapper takes its plain version for a
+CPU tensor and launches the kernel for a CUDA one (or raises where the
+design does not take the shape).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from poulpy_tpu_torch.backends import LAUNCHES, _lib
 from poulpy_tpu_torch.backends._lib import SMEM_LIMIT
 from poulpy_tpu_torch.backends.fused import (
     MAX_LIMBS,
+    STAGES,
     Layout,
     _body,
     _check_bounds,
@@ -48,9 +54,17 @@ from poulpy_tpu_torch.hal.module import Module
 from poulpy_tpu_torch.hal.ntt import NttTables
 
 LANES = 128              # the TPU's lane width, the split's unit
-SL_LOGN = range(7, 12)   # the kernel's N: 128 .. 2048 (csrc/fused_sl.cu poulpy_fused_sl)
+DESIGNS = ("split", "parent")
+# each design's log N (csrc/fused_sl.cu poulpy_fused_sl_split, poulpy_fused_sl)
+SL_LOGN = {"split": range(7, 14), "parent": range(7, 12)}
+SPLIT_SHARED_LOGN = 11   # the split design's shared layout; past it the global layout
 SM_SMEM = 233472         # shared memory of one H100 SM, of which each block also takes 1 KB
-SL_THREADS = 512         # threads of one SM's blocks (128 registers each)
+SL_THREADS = 512         # the parent's threads of one SM's blocks (128 registers each)
+SPLIT_THREADS = 512      # the split design's block, two to an SM (64 registers a thread)
+SPLIT_BLOCKS = 2
+SPLIT_TILE = 4           # the most ciphertexts per block of the split design
+SPLIT_MR = 8             # its VMP's output rows per pass (csrc/fused_sl.cu split_vmp)
+STATIC_SMEM = 2048       # a block's static shared memory (< 1 KB) and the SM's 1 KB per block
 
 
 def sl_applies(n: int) -> bool:
@@ -220,27 +234,83 @@ def _check_steps(steps: int) -> None:
 # ---- the kernel ----
 
 def sl_smem_bytes(kk: int, mrows: int, nprimes: int, n: int, block: int = 0) -> int:
-    """Shared memory of one block of `csrc/fused_sl.cu`: P regions of
+    """Shared memory of one block of the parent design: P regions of
     max(KK, mrows) rows (the VMP in place), then the block step's x-power
     rows [block] int32."""
     return 4 * nprimes * max(kk, mrows) * n + 4 * block
 
 
 def sl_threads(smem: int) -> int:
-    """Threads per block: SL_THREADS / b for the b blocks (1, 2 or 4) whose
-    shared memory, with the kernel's static 2 KB at most, fits in an SM."""
-    fit = SM_SMEM // (smem + 2048)
+    """The parent's threads per block: SL_THREADS / b for the b blocks (1, 2
+    or 4) whose shared memory, with the kernel's static 2 KB at most, fits in
+    an SM."""
+    fit = SM_SMEM // (smem + STATIC_SMEM)
     return SL_THREADS // (4 if fit >= 4 else 2 if fit >= 2 else 1)
 
 
-def sl_layout(kk: int, co: int, psize: int, nprimes: int, n: int, block: int = 0,
-              split: bool = True) -> Layout | None:
-    """The kernel's layout: the most output columns per block (any divisor
-    of co if `split`, else co: the block step) whose rows fit in shared
-    memory, `chunk` the threads per block (`sl_threads`), or None where the
-    kernel does not take the shape (N outside 128..2048, more than MAX_LIMBS
-    input rows, or not one column that fits)."""
-    if n.bit_length() - 1 not in SL_LOGN or not 0 < kk <= MAX_LIMBS:
+def split_group(n: int) -> int:
+    """Threads of one row group of the split design (csrc/fused_sl.cu
+    Split<LOGN>::G): N/4 up to N 512, 128 up to 2048, N/16 past it."""
+    return n // 4 if n <= 512 else 128 if n <= 2048 else n // 16
+
+
+def split_rows(kk: int, mrows: int) -> int:
+    """Rows of one region of the split design: max(KK, mrows), the VMP in
+    place, up to SPLIT_MR output rows; KK + mrows past it, the outputs after
+    the inputs (csrc/fused_sl.cu split_vmp)."""
+    return max(kk, mrows) if mrows <= SPLIT_MR else kk + mrows
+
+
+def split_smem_bytes(tile: int, kk: int, mrows: int, nprimes: int, n: int,
+                     block: int = 0) -> int:
+    """Shared memory of one block of the split design.  Shared layout:
+    `tile`·P regions of `split_rows` rows, the twiddles of one prime [N],
+    the x-power rows [tile][block].  Global layout (N > 2048; `tile` 1): the
+    twiddles, a row slot per group for the exchange, the x-power rows."""
+    if n.bit_length() - 1 > SPLIT_SHARED_LOGN:
+        return 4 * (n * (1 + SPLIT_THREADS // split_group(n)) + tile * block)
+    return 4 * (tile * nprimes * split_rows(kk, mrows) * n + n + tile * block)
+
+
+def split_layout(kk: int, co: int, psize: int, nprimes: int, n: int, block: int = 0,
+                 split: bool = True) -> Layout | None:
+    """The split design's layout, or None where it does not take the shape
+    (N outside 128..8192, more than MAX_LIMBS input rows, rows past shared
+    memory).  `chunk`: threads per block (SPLIT_THREADS).  The output
+    columns per block (`cpb`: any divisor of co if `split`, else co: the
+    block step) are the most whose rows take one VMP pass (at most
+    SPLIT_MR), then (a column of more rows) the most of any count.  Shared
+    layout (N ≤ 2048, kind "split"): the first such `cpb`, then the most
+    ciphertexts per block (`tile`, up to SPLIT_TILE), whose rows let
+    SPLIT_BLOCKS blocks share an SM (1,024 threads); where none does, one
+    block.  Global layout (N 4096, 8192, kind "global"): the first `cpb`,
+    one ciphertext per task, `ws_rows` = P·`split_rows` rows of workspace
+    per block."""
+    cpbs = sorted((c for c in (range(co, 0, -1) if split else (co,)) if co % c == 0),
+                  key=lambda c: (c * psize > SPLIT_MR, -c))
+    if n.bit_length() - 1 not in SL_LOGN["split"] or not 0 < kk <= MAX_LIMBS:
+        return None
+    if n.bit_length() - 1 > SPLIT_SHARED_LOGN:
+        return Layout("global", cpbs[0],
+                      split_smem_bytes(1, kk, cpbs[0] * psize, nprimes, n, block),
+                      chunk=SPLIT_THREADS, ws_rows=nprimes * split_rows(kk, cpbs[0] * psize))
+    for blocks in (SPLIT_BLOCKS, 1):
+        for cpb in cpbs:
+            for tile in range(SPLIT_TILE, 0, -1):
+                smem = split_smem_bytes(tile, kk, cpb * psize, nprimes, n, block)
+                if smem <= SMEM_LIMIT and blocks * (smem + STATIC_SMEM) <= SM_SMEM:
+                    return Layout("split", cpb, smem, chunk=SPLIT_THREADS, tile=tile)
+    return None
+
+
+def parent_layout(kk: int, co: int, psize: int, nprimes: int, n: int, block: int = 0,
+                  split: bool = True) -> Layout | None:
+    """The parent design's layout: the most output columns per block (any
+    divisor of co if `split`, else co) whose rows fit in shared memory,
+    `chunk` the threads per block (`sl_threads`), or None where it does not
+    take the shape (N outside 128..2048, more than MAX_LIMBS input rows, or
+    not one column that fits)."""
+    if n.bit_length() - 1 not in SL_LOGN["parent"] or not 0 < kk <= MAX_LIMBS:
         return None
     for cpb in (range(co, 0, -1) if split else (co,)):
         smem = sl_smem_bytes(kk, cpb * psize, nprimes, n, block)
@@ -249,29 +319,84 @@ def sl_layout(kk: int, co: int, psize: int, nprimes: int, n: int, block: int = 0
     return None
 
 
+def sl_layout(kk: int, co: int, psize: int, nprimes: int, n: int, block: int = 0,
+              split: bool = True, design: str = "split") -> Layout | None:
+    """The layout a launch of `design` takes (`split_layout` or
+    `parent_layout`), None where that design does not take the shape."""
+    if design not in DESIGNS:
+        raise ValueError(f"design: one of {DESIGNS}, got {design!r}")
+    return (split_layout if design == "split" else parent_layout)(kk, co, psize, nprimes, n,
+                                                                  block, split)
+
+
 def _layout_or_raise(kk: int, co: int, psize: int, nprimes: int, n: int, block: int = 0,
-                     split: bool = True) -> Layout:
-    lay = sl_layout(kk, co, psize, nprimes, n, block, split)
+                     split: bool = True, design: str = "split") -> Layout:
+    """The layout of a launch of `design`; raises where it does not take
+    the shape."""
+    lay = sl_layout(kk, co, psize, nprimes, n, block, split, design)
     if lay is None:
-        raise ValueError(f"csrc/fused_sl.cu takes 128 ≤ N ≤ 2048, KK ≤ {MAX_LIMBS} and rows "
-                         f"that fit in shared memory; got N {n}, KK {kk}, co {co}, psize "
-                         f"{psize}, P {nprimes}")
+        raise ValueError(f"csrc/fused_sl.cu's {design} design does not take N {n}, KK {kk}, "
+                         f"co {co}, psize {psize}, P {nprimes} (split: 128 ≤ N ≤ 8192; parent: "
+                         f"N ≤ 2048; both: KK ≤ {MAX_LIMBS} and rows that fit in shared memory)")
     return lay
 
 
+def _timed_ok(n: int, block_step: bool) -> bool:
+    """The stage clock's instances (csrc/fused_sl.cu timed_shape): the
+    paths' N, 1024 for both patterns and 2048 for the product."""
+    return n == 1024 or (n == 2048 and not block_step)
+
+
+def _launcher(module: Module, a, pm_k, out, lay: Layout, design: str, B: int, ptrs: tuple,
+              ints: tuple, block_step: bool):
+    """launch(timed=False) of one launch of `design` with the entry point's
+    pointers (small, small64, xpow, amounts) and integers (ci … rot_mode,
+    as poulpy_fused_sl takes them, threads and smem excluded); it returns
+    the stage clock's stamps [blocks, len(STAGES)] when `timed`, else None."""
+    tw, consts = kernel_tables(module.tables)
+    n = module.n
+    tasks = -(-B // lay.tile) * (ints[3] // lay.cpb)
+    grid = min(tasks, SPLIT_BLOCKS * _lib.sm_count(a.device)) if lay.kind == "global" else tasks
+    ws = torch.empty(grid * lay.ws_rows * n, dtype=torch.int32, device=a.device) \
+        if lay.kind == "global" else None
+
+    def launch(timed: bool = False):
+        stamps = None
+        if timed:
+            if lay.kind == "global" or not _timed_ok(n, block_step):
+                raise ValueError(f"the stage clock runs at the paths' shapes in shared memory "
+                                 f"only (N 1024, or 2048 for the product), got N {n}")
+            stamps = torch.zeros((grid, len(STAGES)), dtype=torch.int64, device=a.device)
+        head = (a.data_ptr(), pm_k.data_ptr(), *ptrs, out.data_ptr(), tw.data_ptr(),
+                consts.data_ptr())
+        if design == "split":
+            err = _lib.library().poulpy_fused_sl_split(
+                *head, _lib.ptr(ws), _lib.ptr(stamps), B, *ints, lay.tile, grid, lay.chunk,
+                lay.smem, _lib.stream())
+        else:
+            err = _lib.library().poulpy_fused_sl(*head, _lib.ptr(stamps), B, *ints, lay.chunk,
+                                                 lay.smem, _lib.stream())
+        _lib.check(err, f"poulpy_fused_sl ({design})")
+        return stamps
+
+    return launch
+
+
 def fused_glwe_product_sl(module: Module, a_data, pmat, res_size: int, res_base2k: int,
-                          pm_base2k: int, dsize: int = 1, small=None, small64=None, pm_k=None):
+                          pm_base2k: int, dsize: int = 1, small=None, small64=None, pm_k=None,
+                          design: str = "split"):
     """`fused.fused_glwe_product` in the split layout: the same arguments and
     result; `pm_k` the key in kernel layout (made from `pmat` when not
-    given).  Plain version on CPU tensors, one CUDA launch on CUDA, counted
-    under "fused_sl_product"."""
+    given); `design` the kernel's: "split" (the route's) or "parent".
+    Plain version on CPU tensors, one CUDA launch on CUDA, counted under
+    "fused_sl_product"."""
     if small is not None and small64 is not None:
         raise ValueError("pass small or small64, not both")
     if a_data.device.type == "cpu":
         return fused_glwe_product_sl_ref(module, a_data, pmat, res_size, res_base2k, pm_base2k,
                                          dsize, small, small64)
     out, launch = _sl_product_launch(module, a_data, pmat, res_size, res_base2k, pm_base2k,
-                                     dsize, small, small64, pm_k)
+                                     dsize, small, small64, pm_k, design)
     if launch is not None:
         launch()
         LAUNCHES["fused_sl_product"] += 1
@@ -279,10 +404,12 @@ def fused_glwe_product_sl(module: Module, a_data, pmat, res_size: int, res_base2
 
 
 def _sl_product_launch(module: Module, a_data, pmat, res_size: int, res_base2k: int,
-                       pm_base2k: int, dsize: int = 1, small=None, small64=None, pm_k=None):
-    """(out, launch) of one product launch of `csrc/fused_sl.cu`, launch None
-    where there is nothing to launch; the checks of `fused._product_launch`.
-    Counts no launch."""
+                       pm_base2k: int, dsize: int = 1, small=None, small64=None, pm_k=None,
+                       design: str = "split"):
+    """(out, launch) of one product launch of `design` of `csrc/fused_sl.cu`,
+    launch None where there is nothing to launch; the checks of
+    `fused._product_launch`.  launch(timed=False) → the stage clock's stamps
+    or None.  Counts no launch."""
     P, n = module.nprimes, module.n
     rows, ci, co, psize = pmat.shape[:4]
     lead, a_size = a_data.shape[:-3], a_data.shape[-2]
@@ -300,7 +427,7 @@ def _sl_product_launch(module: Module, a_data, pmat, res_size: int, res_base2k: 
         return out, None
     if rmax == 0 and small is None and small64 is None:
         return out.zero_(), None
-    lay = _layout_or_raise(kk, co, psize, P, n)
+    lay = _layout_or_raise(kk, co, psize, P, n, design=design)
     if pm_k is None:
         pm_k = pm_kernel_layout(pmat, rmax) if dsize == 1 else \
             pm_kernel_layout_dsize(pmat, rmax, dsize)
@@ -316,35 +443,29 @@ def _sl_product_launch(module: Module, a_data, pmat, res_size: int, res_base2k: 
                              f"got {tuple(small64.shape)}")
         small64 = small64.reshape(B, co, s64, n).contiguous()
         _lib.require(small64, "small64", torch.int64)
-    tw, consts = kernel_tables(module.tables)
-
-    def launch():
-        err = _lib.library().poulpy_fused_sl(
-            a.data_ptr(), pm_k.data_ptr(), _lib.ptr(small), _lib.ptr(small64), None, None,
-            out.data_ptr(), tw.data_ptr(), consts.data_ptr(), B, ci, a_size, rmax, co, psize,
-            s_size, s64, res_size, res_base2k, pm_base2k, lay.cpb, P, module.log_n, 0, 0,
-            lay.chunk, lay.smem, _lib.stream())
-        _lib.check(err, "poulpy_fused_sl")
-
-    return out, launch
+    ptrs = (_lib.ptr(small), _lib.ptr(small64), None, None)
+    ints = (ci, a_size, rmax, co, psize, s_size, s64, res_size, res_base2k, pm_base2k, lay.cpb, P,
+            module.log_n, 0, 0)
+    return out, _launcher(module, a, pm_k, out, lay, design, B, ptrs, ints, False)
 
 
 def fused_br_block_step_sl(module: Module, acc, pmats, a_blk, res_size: int, base2k: int,
-                           pm_k=None, steps: int = 1, rot_mode: int | None = None):
+                           pm_k=None, steps: int = 1, rot_mode: int | None = None,
+                           design: str = "split"):
     """`fused.fused_br_block_step` in the split layout: the same arguments
     and result, one block step per launch (`steps` > 1 raises, as the JAX
     kernel asserts); `rot_mode` 0 (the x-power on the VMP's output rows), 1
     (Shoup, on its input rows, from `xpow_shoup_table`) or 2 (Montgomery, on
-    its input rows), None the JAX package's default (`block_rot_mode`).
-    Plain version on CPU tensors, one CUDA launch on CUDA, counted under
-    "fused_sl_block_step"."""
+    its input rows), None the JAX package's default (`block_rot_mode`);
+    `design` as `fused_glwe_product_sl`'s.  Plain version on CPU tensors,
+    one CUDA launch on CUDA, counted under "fused_sl_block_step"."""
     _check_steps(steps)
     rot_mode = block_rot_mode(module, rot_mode)
     if acc.device.type == "cpu":
         return fused_br_block_step_sl_ref(module, acc, pmats, a_blk, res_size, base2k, 1,
                                           rot_mode)
     out, launch = _sl_block_step_launch(module, acc, pmats, a_blk, res_size, base2k, pm_k,
-                                        rot_mode)
+                                        rot_mode, design)
     if launch is not None:
         launch()
         LAUNCHES["fused_sl_block_step"] += 1
@@ -352,10 +473,11 @@ def fused_br_block_step_sl(module: Module, acc, pmats, a_blk, res_size: int, bas
 
 
 def _sl_block_step_launch(module: Module, acc, pmats, a_blk, res_size: int, base2k: int,
-                          pm_k=None, rot_mode: int = 2):
-    """(out, launch) of one block-step launch of `csrc/fused_sl.cu`, the
-    checks of `fused._block_step_launch` (`rot_mode` unchecked:
-    `block_rot_mode` is the wrapper's).  Counts no launch."""
+                          pm_k=None, rot_mode: int = 2, design: str = "split"):
+    """(out, launch) of one block-step launch of `design` of
+    `csrc/fused_sl.cu`, the checks of `fused._block_step_launch` (`rot_mode`
+    unchecked: `block_rot_mode` is the wrapper's).  launch(timed=False) →
+    the stage clock's stamps or None.  Counts no launch."""
     P, n = module.nprimes, module.n
     nkeys, rows, cols, co, psize = pmats.shape[:5]
     lead, size = acc.shape[:-3], acc.shape[-2]
@@ -367,7 +489,7 @@ def _sl_block_step_launch(module: Module, acc, pmats, a_blk, res_size: int, base
     if tuple(a_blk.shape) != tuple(lead) + (nkeys,):
         raise ValueError(f"a_blk: expected {tuple(lead) + (nkeys,)}, got {tuple(a_blk.shape)}")
     _check_bounds(P, psize, res_size)
-    lay = _layout_or_raise(kk, cols, psize, P, n, nkeys, split=False)
+    lay = _layout_or_raise(kk, cols, psize, P, n, nkeys, split=False, design=design)
     if pm_k is None:
         pm_k = pm_kernel_layout(pmats, rmax)
     if tuple(pm_k.shape) != (nkeys, P, kk, mdim, n):
@@ -384,14 +506,23 @@ def _sl_block_step_launch(module: Module, acc, pmats, a_blk, res_size: int, base
     if B == 0:
         return out, None
     xpow = xpow_shoup_table(module) if rot_mode == 1 else xpow_tables(module)[1]
-    tw, consts = kernel_tables(module.tables)
+    ptrs = (None, None, xpow.data_ptr(), amounts.data_ptr())
+    ints = (cols, size, rmax, cols, psize, 0, 0, res_size, base2k, base2k, cols, P, module.log_n,
+            nkeys, rot_mode)
+    return out, _launcher(module, a, pm_k, out, lay, design, B, ptrs, ints, True)
 
-    def launch():
-        err = _lib.library().poulpy_fused_sl(
-            a.data_ptr(), pm_k.data_ptr(), None, None, xpow.data_ptr(), amounts.data_ptr(),
-            out.data_ptr(), tw.data_ptr(), consts.data_ptr(), B, cols, size, rmax, cols, psize,
-            0, 0, res_size, base2k, base2k, cols, P, module.log_n, nkeys, rot_mode, lay.chunk,
-            lay.smem, _lib.stream())
-        _lib.check(err, "poulpy_fused_sl")
 
-    return out, launch
+def stage_cycles(module: Module, *args, block_step: bool = False, design: str = "split",
+                 **kw):
+    """(out, stamps) of one launch of `design`'s stage clock instance on
+    `fused_glwe_product_sl`'s arguments (`block_step`:
+    `fused_br_block_step_sl`'s; `rot_mode` then as `_sl_block_step_launch`
+    takes it, 2 by default): stamps [blocks, len(STAGES)] int64, the SM
+    cycles each block spent in each stage (`fused.STAGES`; the entry's
+    reduction runs inside the forward, so "entry" is the prologue), from
+    thread 0 at the barriers that close them.  The paths' shapes only (N
+    1024, or 2048 for the product).  For measurement only: no path calls
+    it, and it counts no launch."""
+    prepare = _sl_block_step_launch if block_step else _sl_product_launch
+    out, launch = prepare(module, *args, design=design, **kw)
+    return out, launch(timed=True)

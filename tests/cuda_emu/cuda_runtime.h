@@ -1,11 +1,14 @@
 // The CUDA execution model on the CPU, for running a kernel's source without
-// a card (tests/test_torch_cuda_emu.py): one fiber (a ucontext of its own
-// stack) per CUDA thread, all on the calling thread, switched round-robin at
-// the barriers, in ascending thread order in one block and descending in the
+// a card (tests/test_torch_cuda_emu.py): one fiber (a stack of its own,
+// switched by emu_swap, x86-64) per CUDA thread, all on the calling thread,
+// switched round-robin at the barriers (skipping a fiber whose barrier has
+// not opened yet), in ascending thread order in one block and descending in the
 // next (the first block's order alternating from launch to launch), so that a
 // missing barrier shows whichever of two threads reads the other's write; the
 // blocks of a launch one after another, __syncthreads a barrier of the
-// block's threads and __syncwarp one of the warp's, __shfl_xor_sync an
+// block's threads and __syncwarp one of the warp's, `bar.sync id, n` (a named
+// barrier: the first n threads to reach barrier id pass it together; the
+// test's rewrite turns the asm into emu_bar_sync(id, nthreads)), __shfl_xor_sync an
 // exchange through the warp's slots between two of its barriers (a fiber
 // that waits yields until the last one arrives; the run has no data race by
 // construction and takes one core, however many threads the kernel has),
@@ -33,7 +36,6 @@
 #include <cstdint>
 #include <cstring>
 #include <memory>
-#include <ucontext.h>
 #include <vector>
 
 #define __global__
@@ -84,17 +86,35 @@ inline cudaError_t cudaGetLastError() {
 using std::max;
 using std::min;
 
-// The fibers of a launch and the scheduler's context: emu_yield switches
-// from the running fiber back to the scheduler, which resumes the next one.
+// emu_swap(from, to): push the callee-saved registers (x86-64 System V) on
+// the running stack, store its stack pointer to *from, switch to the stack
+// pointer `to` and pop its registers (a fiber's first switch "returns" into
+// emu_fiber_entry).  No system call, unlike swapcontext.
+#if !defined(__x86_64__)
+#error "the emulation's fiber switch (emu_swap) is written for x86-64"
+#endif
+__attribute__((naked, noinline)) static void emu_swap(void** /*from*/, void* /*to*/) {
+  asm("pushq %rbp\n\tpushq %rbx\n\tpushq %r12\n\tpushq %r13\n\tpushq %r14\n\tpushq %r15\n\t"
+      "movq %rsp, (%rdi)\n\tmovq %rsi, %rsp\n\t"
+      "popq %r15\n\tpopq %r14\n\tpopq %r13\n\tpopq %r12\n\tpopq %rbx\n\tpopq %rbp\n\tret");
+}
+
+// The fibers of a launch and the scheduler's stack: emu_yield switches from
+// the running fiber back to the scheduler, which resumes the next one.  A
+// fiber waiting at a barrier names its generation (`gen`, `at`): the
+// scheduler passes it over until that moves on, as resuming it would only
+// see the barrier closed and yield again.
 struct EmuFiber {
-  ucontext_t ctx;
+  void* sp;
+  const long* gen;
+  long at;
   bool done;
 };
-inline ucontext_t emu_sched;
+inline void* emu_sched_sp = nullptr;
 inline EmuFiber* emu_fibers = nullptr;
 inline unsigned emu_cur = 0;
 inline unsigned long emu_launches = 0;   // the order of a launch's first block
-inline void emu_yield() { swapcontext(&emu_fibers[emu_cur].ctx, &emu_sched); }
+inline void emu_yield() { emu_swap(&emu_fibers[emu_cur].sp, emu_sched_sp); }
 
 struct EmuBarrier {
   int n = 0, count = 0;
@@ -110,14 +130,19 @@ struct EmuBarrier {
       count = 0;
       ++gen;
     } else {
+      EmuFiber& f = emu_fibers[emu_cur];
+      f.gen = &gen;
+      f.at = g;
       do emu_yield();
       while (gen == g);
+      f.gen = nullptr;
     }
   }
 };
 inline EmuBarrier emu_block_bar;
 inline EmuBarrier emu_warp_bar[32];
 inline EmuBarrier emu_wg_bar[8];
+inline EmuBarrier emu_named_bar[16];
 inline uint32_t emu_wg_a[8][128][4];
 inline uint32_t emu_warp_a[32][32][4];
 inline int2 emu_warp_b[32][32];
@@ -140,6 +165,13 @@ inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
 }
 
 inline void __syncwarp() { emu_warp_bar[threadIdx.x >> 5].wait(); }
+
+// bar.sync id, n: the barrier's count is set by its first arrival of a round.
+inline void emu_bar_sync(int id, int n) {
+  EmuBarrier& b = emu_named_bar[id];
+  if (b.count == 0) b.n = n;
+  b.wait();
+}
 
 // __shfl_xor_sync: each lane publishes its value in its warp's slot, the
 // warp meets at its barrier, each reads lane ^ lane_mask's value, and the
@@ -243,12 +275,14 @@ void emu_wgmma_ss(int (&d)[R], uint64_t desc_a, uint64_t desc_b, int scale) {
 }
 
 // The body a fiber runs (the kernel with its arguments), then it is done and
-// returns to the scheduler (uc_link).
+// switches to the scheduler for the last time.
 inline void (*emu_body)(void*) = nullptr;
 inline void* emu_body_arg = nullptr;
-inline void emu_fiber_entry() {
+[[noreturn]] inline void emu_fiber_entry() {
   emu_body(emu_body_arg);
   emu_fibers[emu_cur].done = true;
+  emu_yield();
+  __builtin_unreachable();
 }
 
 template <class K, class... Args>
@@ -274,24 +308,26 @@ void emu_launch(K kernel, dim3 grid, unsigned threads, size_t smem, cudaStream_t
       emu_block_bar.init((int)threads);
       for (unsigned w = 0; w < threads / 32; ++w) emu_warp_bar[w].init(32);
       for (unsigned w = 0; w < threads / 128; ++w) emu_wg_bar[w].init(128);
+      for (EmuBarrier& nb : emu_named_bar) nb.init(0);
       blockIdx = {b, by, 0};
       for (unsigned t = 0; t < threads; ++t) {
-        EmuFiber& f = fibers[t];
-        getcontext(&f.ctx);
-        f.ctx.uc_stack.ss_sp = stacks.get() + STACK * t;
-        f.ctx.uc_stack.ss_size = STACK;
-        f.ctx.uc_link = &emu_sched;
-        makecontext(&f.ctx, emu_fiber_entry, 0);
-        f.done = false;
+        // the stack top, 16-aligned: a null return address for the entry,
+        // the entry as emu_swap's, its six registers
+        void** s = (void**)((uintptr_t)(stacks.get() + STACK * (t + 1)) & ~(uintptr_t)15);
+        *--s = nullptr;
+        *--s = (void*)emu_fiber_entry;
+        for (int r = 0; r < 6; ++r) *--s = nullptr;
+        fibers[t] = {s, nullptr, 0, false};
       }
       const bool down = (emu_launches + by * grid.x + b) & 1;
       for (unsigned alive = threads; alive;)
         for (unsigned i = 0; i < threads; ++i) {
           const unsigned t = down ? threads - 1 - i : i;
-          if (fibers[t].done) continue;
+          const EmuFiber& f = fibers[t];
+          if (f.done || (f.gen != nullptr && *f.gen == f.at)) continue;
           emu_cur = t;
           threadIdx = {t, 0, 0};
-          swapcontext(&emu_sched, &fibers[t].ctx);
+          emu_swap(&emu_sched_sp, fibers[t].sp);
           alive -= fibers[t].done;
         }
     }

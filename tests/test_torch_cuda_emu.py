@@ -60,6 +60,7 @@ CSRC = Path(__file__).resolve().parents[1] / "poulpy_tpu_torch" / "csrc"
 _ASM = {"mma.sync": "emu_mma_s8(c, a, b);",
         "wgmma.mma_async": "emu_wgmma_rs(d, a, desc, scale);",
         "cp.async.cg": "emu_cp_async16(dst, src);",
+        "bar.sync": "emu_bar_sync(id, nthreads);",
 }
 
 
@@ -84,7 +85,7 @@ SOURCES = {
     "fused_product": ("poulpy_fused_product", "poulpy_fused_product_lazy"),
     "fused_product_tile": ("poulpy_fused_product_tile", "poulpy_br_step"),
     "br_block_step": ("poulpy_br_block_step", "poulpy_br_block_step_lazy"),
-    "fused_sl": ("poulpy_fused_sl",),
+    "fused_sl": ("poulpy_fused_sl", "poulpy_fused_sl_split"),
     "mxu_ntt": ("poulpy_mxu_forward", "poulpy_mxu_forward_wg", "poulpy_mxu_inverse",
                 "poulpy_mxu_inverse_wg"),
     "vmp": ("poulpy_vmp", "poulpy_vmp_tile"),
@@ -428,9 +429,10 @@ def test_emulated_br_block_step_shoup_matches_plain(emulated, n, batch, size, ro
 def test_emulated_fused_sl_product_matches_plain(emulated, n, nprimes, prime_bits, batch, ci,
                                                  rows, size_a, psize, res_size, s_size, s64,
                                                  dsize, cpb):
-    """The split layout's product, `small` and `small64` patterns against
-    their plain version and the default pipeline's plain version, bit for
-    bit, limbs at INT64_MIN / INT64_MAX."""
+    """The split layout's product, `small` and `small64` patterns, both
+    designs, against their plain version and the default pipeline's plain
+    version, bit for bit, limbs at INT64_MIN / INT64_MAX; `cpb` the parent's
+    columns per block."""
     m = t_get_module(n, nprimes, prime_bits, "cpu")
     rng = np.random.default_rng(92)
     a = _edge_limbs(rng, (batch, ci, size_a, n))
@@ -440,13 +442,15 @@ def test_emulated_fused_sl_product_matches_plain(emulated, n, nprimes, prime_bit
     small64 = torch.from_numpy(rng.integers(-(2**62), 2**62, size=(batch, 2, s64, n))) if s64 \
         else None
     kk = ci * min(rows * dsize, size_a)
-    assert tsl.sl_layout(kk, 2, psize, nprimes, n).cpb == cpb
-    out, launch = tsl._sl_product_launch(m, a, pmat, res_size, 17, 17, dsize, small, small64)
-    launch()
+    assert tsl.sl_layout(kk, 2, psize, nprimes, n, design="parent").cpb == cpb
     want = tsl.fused_glwe_product_sl_ref(m, a, pmat, res_size, 17, 17, dsize, small, small64)
-    assert torch.equal(out, want)
-    assert torch.equal(out, tfused.fused_glwe_product_ref(m, a, pmat, res_size, 17, 17, dsize,
-                                                          small, small64))
+    assert torch.equal(want, tfused.fused_glwe_product_ref(m, a, pmat, res_size, 17, 17, dsize,
+                                                           small, small64))
+    for design in tsl.DESIGNS:
+        out, launch = tsl._sl_product_launch(m, a, pmat, res_size, 17, 17, dsize, small, small64,
+                                             design=design)
+        launch()
+        assert torch.equal(out, want), design
 
 
 @pytest.mark.parametrize("n,nprimes,prime_bits,batch,size,rows,block,rot_mode", [
@@ -459,45 +463,214 @@ def test_emulated_fused_sl_product_matches_plain(emulated, n, nprimes, prime_bit
 ])
 def test_emulated_fused_sl_block_step_matches_plain(emulated, n, nprimes, prime_bits, batch,
                                                     size, rows, block, rot_mode):
-    """The split layout's block step under each rot_mode against its plain
-    version and the default plain step, bit for bit."""
+    """The split layout's block step under each rot_mode, both designs,
+    against its plain version and the default plain step, bit for bit."""
     m = t_get_module(n, nprimes, prime_bits, "cpu")
     rng = np.random.default_rng(93)
     acc = _edge_limbs(rng, (batch, 2, size, n))
     pmats = _residues(rng, m.basis.primes, (block, rows, 2, 2, 4, nprimes, n))
     amounts = torch.from_numpy(rng.integers(-n, 3 * n, size=(batch, block)))
     args = (m, acc, pmats, amounts, size, 17)
+    want = tsl.fused_br_block_step_sl_ref(*args, 1, rot_mode)
+    assert torch.equal(want, tfused.fused_br_block_step_ref(*args))
+    for design in tsl.DESIGNS:
+        out, launch = tsl._sl_block_step_launch(*args, None, rot_mode, design)
+        launch()
+        assert torch.equal(out, want), design
+
+
+@pytest.mark.parametrize("n,nprimes,prime_bits,batch,ci,rows,size_a,psize,res_size,extra,tile", [
+    (128, 1, 30, 7, 2, 2, 2, 2, 2, 0, 4),       # the product, one warp per row: 4 + a ragged 3
+    (256, 2, 28, 5, 2, 3, 3, 4, 3, 0, 4),       # two warps per row
+    (512, 2, 28, 5, 1, 3, 3, 4, 3, -3, 3),      # small: 3 + a ragged 2
+    (1024, 2, 28, 3, 1, 2, 2, 3, 2, -2, 2),     # the gate's keyswitch: 2 + 1
+    (256, 5, 30, 3, 1, 3, 3, 4, 6, 6, 2),       # small64, s64 > psize, P 5
+    (2048, 2, 28, 3, 1, 3, 3, 1, 3, 2, 2),      # small64 at N 2048: 2 + 1
+])
+def test_emulated_fused_sl_split_tiles(emulated, n, nprimes, prime_bits, batch, ci, rows, size_a,
+                                       psize, res_size, extra, tile):
+    """The split design's product patterns with `tile` ciphertexts per block
+    and a ragged last tile (`extra` < 0: a body of −extra limbs; > 0:
+    small64 of extra limbs): == the plain version, bit for bit."""
+    m = t_get_module(n, nprimes, prime_bits, "cpu")
+    rng = np.random.default_rng(105)
+    a = _edge_limbs(rng, (batch, ci, size_a, n))
+    pmat = _residues(rng, m.basis.primes, (rows, ci, 2, psize, nprimes, n))
+    kw = {}
+    if extra < 0:
+        kw["small"] = torch.from_numpy(rng.integers(-(2**40), 2**40, size=(batch, -extra, n)))
+    elif extra:
+        kw["small64"] = torch.from_numpy(rng.integers(-(2**62), 2**62, size=(batch, 2, extra, n)))
+    lay = tsl.sl_layout(ci * min(rows, size_a), 2, psize, nprimes, n)
+    assert (lay.kind, lay.tile) == ("split", tile)
+    out, launch = tsl._sl_product_launch(m, a, pmat, res_size, 17, 17, **kw)
+    launch()
+    assert torch.equal(out, tsl.fused_glwe_product_sl_ref(m, a, pmat, res_size, 17, 17, **kw))
+
+
+@pytest.mark.parametrize("n,nprimes,prime_bits,batch,size,rows,psize,block,rot_mode,tile", [
+    (128, 2, 28, 5, 2, 4, 4, 3, 0, 4),
+    (256, 2, 28, 5, 2, 4, 4, 3, 1, 4),
+    (512, 3, 30, 3, 3, 3, 4, 2, 0, 2),      # 30-bit primes: rot_mode 0 only
+    (512, 2, 28, 5, 2, 4, 4, 2, 2, 3),
+    (1024, 2, 28, 4, 3, 2, 2, 3, 1, 3),     # rows 2 < size: KK 4, M 4
+])
+def test_emulated_fused_sl_split_block_step_tiles(emulated, n, nprimes, prime_bits, batch, size,
+                                                  rows, psize, block, rot_mode, tile):
+    """The split design's block step under each rot_mode with `tile`
+    ciphertexts per block and a ragged last tile: == the plain step."""
+    m = t_get_module(n, nprimes, prime_bits, "cpu")
+    rng = np.random.default_rng(106)
+    acc = _edge_limbs(rng, (batch, 2, size, n))
+    pmats = _residues(rng, m.basis.primes, (block, rows, 2, 2, psize, nprimes, n))
+    amounts = torch.from_numpy(rng.integers(-n, 3 * n, size=(batch, block)))
+    amounts[0, :2] = torch.tensor([2 * n - 1, -n])
+    args = (m, acc, pmats, amounts, size, 17)
+    lay = tsl.sl_layout(2 * min(rows, size), 2, psize, nprimes, n, block, split=False)
+    assert (lay.kind, lay.tile) == ("split", tile)
     out, launch = tsl._sl_block_step_launch(*args, None, rot_mode)
     launch()
     assert torch.equal(out, tsl.fused_br_block_step_sl_ref(*args, 1, rot_mode))
-    assert torch.equal(out, tfused.fused_br_block_step_ref(*args))
+
+
+def test_emulated_fused_sl_split_global(emulated, monkeypatch):
+    """The split design's global layout at N 4096 (a workspace slot per
+    block, the exchange through a shared slot per row group, one block
+    walking three tasks): the product with its body and the block step,
+    == the plain versions; the parent design refuses N 4096."""
+    monkeypatch.setattr(_lib, "sm_count", lambda device: 1)
+    m = t_get_module(4096, 2, 28, "cpu")
+    rng = np.random.default_rng(107)
+    a = _edge_limbs(rng, (3, 1, 2, 4096))
+    pmat = _residues(rng, m.basis.primes, (2, 1, 2, 3, 2, 4096))
+    small = torch.from_numpy(rng.integers(-(2**40), 2**40, size=(3, 2, 4096)))
+    assert tsl.sl_layout(2, 2, 3, 2, 4096).kind == "global"
+    out, launch = tsl._sl_product_launch(m, a, pmat, 2, 17, 17, small=small)
+    launch()
+    assert torch.equal(out, tsl.fused_glwe_product_sl_ref(m, a, pmat, 2, 17, 17, small=small))
+    acc = _edge_limbs(rng, (2, 2, 2, 4096))
+    pmats = _residues(rng, m.basis.primes, (2, 2, 2, 2, 2, 2, 4096))
+    amounts = torch.from_numpy(rng.integers(-4096, 3 * 4096, size=(2, 2)))
+    args = (m, acc, pmats, amounts, 2, 17)
+    out, launch = tsl._sl_block_step_launch(*args, None, 2)
+    launch()
+    assert torch.equal(out, tsl.fused_br_block_step_sl_ref(*args, 1, 2))
+    with pytest.raises(ValueError, match="parent design does not take N 4096"):
+        tsl._sl_block_step_launch(*args, None, 2, "parent")
+
+
+@pytest.mark.parametrize("design", ["split", "parent"])
+def test_emulated_fused_sl_stage_clock(emulated, design):
+    """The TIMED instances of both designs at N 1024 (the product with its
+    body, the block step): the untimed output, a positive count per block
+    and stage; other N refuse the stage clock."""
+    m = t_get_module(1024, 2, 28, "cpu")
+    rng = np.random.default_rng(108)
+    a = _edge_limbs(rng, (3, 1, 2, 1024))
+    pmat = _residues(rng, m.basis.primes, (2, 1, 2, 3, 2, 1024))
+    small = torch.from_numpy(rng.integers(-(2**40), 2**40, size=(3, 2, 1024)))
+    out, stamps = tsl.stage_cycles(m, a, pmat, 2, 17, 17, small=small, design=design)
+    assert torch.equal(out, tsl.fused_glwe_product_sl_ref(m, a, pmat, 2, 17, 17, small=small))
+    tile = tsl.sl_layout(2, 2, 3, 2, 1024, design=design).tile
+    assert stamps.shape == (-(-3 // tile), len(tfused.STAGES)) and bool((stamps > 0).all())
+    acc = _edge_limbs(rng, (2, 2, 2, 1024))
+    pmats = _residues(rng, m.basis.primes, (2, 2, 2, 2, 4, 2, 1024))
+    amounts = torch.from_numpy(rng.integers(-1024, 3072, size=(2, 2)))
+    args = (m, acc, pmats, amounts, 2, 17)
+    out, stamps = tsl.stage_cycles(*args, block_step=True, design=design)
+    assert torch.equal(out, tsl.fused_br_block_step_sl_ref(*args))
+    tile = tsl.sl_layout(4, 2, 4, 2, 1024, 2, split=False, design=design).tile
+    assert stamps.shape == (-(-2 // tile), len(tfused.STAGES)) and bool((stamps > 0).all())
+    small_m = t_get_module(512, 2, 28, "cpu")
+    with pytest.raises(ValueError, match="stage clock"):
+        tsl.stage_cycles(small_m, a[..., :512], pmat[..., :512], 2, 17, 17, design=design)
+
+
+@pytest.mark.parametrize("rot_mode", [None, 0, 1])
+def test_emulated_fused_sl_wide_column(emulated, rot_mode):
+    """A column group of more output rows than the split design's VMP sums
+    in one pass (the product's psize 10, the block step's 2 × 5 > SPLIT_MR):
+    the outputs go after the inputs, two passes; both designs == the plain
+    version (rot_mode None: the product)."""
+    m = t_get_module(256, 2, 28, "cpu")
+    rng = np.random.default_rng(111)
+    if rot_mode is None:
+        a = _edge_limbs(rng, (2, 1, 3, 256))
+        pmat = _residues(rng, m.basis.primes, (3, 1, 2, 10, 2, 256))
+        args = (m, a, pmat, 4, 17, 17)
+        launch_fn, want = tsl._sl_product_launch, tsl.fused_glwe_product_sl_ref(*args)
+        kw = {}
+    else:
+        acc = _edge_limbs(rng, (2, 2, 2, 256))
+        pmats = _residues(rng, m.basis.primes, (2, 2, 2, 2, 5, 2, 256))
+        amounts = torch.from_numpy(rng.integers(-256, 3 * 256, size=(2, 2)))
+        args = (m, acc, pmats, amounts, 2, 17)
+        launch_fn, want = tsl._sl_block_step_launch, tsl.fused_br_block_step_sl_ref(*args, 1,
+                                                                                     rot_mode)
+        kw = {"rot_mode": rot_mode}
+    for design in tsl.DESIGNS:
+        out, launch = launch_fn(*args, design=design, **kw)
+        launch()
+        assert torch.equal(out, want), design
+
+
+def _fused_sl_mutant(tmp_path, monkeypatch, old: str, new: str) -> None:
+    """Build fused_sl.cu against a copy of the emulation's header with `old`
+    replaced by `new`, and make it the library the wrappers call."""
+    gxx = shutil.which("g++")
+    header = (EMU / "cuda_runtime.h").read_text()
+    assert old in header
+    (tmp_path / "cuda_runtime.h").write_text(header.replace(old, new))
+    for f in [CSRC / "fused_sl.cu", *CSRC.glob("*.cuh")]:
+        (tmp_path / f.name).write_text(_rewrite(f.read_text()))
+    so = tmp_path / "libfused_sl_mut.so"
+    subprocess.run([gxx, "-std=c++17", "-O0", "-fPIC", "-shared", "-w", f"-I{tmp_path}", "-x",
+                    "c++", "-o", str(so), str(tmp_path / "fused_sl.cu")], check=True)
+    monkeypatch.setattr(_lib, "library", lambda: _Libs([(ctypes.CDLL(str(so)),
+                                                         SOURCES["fused_sl"])]))
+
+
+def _fused_sl_product_case(seed: int, n: int = 256):
+    m = t_get_module(n, 2, 28, "cpu")
+    rng = np.random.default_rng(seed)
+    a = _edge_limbs(rng, (1, 2, 3, n))
+    pmat = _residues(rng, m.basis.primes, (3, 2, 2, 4, 2, n))
+    return m, a, pmat, tsl.fused_glwe_product_sl_ref(m, a, pmat, 3, 17, 17)
 
 
 def test_emulated_shuffle_read_before_write_fails(emulated, tmp_path, monkeypatch):
     """The emulation's warp shuffle is what makes fused_sl.cu right: built
     against a copy of the header whose shuffle reads the partner's slot
-    before the warp's first barrier (before the partner has written it), the
-    kernel no longer equals its plain version."""
-    gxx = shutil.which("g++")
-    header = (EMU / "cuda_runtime.h").read_text()
+    before the warp's first barrier (before the partner has written it),
+    neither design equals its plain version any more."""
     published = "  memcpy(&emu_shfl[w][lane], &v, sizeof(T));\n  emu_warp_bar[w].wait();\n"
-    assert published in header
-    (tmp_path / "cuda_runtime.h").write_text(
-        header.replace(published, "  memcpy(&emu_shfl[w][lane], &v, sizeof(T));\n"))
-    for f in [CSRC / "fused_sl.cu", *CSRC.glob("*.cuh")]:
-        (tmp_path / f.name).write_text(_rewrite(f.read_text()))
-    so = tmp_path / "libfused_sl_mut.so"
-    subprocess.run([gxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-w", f"-I{tmp_path}", "-x",
-                    "c++", "-o", str(so), str(tmp_path / "fused_sl.cu")], check=True)
-    monkeypatch.setattr(_lib, "library", lambda: _Libs([(ctypes.CDLL(str(so)),
-                                                         ("poulpy_fused_sl",))]))
-    m = t_get_module(256, 2, 28, "cpu")
-    rng = np.random.default_rng(94)
-    a = _edge_limbs(rng, (1, 2, 3, 256))
-    pmat = _residues(rng, m.basis.primes, (3, 2, 2, 4, 2, 256))
+    _fused_sl_mutant(tmp_path, monkeypatch, published,
+                     "  memcpy(&emu_shfl[w][lane], &v, sizeof(T));\n")
+    m, a, pmat, want = _fused_sl_product_case(94)
+    for design in tsl.DESIGNS:
+        out, launch = tsl._sl_product_launch(m, a, pmat, 3, 17, 17, design=design)
+        launch()
+        assert not torch.equal(out, want), design
+
+
+def test_emulated_group_barrier_removed_fails(emulated, tmp_path, monkeypatch):
+    """The split design's exchange waits on its row group's named barrier
+    alone: built against a copy of the header whose `bar.sync id, n` returns
+    at once, the split design reads its rows before the group has written
+    them (at N 512 and 4096) and no longer equals its plain version, while
+    the parent design, which has no named barrier, still does."""
+    _fused_sl_mutant(tmp_path, monkeypatch, "  if (b.count == 0) b.n = n;\n  b.wait();\n", "")
+    m, a, pmat, want = _fused_sl_product_case(109, 512)
+    out, launch = tsl._sl_product_launch(m, a, pmat, 3, 17, 17, design="parent")
+    launch()
+    assert torch.equal(out, want)
     out, launch = tsl._sl_product_launch(m, a, pmat, 3, 17, 17)
     launch()
-    assert not torch.equal(out, tsl.fused_glwe_product_sl_ref(m, a, pmat, 3, 17, 17))
+    assert not torch.equal(out, want)
+    m, a, pmat, want = _fused_sl_product_case(110, 4096)
+    out, launch = tsl._sl_product_launch(m, a, pmat, 3, 17, 17)
+    launch()
+    assert not torch.equal(out, want)
 
 
 # --------------------------------------------------------------------------

@@ -385,7 +385,8 @@ def test_cuda_br_block_step_shoup_matches_plain(cuda, n, batch, size, rows, bloc
 def test_cuda_fused_sl_product_matches_plain(cuda, pattern, n, batch, ci, rows, size_a, psize,
                                              res_size, extra):
     """The split layout's product, `small` and `small64` equal their plain
-    version and the default kernel's output, one "fused_sl_product" launch."""
+    version and the default kernel's output in both designs, one
+    "fused_sl_product" launch each."""
     from poulpy_tpu_torch.backends import fused_sl as tsl
 
     m = t_get_module(n, 2, 28, cuda)
@@ -401,12 +402,14 @@ def test_cuda_fused_sl_product_matches_plain(cuda, pattern, n, batch, ci, rows, 
         kw["small64"] = torch.from_numpy(rng.integers(-(2**47), 2**47,
                                                       size=(batch, 2, extra, n))).to(cuda)
     args = (m, a, pmat, res_size, 17, 17)
-    before = LAUNCHES["fused_sl_product"]
-    have = tsl.fused_glwe_product_sl(*args, **kw)
-    torch.cuda.synchronize()
-    assert LAUNCHES["fused_sl_product"] == before + 1
-    assert torch.equal(have, tsl.fused_glwe_product_sl_ref(*args, **kw))
-    assert torch.equal(have, tfused.fused_glwe_product(*args, **kw))
+    want = tsl.fused_glwe_product_sl_ref(*args, **kw)
+    assert torch.equal(want, tfused.fused_glwe_product(*args, **kw))
+    for design in tsl.DESIGNS:
+        before = LAUNCHES["fused_sl_product"]
+        have = tsl.fused_glwe_product_sl(*args, **kw, design=design)
+        torch.cuda.synchronize()
+        assert LAUNCHES["fused_sl_product"] == before + 1
+        assert torch.equal(have, want), design
 
 
 @pytest.mark.cuda
@@ -419,8 +422,8 @@ def test_cuda_fused_sl_product_matches_plain(cuda, pattern, n, batch, ci, rows, 
 def test_cuda_fused_sl_block_step_matches_plain(cuda, n, prime_bits, batch, size, rows, block,
                                                 rot_mode):
     """The split layout's block step equals its plain version and the
-    default kernel's output under each rot_mode, one "fused_sl_block_step"
-    launch; a chain raises."""
+    default kernel's output under each rot_mode in both designs, one
+    "fused_sl_block_step" launch each; a chain raises."""
     from poulpy_tpu_torch.backends import fused_sl as tsl
 
     m = t_get_module(n, 2, prime_bits, cuda)
@@ -430,14 +433,82 @@ def test_cuda_fused_sl_block_step_matches_plain(cuda, n, prime_bits, batch, size
                                        (block, rows, 2, 2, 4, 2, n))).to(cuda)
     amounts = torch.from_numpy(rng.integers(-n, 3 * n, size=(batch, block))).to(cuda)
     args = (m, acc, pmats, amounts, size, 17)
-    before = LAUNCHES["fused_sl_block_step"]
-    have = tsl.fused_br_block_step_sl(*args, rot_mode=rot_mode)
-    torch.cuda.synchronize()
-    assert LAUNCHES["fused_sl_block_step"] == before + 1
-    assert torch.equal(have, tsl.fused_br_block_step_sl_ref(*args, 1, rot_mode))
-    assert torch.equal(have, tfused.fused_br_block_step(*args))
+    want = tsl.fused_br_block_step_sl_ref(*args, 1, rot_mode)
+    assert torch.equal(want, tfused.fused_br_block_step(*args))
+    for design in tsl.DESIGNS:
+        before = LAUNCHES["fused_sl_block_step"]
+        have = tsl.fused_br_block_step_sl(*args, rot_mode=rot_mode, design=design)
+        torch.cuda.synchronize()
+        assert LAUNCHES["fused_sl_block_step"] == before + 1
+        assert torch.equal(have, want), design
     with pytest.raises(ValueError, match="one block step per launch"):
         tsl.fused_br_block_step_sl(*args, steps=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,pattern,rot_mode", [
+    (4096, "small", 2), (8192, "product", 2), (4096, "block", 1), (8192, "block", 0),
+])
+def test_cuda_fused_sl_split_global_layout(cuda, n, pattern, rot_mode):
+    """The split design past shared memory (N 4096 and 8192: the rows in a
+    workspace slot per block, the blocks walking the tasks) equals the plain
+    version; the parent design raises there."""
+    from poulpy_tpu_torch.backends import fused_sl as tsl
+
+    m = t_get_module(n, 2, 28, cuda)
+    rng = np.random.default_rng(30)
+    if pattern == "block":
+        acc = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(3, 2, 2, n))).to(cuda)
+        pmats = torch.from_numpy(_residues(rng, m.basis.primes, (8, 4, 2, 2, 4, 2, n))).to(cuda)
+        amounts = torch.from_numpy(rng.integers(-n, 3 * n, size=(3, 8))).to(cuda)
+        args = (m, acc, pmats, amounts, 2, 17)
+        assert tsl.sl_layout(4, 2, 4, 2, n, 8, split=False).kind == "global"
+        have = tsl.fused_br_block_step_sl(*args, rot_mode=rot_mode)
+        torch.cuda.synchronize()
+        assert torch.equal(have, tsl.fused_br_block_step_sl_ref(*args, 1, rot_mode))
+        with pytest.raises(ValueError, match="parent design"):
+            tsl.fused_br_block_step_sl(*args, rot_mode=rot_mode, design="parent")
+        return
+    a = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(3, 2, 3, n))).to(cuda)
+    pmat = torch.from_numpy(_residues(rng, m.basis.primes, (3, 2, 2, 4, 2, n))).to(cuda)
+    kw = {} if pattern == "product" else {
+        "small": torch.from_numpy(rng.integers(-(2**16), 2**16, size=(3, 3, n))).to(cuda)}
+    args = (m, a, pmat, 3, 17, 17)
+    have = tsl.fused_glwe_product_sl(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(have, tsl.fused_glwe_product_sl_ref(*args, **kw))
+    with pytest.raises(ValueError, match="parent design"):
+        tsl.fused_glwe_product_sl(*args, **kw, design="parent")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,rot_mode", [(1024, None), (2048, None), (1024, 1), (4096, 0)])
+def test_cuda_fused_sl_wide_column(cuda, n, rot_mode):
+    """A column group of more output rows than the split design's VMP sums
+    in one pass (the product's psize 10, the block step's 2 × 5): both
+    designs (the parent to N 2048) equal the plain version (rot_mode None:
+    the product)."""
+    from poulpy_tpu_torch.backends import fused_sl as tsl
+
+    m = t_get_module(n, 2, 28, cuda)
+    rng = np.random.default_rng(31)
+    if rot_mode is None:
+        a = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(5, 1, 3, n))).to(cuda)
+        pmat = torch.from_numpy(_residues(rng, m.basis.primes, (3, 1, 2, 10, 2, n))).to(cuda)
+        args = (m, a, pmat, 4, 17, 17)
+        run, want = tsl.fused_glwe_product_sl, tsl.fused_glwe_product_sl_ref(*args)
+        kw = {}
+    else:
+        acc = torch.from_numpy(rng.integers(-(2**16), 2**16, size=(5, 2, 2, n))).to(cuda)
+        pmats = torch.from_numpy(_residues(rng, m.basis.primes, (4, 2, 2, 2, 5, 2, n))).to(cuda)
+        amounts = torch.from_numpy(rng.integers(-n, 3 * n, size=(5, 4))).to(cuda)
+        args = (m, acc, pmats, amounts, 2, 17)
+        run, want = tsl.fused_br_block_step_sl, tsl.fused_br_block_step_sl_ref(*args, 1, rot_mode)
+        kw = {"rot_mode": rot_mode}
+    for design in tsl.DESIGNS if n <= 2048 else ("split",):
+        have = run(*args, **kw, design=design)
+        torch.cuda.synchronize()
+        assert torch.equal(have, want), design
 
 
 @pytest.mark.cuda

@@ -169,8 +169,16 @@ def test_routes_fall_back_where_jax_does():
     assert tbr.br_route(m64, "fused_sl", 4, 17, 1, 0) == "fused"
     assert tbr.br_route(m256, "fused_sl", 4, 17, 1, 0) == "fused_sl"
     assert tbr.br_route(m256, "fused_sl", 4, 17, 2, 0) == "fused"   # dsize 2: no fused BR
-    assert tsl.sl_layout(6, 2, 4, 2, 4096) is None                  # the kernel's N: 128 .. 2048
-    assert tsl.sl_layout(6, 2, 6, 2, 2048).cpb == 2
+    # the split design's N: 128 .. 8192, past 2048 in its global layout;
+    # the parent design's 128 .. 2048
+    assert tsl.sl_layout(6, 2, 4, 2, 4096).kind == "global"
+    assert tsl.sl_layout(6, 2, 4, 2, 8192).kind == "global"
+    assert tsl.sl_layout(6, 2, 4, 2, 16384) is None
+    assert tsl.sl_layout(6, 2, 4, 2, 4096, design="parent") is None
+    assert tsl.sl_layout(6, 2, 6, 2, 2048, design="parent").cpb == 2
+    assert tsl.sl_layout(6, 2, 6, 2, 2048).cpb == 1                 # ≤ 8 output rows a block
+    # a column of 10 output rows: two VMP passes, the outputs after the 6 input rows
+    assert tsl.split_rows(6, 10) == 16 and tsl.sl_layout(6, 1, 10, 2, 1024).cpb == 1
 
 
 @pytest.fixture(scope="module")
